@@ -1,0 +1,503 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout.  It builds the port's CUDA kernels from
+``src/repro_torch/csrc/`` (one ``nvcc`` per source, all at once), then:
+
+1. ``tuner``  — the robust and the nominal sweep over the Fig. 6 grid (15
+   expected workloads x rho in (0.25, 0.5, 1, 2, 3), CLASSIC, 64 starts,
+   250 Adam steps: 9,600 lanes), counting ``dual_solve`` launches; and, on
+   6 cells, the kernel path against the plain path with the same starts.
+2. ``engine`` — quickstart's nominal and robust tunings deployed at 10 M
+   entries of 64 bytes: ``populate`` and a 1 M-query ``run_session`` of the
+   write burst, counting ``merge`` and ``point_read`` launches; and a
+   200,000-entry, 20,000-query run on the CPU plain path and on the card,
+   whose ``IOStats`` and answers must be bit-identical.
+3. ``kernels`` — each kernel against its plain version on the card at the
+   main path's shapes (``merge``/``point_read`` bit-identical,
+   ``dual_solve`` to rel 1e-5 in value), with the CUDA-event time per call
+   (``ms``: what a caller waits, host launch included), the kernel's own
+   device time from a profiler trace (``device_ms``), the plain version's
+   time, a PyTorch library call's time where one exists, and the least
+   time the card could take (bytes over 3.35 TB/s or operations over 67
+   TFLOP/s, the H100 SXM data sheet's float32 rate).
+
+Each phase prints one JSON line; then the kernel table as one JSON line,
+the ``nvidia-smi`` name and power limit, and last the result line.  Any
+failed check raises, so the script exits non-zero.  It exits non-zero
+without a result when CUDA is not available or the package is missing.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+FP32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
+GRID_RHOS = (0.25, 0.5, 1.0, 2.0, 3.0)
+N_STARTS, STEPS = 64, 250
+N_ENTRIES, N_QUERIES = 10_000_000, 1_000_000
+DEVICE = "cuda"
+SMALL_ENTRIES, SMALL_QUERIES = 200_000, 20_000
+MERGE_N, READ_BATCH = 5_000_000, 1_000_000
+
+
+T_START = time.time()
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def log(msg: str) -> None:
+    """Progress on stderr, with seconds since start."""
+    print(f"[{time.time() - T_START:7.1f}s] {msg}", file=sys.stderr,
+          flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def gpu_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def time_ms(torch, fn, iters: int) -> float:
+    """Mean CUDA-event time of ``fn`` over ``iters`` calls, after warm-up."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int, kernel: str):
+    """Mean device time of the CUDA kernel whose name contains ``kernel``
+    over ``iters`` calls of ``fn``, from a ``torch.profiler`` trace: the
+    kernel alone, without the host's cost of launching it (None when the
+    profiler records no such kernel)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    return sum(times) / len(times) / 1e3 if times else None
+
+
+def bound(bytes_moved: float, ops: float) -> dict:
+    tb, to = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+# -- phase 1: the tuner --------------------------------------------------------
+
+def phase_tuner(torch, core, build, ref_dual):
+    sys_t = core.LSMSystem()
+    W = core.EXPECTED_WORKLOADS.astype("float32")
+    # the first sweep pays the process's first use of every CUDA kernel it
+    # launches (module loading); the second is the steady state
+    times = []
+    for _ in range(2):
+        log("tuner: robust sweep")
+        t0 = time.time()
+        build.reset_launches()
+        robust = core.tune_robust_many(W, GRID_RHOS, sys_t,
+                                       n_starts=N_STARTS, steps=STEPS,
+                                       device=DEVICE)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    launches = build.LAUNCHES["dual_solve"]
+    check(launches >= STEPS + 1, f"dual_solve launched {launches} times, "
+          f"expected >= {STEPS + 1}")
+    log("tuner: nominal sweep")
+    t0 = time.time()
+    nominal = core.tune_nominal_many(W.repeat(len(GRID_RHOS), 0), sys_t,
+                                     n_starts=N_STARTS, steps=STEPS,
+                                     device=DEVICE)
+    torch.cuda.synchronize()
+    t_nom = time.time() - t0
+    costs = [r.cost for row in robust for r in row] \
+        + [r.cost for r in nominal]
+    check(all(c == c and 0 < c < float("inf") for c in costs),
+          "tuner costs must be finite and positive")
+    # the kernel path against the plain path on 6 cells, same starts
+    cells = [(0, 0), (3, 1), (4, 4), (7, 2), (11, 0), (14, 3)]
+    Wc = W[[w for w, _ in cells]]
+    Rc = [GRID_RHOS[r] for _, r in cells]
+    common = dict(design=core.DesignSpace.CLASSIC, sys=sys_t,
+                  n_starts=N_STARTS, steps=STEPS, lr=0.25, robust=True,
+                  seed=0, device=DEVICE)
+    log("tuner: 6 cells, kernel and plain")
+    kern = core.solve_grid(Wc, Rc, **common)[0]
+    plain = core.solve_grid(Wc, Rc, dual_warm=ref_dual, **common)[0]
+    rel = ((kern - plain).abs() / plain.abs()).max().item()
+    check(rel <= 1e-4, f"tuner kernel vs plain exact cost rel {rel} > 1e-4")
+    return {"phase": "tuner", "steps": STEPS,
+            "lanes": len(W) * len(GRID_RHOS) * 2 * N_STARTS,
+            "robust_sweep_first_s": times[0], "robust_sweep_s": times[1],
+            "nominal_sweep_s": t_nom,
+            "dual_solve_launches": launches,
+            "six_cell_kernel_vs_plain_max_rel": rel,
+            "six_cell_costs": kern.tolist()}
+
+
+# -- phase 2: the engine -------------------------------------------------------
+
+def quickstart_tunings(core, quickstart):
+    """Quickstart's nominal and robust tunings, tuned on the card."""
+    sys_t = core.LSMSystem()
+    rho = core.rho_from_history(quickstart.HISTORY)
+    return {"nominal": core.tune_nominal(quickstart.EXPECTED, sys_t,
+                                         n_starts=32, steps=150,
+                                         device=DEVICE).phi,
+            "robust": core.tune_robust(quickstart.EXPECTED, rho, sys_t,
+                                       n_starts=32, steps=150,
+                                       device=DEVICE).phi}
+
+
+def deploy(core, lsm, phi, device, n):
+    return lsm.LSMTree.from_phi(phi, core.LSMSystem(), expected_entries=n,
+                                entry_bytes=64, device=device)
+
+
+def answers(tree, keys, np):
+    """Point answers and range results for a fixed probe set."""
+    rng = np.random.default_rng(5)
+    q = np.concatenate([rng.choice(keys, 2000),
+                        rng.integers(0, 2 ** 48, 500).astype(np.uint64)])
+    los = np.sort(rng.choice(keys, 50))
+    return (tree.point_query_batch(q),
+            tree.range_query_batch(los, los + np.uint64(2 ** 30),
+                                   return_results=True))
+
+
+def device_busy(torch, lsm, quickstart, tree, keys, n_queries=100_000):
+    """The device's busy share over one more session on ``tree``: the sum
+    of CUDA kernel times in a ``torch.profiler`` trace over the host wall
+    time (None when the profiler records no device time)."""
+    log("engine: profiled session")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        lsm.run_session(tree, keys, quickstart.BURST, n_queries=n_queries,
+                        seed=9)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    top = {}
+    for e in events:
+        name = e.name[:70]
+        top[name] = top.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])
+    return {"queries": n_queries, "wall_s": wall,
+            "device_s": busy_s if events else None,
+            "busy_share": busy_s / wall if events else None,
+            "top_kernels_ms": top}
+
+
+def phase_engine(torch, np, core, lsm, quickstart, build):
+    out = {"phase": "engine", "entries": N_ENTRIES, "queries": N_QUERIES,
+           "mix": quickstart.BURST.tolist(), "trees": {}}
+    keys_of = {}
+    phis = quickstart_tunings(core, quickstart)
+    trees = {name: deploy(core, lsm, phi, DEVICE, N_ENTRIES)
+             for name, phi in phis.items()}
+    build.reset_launches()
+    for name, tree in trees.items():
+        log(f"engine: populate {name}")
+        t0 = time.time()
+        keys = lsm.populate(tree, N_ENTRIES, seed=1)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        log(f"engine: session {name}")
+        res = lsm.run_session(tree, keys, quickstart.BURST,
+                              n_queries=N_QUERIES, seed=2)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        check(res.avg_io_per_query > 0 and res.queries == N_QUERIES,
+              f"{name}: empty session")
+        check(tree.num_entries >= N_ENTRIES, f"{name}: entries lost")
+        out["trees"][name] = {
+            "T": tree.cfg.T, "K": list(tree.cfg.K[:4]),
+            "buf_entries": tree.cfg.buf_entries, "shape": [
+                (lv, len(runs), sum(runs)) for lv, runs in tree.shape()],
+            "populate_s": t1 - t0, "session_s": t2 - t1,
+            "avg_io_per_query": res.avg_io_per_query,
+            "io": res.io.as_dict(),
+            "arena_mb": sum(lv.keys.numel() + lv.vals.numel()
+                            for lv in tree.store.levels) * 8 / 1e6}
+        keys_of[name] = keys
+    launches = dict(build.LAUNCHES)
+    out["launches"] = launches
+    for k in ("merge", "point_read"):
+        check(launches[k] > 0, f"{k} never launched on the engine path")
+    out["device_busy"] = device_busy(torch, lsm, quickstart,
+                                     trees["nominal"], keys_of["nominal"])
+    # the CPU plain path and the card, bit for bit, at 200K entries
+    small = {}
+    for dev in ("cpu", DEVICE):
+        log(f"engine: 200K run on {dev}")
+        tree = deploy(core, lsm, phis["robust"], dev, SMALL_ENTRIES)
+        keys = lsm.populate(tree, SMALL_ENTRIES, seed=3)
+        res = lsm.run_session(tree, keys, quickstart.BURST,
+                              n_queries=SMALL_QUERIES, seed=4)
+        small[dev] = (res.io.as_dict(), answers(tree, keys, np),
+                      [(lv.keys.cpu(), lv.vals.cpu())
+                       for lv in tree.store.levels])
+    check(small["cpu"][0] == small[DEVICE][0], "IOStats: cpu != cuda")
+    check(small["cpu"][1] == small[DEVICE][1], "answers: cpu != cuda")
+    check(all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+              for a, b in zip(small["cpu"][2], small[DEVICE][2])),
+          "arenas: cpu != cuda")
+    out["cpu_vs_cuda_200k"] = {"identical": True, "io": small[DEVICE][0]}
+    return trees["nominal"], keys_of["nominal"], out
+
+
+# -- phase 3: each kernel against its plain version ----------------------------
+
+def kernel_dual_solve(torch, core, ops, ref, dev):
+    """The tuner's step-0 lane batch (the Fig. 6 grid, 9,600 lanes), and a
+    ragged batch with rho = 0 lanes."""
+    sys_t = core.LSMSystem()
+    W = torch.tensor(core.EXPECTED_WORKLOADS, dtype=torch.float32)
+    P = len(W) * len(GRID_RHOS)
+    gen = torch.Generator().manual_seed(0)
+    theta = core.designs.random_inits(gen, N_STARTS, core.DesignSpace.CLASSIC,
+                                      sys_t).repeat(2 * P, 1).to(dev)
+    pol = torch.cat([torch.zeros(N_STARTS), torch.ones(N_STARTS)]
+                    ).repeat(P).to(dev)
+    W_l = W.repeat_interleave(len(GRID_RHOS), 0).repeat_interleave(
+        2 * N_STARTS, 0).to(dev)
+    rho = torch.tensor(GRID_RHOS, dtype=torch.float32).repeat(
+        len(W)).repeat_interleave(2 * N_STARTS).to(dev)
+    C = core.cost_vector(core.to_phi_policy(theta, pol, sys_t), sys_t,
+                         smooth=True)
+    _, llam = core.dual_solve_cold(C, W_l, rho)
+    rows = []
+    m = min(1237, C.shape[0])                  # ragged: not a block multiple
+    rho_m = torch.where(torch.arange(m, device=dev) % 7 == 0, 0.0, rho[:m])
+    for C_, W_, r_, l_ in ((C, W_l, rho, llam),
+                           (C[:m], W_l[:m], rho_m, llam[:m])):
+        v1, l1 = ops.dual_solve_warm_batch(C_, W_, r_, l_)
+        v2, l2 = ref.dual_solve_warm_ref(C_, W_, r_, l_)
+        rel = ((v1 - v2).abs() / v2.abs()).max().item()
+        dl = (l1 - l2).abs()
+        frac = (dl <= 1e-5).float().mean().item()
+        check(rel <= 1e-5, f"dual_solve value rel {rel} > 1e-5")
+        check(frac >= 0.99 and dl.max().item() <= 0.1,
+              f"dual_solve log lambda: {frac} within 1e-5, max {dl.max()}")
+        rows.append({"L": C_.shape[0], "val_max_rel": rel,
+                     "val_max_abs": (v1 - v2).abs().max().item(),
+                     "llam_frac_within_1e-5": frac,
+                     "llam_max_abs": dl.max().item()})
+    L, n = C.shape
+    evals = 3 + 2 + 6 + 1                       # g-evaluations per lane
+    ops_per_g = 6 * n + 6                       # exp, div, add, max, sub, ...
+    return {"name": "dual_solve", "route": "cuda",
+            "source": "src/repro_torch/csrc/dual_solve.cu",
+            "replaces": "src/repro/kernels/dual_solve/kernel.py:93",
+            "max_abs_err": max(r["val_max_abs"] for r in rows),
+            "ms": time_ms(torch, lambda: ops.dual_solve_warm_batch(
+                C, W_l, rho, llam), 200),
+            "device_ms": device_ms(torch, lambda: ops.dual_solve_warm_batch(
+                C, W_l, rho, llam), 50, "dual_solve_warm_kernel"),
+            "plain_ms": time_ms(torch, lambda: ref.dual_solve_warm_ref(
+                C, W_l, rho, llam), 20),
+            "library_ms": None,
+            **bound(L * (2 * n + 2 + 2) * 4, L * evals * ops_per_g),
+            "checks": rows}
+
+
+def kernel_merge(torch, np, ops, ref, u64, dev):
+    """5 M + 5 M with duplicates (a compaction's shape at this scale), and
+    ragged sizes."""
+    rng = np.random.default_rng(0)
+    rows = []
+    for na, nb in ((MERGE_N, MERGE_N), (1, 0), (0, 3), (999_983, 4_099),
+                   (37, 1_000_003)):
+        pool = np.unique(rng.integers(0, 2 ** 64 - 1, int(1.6 * (na + nb))
+                                      + 8, dtype=np.uint64, endpoint=True))
+        a = np.sort(rng.choice(pool, na, replace=False))
+        b = np.sort(rng.choice(pool, nb, replace=False))   # overlaps a
+        args = (u64.to_device_keys(a, dev), torch.arange(na, device=dev),
+                u64.to_device_keys(b, dev),
+                torch.arange(nb, device=dev) + 10 ** 9)
+        k1, v1 = ops.two_way_merge(*args)
+        k2, v2 = ref.two_way_merge_ref(*args)
+        same = torch.equal(k1, k2) and torch.equal(v1, v2)
+        check(same, f"merge {na}+{nb}: kernel != plain")
+        rows.append({"na": na, "nb": nb, "bit_identical": same,
+                     "equal_keys": int((k1[1:] == k1[:-1]).sum())})
+        if na == MERGE_N:
+            big, big_out = args, (k1, v1)
+    n = big[0].numel() + big[2].numel()
+
+    def library():
+        """A stable sort of both runs: the same function (A first on
+        equal keys), as one PyTorch call plus the value gather."""
+        keys = torch.cat([big[0], big[2]])
+        order = torch.sort(keys, stable=True).indices
+        return keys[order], torch.cat([big[1], big[3]])[order]
+
+    lk, lv = library()
+    check(torch.equal(lk, big_out[0]) and torch.equal(lv, big_out[1]),
+          "merge: the library yardstick computes another function")
+    steps = int(np.ceil(np.log2(n + 1)))
+    return {"name": "merge", "route": "cuda",
+            "source": "src/repro_torch/csrc/merge.cu",
+            "replaces": "src/repro/kernels/merge/kernel.py:70",
+            "max_abs_err": 0,
+            "ms": time_ms(torch, lambda: ops.two_way_merge(*big), 20),
+            "device_ms": device_ms(torch, lambda: ops.two_way_merge(*big), 10,
+                                   "merge_path_kernel"),
+            "plain_ms": time_ms(torch, lambda: ref.two_way_merge_ref(*big),
+                                3),
+            "library_ms": time_ms(torch, library, 10),
+            **bound(n * 16 * 2, n * steps * 4), "checks": rows}
+
+
+def kernel_point_read(torch, np, ops, ref, u64, tree, keys, dev):
+    """A 1 M-key batch, half hits and half misses, against the deepest
+    level of the populated 10 M-entry tree (and against every level)."""
+    rng = np.random.default_rng(1)
+    hits = rng.choice(keys, READ_BATCH // 2)
+    misses = rng.integers(0, 2 ** 48, READ_BATCH // 2).astype(np.uint64) | \
+        np.uint64(1 << 60)
+    q = u64.to_device_keys(rng.permutation(np.concatenate([hits, misses])),
+                           dev)
+    rows = []
+    for i, lv in enumerate(tree.store.levels):
+        if not lv.num_runs:
+            continue
+        pack = lv.pack
+        got = ops.point_read_level(q, lv.keys, lv.vals, pack)
+        want = ref.point_read_level_ref(q, lv.keys, lv.vals, pack.starts,
+                                        pack.n_bits, pack.ks, pack.fence_lo,
+                                        pack.fence_hi, pack.words,
+                                        pack.word_off)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(same, f"point_read level {i + 1}: kernel != plain")
+        rows.append({"level": i + 1, "runs": lv.num_runs,
+                     "entries": lv.entries, "bit_identical": same,
+                     "hits": int(got[0].sum()), "probes": int(got[2].sum()),
+                     "reads": int(got[3].sum()), "fps": int(got[4].sum())})
+        deepest = (lv, pack, rows[-1])
+    lv, pack, row = deepest
+    B = q.numel()
+    # least bytes: each key in, 33 bytes of results out, one Bloom word per
+    # probe, one key + one value per positive run
+    moved = B * (8 + 33) + row["probes"] * 8 + row["reads"] * 16
+    k = max(pack.ks)
+    ops_count = row["probes"] * k * 12 + row["reads"] * 4 * int(
+        np.log2(lv.entries + 1))
+    return {"name": "point_read", "route": "cuda",
+            "source": "src/repro_torch/csrc/point_read.cu",
+            "replaces": "src/repro/kernels/point_read/kernel.py:115",
+            "max_abs_err": 0,
+            "ms": time_ms(torch, lambda: ops.point_read_level(
+                q, lv.keys, lv.vals, pack), 20),
+            "device_ms": device_ms(torch, lambda: ops.point_read_level(
+                q, lv.keys, lv.vals, pack), 10, "point_read_kernel"),
+            "plain_ms": time_ms(torch, lambda: ref.point_read_level_ref(
+                q, lv.keys, lv.vals, pack.starts, pack.n_bits, pack.ks,
+                pack.fence_lo, pack.fence_hi, pack.words, pack.word_off), 3),
+            "library_ms": None, **bound(moved, ops_count), "checks": rows}
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke.py: run it from the root of a checkout (no "
+              "src/repro_torch here)", file=sys.stderr)
+        return 2
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available; the port's main path "
+              "runs on an NVIDIA GPU", file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(SRC))
+    import repro_torch.core as core
+    import repro_torch.lsm as lsm
+    from repro_torch import quickstart
+    from repro_torch.kernels import _build as build
+    from repro_torch.kernels.dual_solve import ops as dual_ops
+    from repro_torch.kernels.dual_solve import ref as dual_ref
+    from repro_torch.kernels.merge import ops as merge_ops
+    from repro_torch.kernels.merge import ref as merge_ref
+    from repro_torch.kernels.point_read import ops as read_ops
+    from repro_torch.kernels.point_read import ref as read_ref
+    from repro_torch.utils import u64
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = gpu_line()
+    log(f"build on {gpu}")
+    t0 = time.time()
+    report = build.build()
+    regs = {name: [ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln]
+            for name, log in report.items()}
+    emit({"phase": "build", "seconds": time.time() - t0, "gpu": gpu,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "ptxas": regs})
+
+    tuner = phase_tuner(torch, core, build, dual_ref.dual_solve_warm_ref)
+    emit(tuner)
+    tree, keys, engine = phase_engine(torch, np, core, lsm, quickstart,
+                                      build)
+    emit(engine)
+    launches = {"dual_solve": tuner["dual_solve_launches"],
+                **{k: engine["launches"][k] for k in ("merge",
+                                                      "point_read")}}
+
+    dev = DEVICE
+    log("kernels")
+    kernels = [
+        kernel_dual_solve(torch, core, dual_ops, dual_ref, dev),
+        kernel_merge(torch, np, merge_ops, merge_ref, u64, dev),
+        kernel_point_read(torch, np, read_ops, read_ref, u64, tree, keys,
+                          dev),
+    ]
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    emit({"phase": "kernels", "kernels": kernels})
+    keyset = ("name", "route", "source", "replaces", "launches",
+              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+    emit({"kernels": [{key: k[key] for key in keyset} for k in kernels]})
+    print(gpu, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,85 @@
+"""Carry state from the JAX package's objects into the port's.
+
+Both functions take plain numpy arrays and Python values, so this module
+imports nothing of the JAX package; a caller extracts the arrays from a
+``repro.lsm.LSMTree`` or a ``repro.core.Phi`` (``np.asarray`` on each
+field) and passes them in.
+
+* :func:`phi_from_numpy` — a tuning ``(T, mfilt_bits, K)`` as a port
+  :class:`~repro_torch.core.lsm_cost.Phi`.
+* :func:`tree_from_numpy` — a whole engine: config, every level's arenas
+  and run metadata, the value codec's intern table, the write buffer, the
+  I/O counters and the flush clock.  Keys become the ordered int64 form
+  of the device arenas; Bloom words, where given, are carried bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from .core.lsm_cost import Phi
+from .lsm.engine import EngineConfig, IOStats, LSMTree
+from .lsm.store import LevelStore, RunData
+from .utils.u64 import to_device_keys
+
+
+def phi_from_numpy(T, mfilt_bits, K) -> Phi:
+    """A float32 port ``Phi`` from array-likes (CPU tensors)."""
+    f32 = lambda x: torch.as_tensor(np.array(x, np.float32))  # noqa: E731
+    return Phi(T=f32(T), mfilt_bits=f32(mfilt_bits), K=f32(K))
+
+
+def _level_from_numpy(lv: Mapping[str, Any], device) -> LevelStore:
+    """One level dict (keys, vals, starts, n_bits, ks, flushes, tomb_seqs,
+    min_keys, max_keys, words) -> a port ``LevelStore`` on ``device``."""
+    starts = np.asarray(lv["starts"], np.int64)
+    keys = to_device_keys(np.asarray(lv["keys"], np.uint64), device)
+    vals = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(lv["vals"], np.int64))).to(device)
+    words = lv.get("words")
+    runs = []
+    for r in range(len(starts) - 1):
+        s, e = int(starts[r]), int(starts[r + 1])
+        w = None if words is None or words[r] is None else torch.from_numpy(
+            np.ascontiguousarray(np.asarray(words[r], np.uint64))
+            .view(np.int64)).to(device)
+        runs.append(RunData(
+            keys=keys[s:e], vals=vals[s:e], flushes=int(lv["flushes"][r]),
+            n_bits=int(lv["n_bits"][r]), k=int(lv["ks"][r]),
+            min_key=int(lv["min_keys"][r]), max_key=int(lv["max_keys"][r]),
+            words=w, tomb_seq=int(lv["tomb_seqs"][r])))
+    out = LevelStore(device)
+    out._set_runs(runs)
+    return out
+
+
+def tree_from_numpy(config_fields: Mapping[str, Any],
+                    levels: Sequence[Mapping[str, Any]],
+                    codec_objects: Sequence[Any],
+                    buffer: Mapping[int, int],
+                    stats: Mapping[str, Any],
+                    flush_seq: int, device=None) -> LSMTree:
+    """A port ``LSMTree`` holding the given state.
+
+    ``config_fields`` are ``EngineConfig``'s fields (``dataclasses.asdict``
+    of the reference config); ``levels`` one dict per level, 1-indexed
+    order (see :func:`_level_from_numpy`); ``codec_objects`` the intern
+    table; ``buffer`` the memtable (uint64 key -> encoded value);
+    ``stats`` ``IOStats``'s fields."""
+    fields: Dict[str, Any] = dict(config_fields)
+    fields["K"] = tuple(int(k) for k in fields.get("K", ()))
+    fields["policy_params"] = tuple(
+        tuple(p) for p in fields.get("policy_params", ()))
+    tree = LSMTree(EngineConfig(**fields), device=device)
+    tree.store.levels = [_level_from_numpy(lv, tree.device) for lv in levels]
+    tree.store.codec.objects = list(codec_objects)
+    tree.buffer = {int(k): int(v) for k, v in buffer.items()}
+    names = {f.name for f in dataclasses.fields(IOStats)}
+    tree.stats = IOStats(**{k: (dict(v) if k == "queries" else int(v))
+                            for k, v in stats.items() if k in names})
+    tree.flush_seq = int(flush_seq)
+    return tree

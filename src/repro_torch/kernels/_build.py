@@ -1,0 +1,151 @@
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` into its own shared library with a plain
+C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds).  Libraries land in ``src/repro_torch/_build/`` (listed in
+``.gitignore``), named by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one is reused.  :func:`build` starts one
+``nvcc`` per missing library, all at once; the first call of a kernel's
+wrapper builds its library if :func:`build` has not run.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and neither ``--use_fast_math`` nor
+FMA contraction, so ``expf``/``logf`` and every float op round as the plain
+PyTorch versions' separate ops do.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on a non-zero code.  :data:`LAUNCHES` counts, per
+kernel, the launches its wrapper made.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+KERNELS = ("dual_solve", "merge", "point_read")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+#: launches per kernel, counted by each ops.py wrapper where it launches
+LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+_FNS: Dict[tuple, ctypes._CFuncPtr] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc_path() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    cands += ["/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the port's CUDA kernels build only where the CUDA "
+                       "toolkit is installed")
+
+
+def _target(name: str) -> tuple:
+    src = CSRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every library not built yet, one ``nvcc`` per source, all
+    started together.  Returns ``{name: nvcc/ptxas report}`` for the ones
+    it compiled; raises with the compiler's output when one fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = {}
+    try:
+        for name in names:
+            src, out = _target(name)
+            if out.exists():
+                continue
+            nvcc = nvcc or nvcc_path()
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            procs[name] = (proc, tmp, out)
+        reports = {}
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                                   f"(exit {proc.returncode}):\n{log}")
+            os.replace(tmp, out)
+            reports[name] = log
+        return reports
+    finally:
+        for proc, tmp, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if tmp.exists():
+                tmp.unlink()
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        _, out = _target(name)
+        if not out.exists():
+            build([name])
+        lib = ctypes.CDLL(str(out))
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def kernel_fn(name: str, symbol: str, argtypes: Sequence):
+    """The C entry ``symbol`` of kernel ``name``'s library, typed."""
+    key = (name, symbol)
+    fn = _FNS.get(key)
+    if fn is None:
+        fn = getattr(_library(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    return fn
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a launch returned a CUDA error; count it otherwise."""
+    if rc != 0:
+        msg = _library(name).kernel_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} "
+                           f"(cudaError {rc})")
+    LAUNCHES[name] += 1
+
+
+def stream_of(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as the raw handle."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+P = ctypes.c_void_p
+I64 = ctypes.c_longlong
+I32 = ctypes.c_int
+F32 = ctypes.c_float

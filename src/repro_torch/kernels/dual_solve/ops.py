@@ -1,0 +1,101 @@
+"""Dispatch for the warm-started dual solve (kernel 1).
+
+* :func:`dual_solve_warm_batch` — no-grad, lane-batched: the CUDA kernel
+  (``csrc/dual_solve.cu``) for CUDA tensors, the plain version
+  (``ref.dual_solve_warm_ref``) for CPU tensors, and nothing else.
+* :func:`dual_solve_warm` — the same solve under autograd, as the robust
+  tuner calls it once per Adam step over every lane.  Its backward is the
+  envelope gradient of ``repro/core/robust.py:35-45``: at the returned
+  lambda, d value / d c = softmax(log w + c / lambda), or w where
+  rho <= 0.  The new log lambda is not differentiable (the reference's
+  ``stop_gradient``).  The backward is plain torch ops: the TPU kernel has
+  no backward kernel either.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import _build
+from .._build import F32, I32, I64, P
+from .ref import dual_solve_warm_ref
+
+_LAUNCH_ARGS = (P, P, I64, P, P, P, P, I64, I32, F32, I32, I32, P)
+
+N_MAX = 16      # widest cost vector the kernel takes (register arrays)
+
+
+def dual_solve_warm_batch(C: torch.Tensor, W: torch.Tensor,
+                          rho: torch.Tensor, llam: torch.Tensor,
+                          half_width: float = 0.8, n_local: int = 3,
+                          n_golden: int = 6
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values (L,), new log lam* (L,)) for C (L, n), W (L, n) or (n,),
+    rho/llam (L,), all float32 on one device."""
+    if C.dim() != 2:
+        raise ValueError(f"C must be (L, n), got {tuple(C.shape)}")
+    L, n = C.shape
+    if W.shape not in ((L, n), (n,)) or rho.shape != (L,) \
+            or llam.shape != (L,):
+        raise ValueError("dual_solve: W must be (L, n) or (n,) and rho, "
+                         f"llam (L,); got C {tuple(C.shape)}, W "
+                         f"{tuple(W.shape)}, rho {tuple(rho.shape)}, llam "
+                         f"{tuple(llam.shape)}")
+    ts = (C, W, rho, llam)
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError("dual_solve takes float32 tensors")
+    if any(t.device != C.device for t in ts):
+        raise ValueError("dual_solve: tensors on different devices")
+    if C.device.type == "cpu":
+        with torch.no_grad():
+            return dual_solve_warm_ref(C, W, rho, llam, half_width, n_local,
+                                       n_golden)
+    if C.device.type != "cuda":
+        raise ValueError(f"dual_solve: no kernel for device {C.device}")
+    if n > N_MAX:
+        raise ValueError(f"dual_solve kernel takes n <= {N_MAX}, got {n}")
+    C, W, rho, llam = (t.detach().contiguous() for t in ts)
+    val = torch.empty(L, dtype=torch.float32, device=C.device)
+    lnew = torch.empty_like(val)
+    if L == 0:
+        return val, lnew
+    fn = _build.kernel_fn("dual_solve", "dual_solve_warm_launch",
+                          _LAUNCH_ARGS)
+    rc = fn(C.data_ptr(), W.data_ptr(), n if W.dim() == 2 else 0,
+            rho.data_ptr(), llam.data_ptr(), val.data_ptr(), lnew.data_ptr(),
+            L, n, half_width, n_local, n_golden, _build.stream_of(C))
+    _build.check("dual_solve", rc)
+    return val, lnew
+
+
+class DualSolveWarm(torch.autograd.Function):
+    """Kernel forward, envelope-gradient backward (see module docstring)."""
+
+    @staticmethod
+    def forward(ctx, C, W, rho, llam, half_width, n_local, n_golden):
+        val, lnew = dual_solve_warm_batch(C, W, rho, llam, half_width,
+                                          n_local, n_golden)
+        ctx.save_for_backward(C, W, rho, lnew)
+        ctx.mark_non_differentiable(lnew)
+        return val, lnew
+
+    @staticmethod
+    def backward(ctx, g_val, g_lnew):
+        C, W, rho, lnew = ctx.saved_tensors
+        W = W.expand_as(C)
+        lam = torch.clamp(torch.exp(lnew), min=1e-12)
+        x = torch.log(W) + C / lam[:, None]
+        e = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+        dc = torch.where((rho <= 0.0)[:, None], W, e / e.sum(-1, keepdim=True))
+        return g_val[:, None] * dc, None, None, None, None, None, None
+
+
+def dual_solve_warm(C: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
+                    llam: torch.Tensor, half_width: float = 0.8,
+                    n_local: int = 3, n_golden: int = 6
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable (in C) lane-batched warm solve; the tuner's call."""
+    return DualSolveWarm.apply(C, W, rho, llam.detach(), half_width,
+                               n_local, n_golden)

@@ -100,6 +100,8 @@ if _HYPOTHESIS_STUBBED:
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without them")
 
 
 def pytest_report_header(config):

@@ -1,0 +1,125 @@
+"""The port's CUDA kernels and engine on the card (marked ``cuda``).
+
+Each kernel against its plain PyTorch version on the same CUDA tensors,
+and the engine's kernel path against its CPU plain path from the same
+seed.  These tests import neither jax nor the JAX package, so they run on
+a machine with a card and no jax:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Without a card (or without ``nvcc``) they skip with the reason.
+"""
+
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.lsm as P
+from repro_torch.kernels import _build
+from repro_torch.kernels.dual_solve.ops import dual_solve_warm_batch
+from repro_torch.kernels.dual_solve.ref import dual_solve_warm_ref
+from repro_torch.kernels.merge.ops import merge_runs, two_way_merge
+from repro_torch.kernels.point_read.ops import point_read_level
+from repro_torch.lsm import store
+from repro_torch.utils import u64
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    try:
+        _build.nvcc_path()
+    except RuntimeError as e:
+        pytest.skip(str(e))
+    _build.build()
+    return torch.device("cuda")
+
+
+def _u64_keys(rng, n):
+    keys = np.unique(rng.integers(0, 2 ** 64 - 1, 2 * n + 16,
+                                  dtype=np.uint64, endpoint=True))
+    return np.sort(rng.choice(keys, n, replace=False))
+
+
+@pytest.mark.parametrize("L,n", [(9600, 4), (1237, 4), (77, 9)])
+def test_dual_solve_kernel_matches_plain(dev, L, n):
+    rng = np.random.default_rng(L)
+    C = torch.tensor(rng.gamma(2.0, 2.0, (L, n)), dtype=torch.float32,
+                     device=dev)
+    W = torch.tensor(rng.dirichlet(np.ones(n), L), dtype=torch.float32,
+                     device=dev)
+    rho = torch.tensor(rng.uniform(0, 3, L), dtype=torch.float32,
+                       device=dev)
+    rho[::5] = 0.0
+    llam = torch.log(C.max(1).values - C.min(1).values)
+    before = _build.LAUNCHES["dual_solve"]
+    v1, l1 = dual_solve_warm_batch(C, W, rho, llam)
+    assert _build.LAUNCHES["dual_solve"] == before + 1
+    v2, l2 = dual_solve_warm_ref(C, W, rho, llam)
+    assert ((v1 - v2).abs() / v2.abs()).max().item() <= 1e-5
+    dl = (l1 - l2).abs()
+    assert (dl <= 1e-5).float().mean().item() >= 0.99
+    assert dl.max().item() <= 0.1
+
+
+@pytest.mark.parametrize("na,nb", [(50_000, 70_000), (1, 0), (0, 3),
+                                   (129, 1)])
+def test_merge_kernel_matches_plain(dev, na, nb):
+    rng = np.random.default_rng(na + nb)
+    pool = _u64_keys(rng, int(1.5 * (na + nb)) + 4)
+    a = np.sort(rng.choice(pool, na, replace=False))
+    b = np.sort(rng.choice(pool, nb, replace=False))
+    args = [u64.to_device_keys(a, dev), torch.arange(na, device=dev),
+            u64.to_device_keys(b, dev), torch.arange(nb, device=dev) + 10**9]
+    k, v = two_way_merge(*args)
+    rk, rv = two_way_merge(*(t.cpu() for t in args))
+    assert torch.equal(k.cpu(), rk) and torch.equal(v.cpu(), rv)
+    k, v = merge_runs([args[0], args[2]], [args[1], args[3]])
+    rk, rv = merge_runs([args[0].cpu(), args[2].cpu()],
+                        [args[1].cpu(), args[3].cpu()])
+    assert torch.equal(k.cpu(), rk) and torch.equal(v.cpu(), rv)
+
+
+def test_point_read_kernel_matches_plain(dev):
+    rng = np.random.default_rng(0)
+    keys = _u64_keys(rng, 60_000)
+    runs = [keys[::3], keys[1::2], keys[::5], np.empty(0, np.uint64)]
+    levels = {}
+    for d in ("cpu", dev):
+        lv = store.LevelStore(d)
+        lv._set_runs([store.RunData.build(
+            u64.to_device_keys(r, d), torch.arange(len(r), device=d) * 2 + 1,
+            7.5, flushes=1) for r in runs])
+        levels[str(d)] = lv
+    q = np.concatenate([rng.choice(keys, 5000), _u64_keys(rng, 5000)])
+    got = point_read_level(u64.to_device_keys(q, dev), levels["cuda"].keys,
+                           levels["cuda"].vals, levels["cuda"].pack)
+    want = point_read_level(u64.to_device_keys(q, "cpu"), levels["cpu"].keys,
+                            levels["cpu"].vals, levels["cpu"].pack)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_engine_on_card_matches_cpu_plain_path(dev):
+    cfg = P.EngineConfig(T=5, K=(4,) * 8, buf_entries=300,
+                         expected_entries=20_000, mfilt_bits_per_entry=6.0)
+    trees = {d: P.LSMTree(cfg, device=d) for d in ("cpu", "cuda")}
+    keys = {d: P.populate(t, 20_000, seed=3) for d, t in trees.items()}
+    for s, mix in enumerate([[0.33, 0.33, 0.33, 0.01],
+                             [0.05, 0.10, 0.05, 0.80]]):
+        res = {d: P.run_session(t, keys[d], np.array(mix), n_queries=3000,
+                                seed=s) for d, t in trees.items()}
+        assert res["cpu"].io.as_dict() == res["cuda"].io.as_dict()
+    for a, b in zip(trees["cpu"].store.levels, trees["cuda"].store.levels):
+        assert torch.equal(a.keys, b.keys.cpu())
+        assert torch.equal(a.vals, b.vals.cpu())
+    q = keys["cpu"][:500]
+    assert trees["cpu"].point_query_batch(q) \
+        == trees["cuda"].point_query_batch(q)
+    lo = np.sort(keys["cpu"][:20])
+    assert trees["cpu"].range_query_batch(lo, lo + np.uint64(2 ** 36), True) \
+        == trees["cuda"].range_query_batch(lo, lo + np.uint64(2 ** 36), True)
