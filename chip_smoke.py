@@ -15,14 +15,26 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    write burst, counting ``merge`` and ``point_read`` launches; and a
    200,000-entry, 20,000-query run on the CPU plain path and on the card,
    whose ``IOStats`` and answers must be bit-identical.
-3. ``kernels`` — each kernel against its plain version on the card at the
+3. ``serve`` — the dense LM server: ``qwen3-14b`` at its published width
+   and depth (40 layers, d_model 5120, 14.8 B parameters in bfloat16) from
+   the port's seeded init on the card, ``serve_batch`` with batch 4,
+   prompt 2048 and 32 greedy tokens, counting ``flash_attention`` launches
+   (one per layer of the prefill); a profiled prefill and four profiled
+   decode steps (device busy share, kernels by device time); and the
+   first 2 layers of the same weights in float32 at prompt 256, whose
+   last-position prefill logits through the kernel and through the plain
+   attention must agree to 1e-3 of the largest logit.
+4. ``kernels`` — each kernel against its plain version on the card at the
    main path's shapes (``merge``/``point_read`` bit-identical,
-   ``dual_solve`` to rel 1e-5 in value), with the CUDA-event time per call
+   ``dual_solve`` to rel 1e-5 in value, ``flash_attention`` to 2e-2 in
+   bfloat16 and 2e-5 in float32), with the CUDA-event time per call
    (``ms``: what a caller waits, host launch included), the kernel's own
    device time from a profiler trace (``device_ms``), the plain version's
    time, a PyTorch library call's time where one exists, and the least
-   time the card could take (bytes over 3.35 TB/s or operations over 67
-   TFLOP/s, the H100 SXM data sheet's float32 rate).
+   time the card could take (bytes over 3.35 TB/s, or operations over 67
+   TFLOP/s, the H100 SXM data sheet's float32 rate outside the tensor
+   cores; for ``flash_attention``, over its 989 TFLOP/s bfloat16
+   tensor-core rate).
 
 Each phase prints one JSON line; then the kernel table as one JSON line,
 the ``nvidia-smi`` name and power limit, and last the result line.  Any
@@ -43,12 +55,20 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM, tensor cores, dense
 GRID_RHOS = (0.25, 0.5, 1.0, 2.0, 3.0)
 N_STARTS, STEPS = 64, 250
 N_ENTRIES, N_QUERIES = 10_000_000, 1_000_000
 DEVICE = "cuda"
 SMALL_ENTRIES, SMALL_QUERIES = 200_000, 20_000
 MERGE_N, READ_BATCH = 5_000_000, 1_000_000
+SERVE_ARCH, SERVE_REDUCED = "qwen3-14b", False
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+CHECK_LAYERS, CHECK_PROMPT = 2, 256
+# float32 flash_attention cases: (B, S, H, KV, d), causal, window
+FLASH_F32_CASES = [((2, 2048, 8, 2, 64), True, 512),
+                   ((2, 1024, 8, 8, 96), False, None),
+                   ((2, 1531, 40, 8, 128), True, None)]       # ragged S
 
 
 T_START = time.time()
@@ -94,21 +114,57 @@ def time_ms(torch, fn, iters: int) -> float:
 def device_ms(torch, fn, iters: int, kernel: str):
     """Mean device time of the CUDA kernel whose name contains ``kernel``
     over ``iters`` calls of ``fn``, from a ``torch.profiler`` trace: the
-    kernel alone, without the host's cost of launching it (None when the
-    profiler records no such kernel)."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    kernel alone, without the host's cost of launching it.  A trace that
+    holds no CUDA event at all (the profiler sometimes records none) is
+    taken again, up to three times; None when no trace records the
+    kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        cuda = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        times = [e.time_range.elapsed_us() for e in cuda if kernel in e.name]
+        if times:
+            return sum(times) / len(times) / 1e3
+        log(f"device_ms: no {kernel} in trace {attempt + 1}; CUDA events: "
+            f"{sorted({e.name[:80] for e in cuda})[:8]}")
+        if cuda:
+            break
+    return None
+
+
+def profile_device(torch, fn) -> dict:
+    """Host wall time of ``fn`` (up to a synchronise) and the CUDA kernels
+    a ``torch.profiler`` trace records in it: their summed device time,
+    its share of the wall time, their count, and the six largest by name
+    (device fields None when the profiler records no device time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    return sum(times) / len(times) / 1e3 if times else None
+        wall = time.time() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    top = {}
+    for e in events:
+        name = e.name[:70]
+        top[name] = top.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])
+    return {"wall_s": wall, "device_s": busy_s if events else None,
+            "busy_share": busy_s / wall if events else None,
+            "kernels": len(events), "top_kernels_ms": top}
 
 
-def bound(bytes_moved: float, ops: float) -> dict:
-    tb, to = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def bound(bytes_moved: float, ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> dict:
+    tb, to = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return {"bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations"}
 
@@ -200,26 +256,9 @@ def device_busy(torch, lsm, quickstart, tree, keys, n_queries=100_000):
     of CUDA kernel times in a ``torch.profiler`` trace over the host wall
     time (None when the profiler records no device time)."""
     log("engine: profiled session")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.time()
-        lsm.run_session(tree, keys, quickstart.BURST, n_queries=n_queries,
-                        seed=9)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_s = sum(e.time_range.elapsed_us() for e in events) / 1e6
-    top = {}
-    for e in events:
-        name = e.name[:70]
-        top[name] = top.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
-    top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])
-    return {"queries": n_queries, "wall_s": wall,
-            "device_s": busy_s if events else None,
-            "busy_share": busy_s / wall if events else None,
-            "top_kernels_ms": top}
+    return {"queries": n_queries, **profile_device(
+        torch, lambda: lsm.run_session(tree, keys, quickstart.BURST,
+                                       n_queries=n_queries, seed=9))}
 
 
 def phase_engine(torch, np, core, lsm, quickstart, build):
@@ -280,7 +319,106 @@ def phase_engine(torch, np, core, lsm, quickstart, build):
     return trees["nominal"], keys_of["nominal"], out
 
 
-# -- phase 3: each kernel against its plain version ----------------------------
+# -- phase 3: LM serving -------------------------------------------------------
+
+def _to_f32(tree):
+    if isinstance(tree, list):
+        return [_to_f32(t) for t in tree]
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    return tree.detach().float()
+
+
+def phase_serve(torch, np, configs, models, serve, lm, build):
+    """qwen3-14b at full width: ``serve_batch`` on the port's seeded bf16
+    weights, then the kernel against the plain attention on 2 float32
+    layers of the same weights."""
+    cfg = configs.get_config(SERVE_ARCH)
+    if SERVE_REDUCED:
+        cfg = cfg.reduced()
+    log(f"serve: init {cfg.name}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = models.build_model(cfg, DEVICE, seed=0)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    params = model.params
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    args = (SERVE_ARCH, SERVE_REDUCED, SERVE_BATCH)
+    log("serve: warm-up (prompt 128, 2 tokens)")
+    serve.serve_batch(*args, 128, 2, seed=1, device=DEVICE, params=params)
+    log(f"serve: batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+        f"gen {SERVE_GEN}")
+    build.reset_launches()
+    out = serve.serve_batch(*args, SERVE_PROMPT, SERVE_GEN, seed=0,
+                            device=DEVICE, params=params)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"in one prefill, expected {cfg.num_layers}")
+    toks = out["tokens"]
+    check(toks.shape == (SERVE_BATCH, SERVE_GEN), f"tokens {toks.shape}")
+    check(bool((toks >= 0).all() and (toks < cfg.vocab_size).all()),
+          "a generated token lies outside the vocabulary")
+    check(out["logits_finite"], "a logit is not finite")
+
+    log("serve: profiled prefill and decode steps")
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=DEVICE)
+    prefill_prof = profile_device(torch, lambda: model.prefill(tokens))
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+    step_tok = tokens[:, :1]
+
+    def decode_steps(n=4):
+        for i in range(n):
+            model.decode_step(cache, step_tok, SERVE_PROMPT + i)
+
+    decode_steps(1)
+    decode_prof = profile_device(torch, decode_steps)
+    del cache, tokens
+
+    log(f"serve: {CHECK_LAYERS} float32 layers, kernel vs plain attention")
+    small = _to_f32({"embed": params["embed"],
+                     "final_norm": params["final_norm"],
+                     "lm_head": params["lm_head"],
+                     "layers": params["layers"][:CHECK_LAYERS]})
+    cfg32 = cfg.replace(num_layers=CHECK_LAYERS, dtype="float32",
+                        param_dtype="float32")
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, CHECK_PROMPT))
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=DEVICE)
+    with torch.no_grad():
+        kern, _ = lm.lm_prefill(small, {"tokens": tokens}, cfg32)
+        plain, _ = lm.lm_prefill(small, {"tokens": tokens},
+                                 cfg32.replace(attention_impl="plain"))
+    diff = (kern - plain).abs().max().item()
+    top = plain.abs().max().item()
+    check(diff <= 1e-3 * top, f"prefill logits, kernel vs plain attention: "
+          f"max |diff| {diff} > 1e-3 * max |logit| {top}")
+    del model, params, small, kern, plain
+    torch.cuda.empty_cache()
+    return {"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "params": n_params,
+            "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+            "gen": SERVE_GEN, "weight_gb": weight_bytes / 1e9,
+            "kv_cache_mb": out["kv_cache_bytes"] / 1e6,
+            "peak_allocated_gb": peak / 1e9, "init_s": t_init,
+            "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+            "decode_tok_per_s": out["tok_per_s"],
+            "flash_attention_launches": launches["flash_attention"],
+            "tokens_in_vocab": True, "logits_finite": True,
+            "first_tokens": toks[0, :8].tolist(),
+            "prefill_profile": prefill_prof,
+            "decode_profile_4_steps": decode_prof,
+            "f32_check": {"layers": CHECK_LAYERS, "prompt": CHECK_PROMPT,
+                          "max_abs_diff": diff, "max_abs_logit": top,
+                          "rel": diff / top}}
+
+
+# -- phase 4: each kernel against its plain version ----------------------------
 
 def kernel_dual_solve(torch, core, ops, ref, dev):
     """The tuner's step-0 lane batch (the Fig. 6 grid, 9,600 lanes), and a
@@ -431,6 +569,76 @@ def kernel_point_read(torch, np, ops, ref, u64, tree, keys, dev):
             "library_ms": None, **bound(moved, ops_count), "checks": rows}
 
 
+
+def kernel_flash_attention(torch, configs, ops, ref, dev):
+    """The serving prefill's shape (B 4, S 2048, H 40, KV 8, d 128, bf16,
+    causal) to 2e-2, and the float32 cases of ``FLASH_F32_CASES`` (d 64
+    with a 512 window, d 96 non-causal, a ragged S) to 2e-5."""
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(B, S, H, KV, d, dtype):
+        return [torch.randn((B, S, n, d), generator=g, device=dev).to(dtype)
+                for n in (H, KV, KV)]
+
+    cfg = configs.get_config(SERVE_ARCH)
+    prefill = (SERVE_BATCH, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads,
+               cfg.head_dim)
+    cases = [(prefill, torch.bfloat16, True, None, 2e-2)] + [
+        (shape, torch.float32, causal, window, 2e-5)
+        for shape, causal, window in FLASH_F32_CASES]
+    rows = []
+    for shape, dtype, causal, window, tol in cases:
+        q, k, v = draw(*shape, dtype)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)
+        err = (got.float() - want.float()).abs()
+        ok = bool((err <= tol + tol * want.float().abs()).all())
+        check(ok, f"flash_attention {shape} {dtype}: kernel != plain "
+              f"(max abs {err.max().item()})")
+        rows.append({"B_S_H_KV_d": list(shape), "dtype": str(dtype),
+                     "causal": causal, "window": window, "tol": tol,
+                     "max_abs_err": err.max().item()})
+        if len(rows) == 1:
+            main = (q, k, v, got)
+        del q, k, v, got, want, err
+    q, k, v, out = main
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    except TypeError:                   # a PyTorch without enable_gqa
+        kt = kt.repeat_interleave(H // KV, dim=1)
+        vt = vt.repeat_interleave(H // KV, dim=1)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_err = (library().transpose(1, 2).float() - out.float()).abs().max()
+    check(lib_err.item() <= 0.1, f"flash_attention: the library yardstick "
+          f"computes another function (max abs {lib_err.item()})")
+    pairs = B * H * S * (S + 1) // 2            # causal: unmasked (q, k)
+    moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    call = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": time_ms(torch, call, 10),
+            "device_ms": device_ms(torch, call, 5, "flash_attention_kernel"),
+            "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v, causal=True), 3),
+            "library_ms": time_ms(torch, library, 10),
+            "library_max_abs_diff": lib_err.item(),
+            **bound(moved, pairs * 4 * d, BF16_OPS_PER_S), "checks": rows}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout (no "
@@ -448,11 +656,16 @@ def main() -> int:
     from repro_torch import quickstart
     from repro_torch.kernels import _build as build
     from repro_torch.kernels.dual_solve import ops as dual_ops
+    from repro_torch import configs, models
     from repro_torch.kernels.dual_solve import ref as dual_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.merge import ops as merge_ops
     from repro_torch.kernels.merge import ref as merge_ref
     from repro_torch.kernels.point_read import ops as read_ops
     from repro_torch.kernels.point_read import ref as read_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
     from repro_torch.utils import u64
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -473,9 +686,12 @@ def main() -> int:
     tree, keys, engine = phase_engine(torch, np, core, lsm, quickstart,
                                       build)
     emit(engine)
+    served = phase_serve(torch, np, configs, models, serve, lm, build)
+    emit(served)
     launches = {"dual_solve": tuner["dual_solve_launches"],
                 **{k: engine["launches"][k] for k in ("merge",
-                                                      "point_read")}}
+                                                      "point_read")},
+                "flash_attention": served["flash_attention_launches"]}
 
     dev = DEVICE
     log("kernels")
@@ -484,6 +700,8 @@ def main() -> int:
         kernel_merge(torch, np, merge_ops, merge_ref, u64, dev),
         kernel_point_read(torch, np, read_ops, read_ref, u64, tree, keys,
                           dev),
+        kernel_flash_attention(torch, configs, flash_ops, flash_ref,
+                               dev),
     ]
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -492,6 +710,7 @@ def main() -> int:
               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
     emit({"kernels": [{key: k[key] for key in keyset} for k in kernels]})
+    log(f"done in {time.time() - T_START:.1f} s")
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

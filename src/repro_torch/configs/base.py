@@ -1,0 +1,134 @@
+"""The dense decoder's configuration: the port's copy of
+``repro/configs/base.py::ModelConfig``.
+
+A :class:`ModelConfig` describes one architecture: its layer pattern of
+(sequence mixer, channel mixer) blocks, the attention flavour, and the
+runtime knobs.  The fields are the JAX package's, with two differences:
+
+* ``moe`` and ``encoder`` stay ``None``: ``MoEConfig``, ``EncoderConfig``,
+  ``SHAPES`` and ``shape_applicable`` come with the families that need them
+  (ROADMAP.md queue 1 item 12); :meth:`ModelConfig.reduced` raises for a
+  config that sets either, or M-RoPE, and :meth:`ModelConfig.param_count`
+  counts (attn, dense) blocks only.
+* ``attention_impl`` names the port's two prefill attentions: ``"flash"``
+  (the default; ``kernels/flash_attention``, the hand-written kernel on the
+  card and its plain version on the CPU — the JAX package's ``"pallas"``)
+  or ``"plain"`` (the materialised softmax in torch ops — its ``"xla"``).
+  ``"xla_chunked"`` is a TPU memory workaround and is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+Pair = Tuple[str, str]  # (mixer, mlp) kinds
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"  # dense|ssm|moe|vlm|audio|hybrid
+    num_layers: int = 2
+    d_model: int = 256
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    head_dim: int = 64
+    d_ff: int = 512
+    vocab_size: int = 1024
+
+    # layer pattern
+    pattern: Tuple[Pair, ...] = (("attn", "dense"),)
+    prelude: Tuple[Pair, ...] = ()
+
+    # attention flavor
+    rope_theta: float = 10000.0
+    rotary_pct: float = 1.0
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    window: Optional[int] = None                 # sliding-window attention
+    mrope_sections: Optional[Tuple[int, int, int]] = None  # M-RoPE (t,h,w)
+
+    # mixers
+    moe: Optional[Any] = None
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    rwkv_head_dim: int = 64
+    rwkv_decay_lora: int = 64
+
+    # towers
+    encoder: Optional[Any] = None
+    embed_inputs: bool = True
+    norm: str = "rms"                            # rms|ln
+    act: str = "swiglu"                          # swiglu|gelu
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+
+    # runtime knobs
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    remat: str = "full"
+    scan_unroll: int = 1
+    logits_chunk: int = 0
+    attention_impl: str = "flash"  # flash|plain
+    q_chunk: int = 512
+    mamba_chunk: int = 256
+    shard_vocab: bool = True
+    fsdp_params: bool = True
+
+    # ----------------------------------------------------------------- utils
+    @property
+    def n_repeats(self) -> int:
+        n_scan = self.num_layers - len(self.prelude)
+        if n_scan % len(self.pattern):
+            raise ValueError(f"{self.name}: {n_scan} scan layers not "
+                             f"divisible by pattern {len(self.pattern)}")
+        return n_scan // len(self.pattern)
+
+    def param_count(self) -> int:
+        """Approximate total parameter count N, the JAX package's count for
+        (attn, dense) blocks."""
+        if set(self.prelude + tuple(self.pattern)) != {("attn", "dense")}:
+            raise NotImplementedError(
+                f"{self.name}: only (attn, dense) blocks are ported yet "
+                "(ROADMAP.md queue 1 items 11-12)")
+        d, hd = self.d_model, self.head_dim
+        attn = d * (self.num_heads * hd) * 2 \
+            + d * (self.num_kv_heads * hd) * 2
+        mlp = 3 * d * self.d_ff if self.act == "swiglu" \
+            else 2 * d * self.d_ff
+        total = self.num_layers * (attn + mlp + 2 * d)   # + 2 norms
+        return total + self.vocab_size * d * (
+            1 if self.tie_embeddings else 2)
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """A smoke-test-sized config of the same family/pattern."""
+        if self.moe is not None or self.encoder is not None \
+                or self.mrope_sections is not None:
+            raise NotImplementedError(
+                f"{self.name}: MoE, encoder towers and M-RoPE are not "
+                "ported yet (ROADMAP.md queue 1 item 12)")
+        kw = dict(
+            name=self.name + "-smoke",
+            num_layers=len(self.prelude) + 2 * len(self.pattern),
+            d_model=64,
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 2) if
+            self.num_kv_heads < self.num_heads else 4,
+            head_dim=16,
+            d_ff=128,
+            vocab_size=512,
+            rwkv_head_dim=16,
+            rwkv_decay_lora=8,
+            mamba_d_state=8,
+            dtype="float32",
+            param_dtype="float32",
+            remat="none",
+            logits_chunk=0,
+        )
+        kw.update(overrides)
+        return dataclasses.replace(self, **kw)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

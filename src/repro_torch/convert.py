@@ -11,6 +11,9 @@ field) and passes them in.
   and run metadata, the value codec's intern table, the write buffer, the
   I/O counters and the flush clock.  Keys become the ordered int64 form
   of the device arenas; Bloom words, where given, are carried bit for bit.
+* :func:`lm_params_from_numpy` — a dense decoder's parameters from the
+  JAX package's ``init_lm`` tree (``np.asarray`` on each leaf), its stacked
+  layers split into the port's list of per-layer dicts.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ from typing import Any, Dict, Mapping, Sequence
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core.lsm_cost import Phi
+from .kernels._compat import resolve_device
 from .lsm.engine import EngineConfig, IOStats, LSMTree
 from .lsm.store import LevelStore, RunData
 from .utils.u64 import to_device_keys
@@ -83,3 +88,41 @@ def tree_from_numpy(config_fields: Mapping[str, Any],
                             for k, v in stats.items() if k in names})
     tree.flush_seq = int(flush_seq)
     return tree
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (bfloat16 from ``ml_dtypes`` included) on ``device``."""
+    a = np.array(a, order="C")              # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(cfg: ModelConfig, params_np: Mapping[str, Any],
+                         device=None) -> Dict[str, Any]:
+    """The port's parameter tree (``models/lm.py``) from the JAX
+    ``init_lm`` tree as numpy arrays: ``embed``, ``final_norm``,
+    ``lm_head`` as they are, and ``layers/sub<j>/...`` (stacked along a
+    leading axis of ``cfg.n_repeats``) split into one dict per layer, in
+    execution order (repeat r, pattern entry j -> layer r * len(pattern) +
+    j).  On ``device`` (the card unless ``"cpu"``)."""
+    if params_np.get("prelude"):
+        raise NotImplementedError("prelude layers come with DeepSeek-MoE "
+                                  "(ROADMAP.md queue 1 item 12)")
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {
+        name: _map_tree(lambda a: _tensor(a, dev), params_np[name])
+        for name in ("embed", "final_norm", "lm_head") if name in params_np}
+    groups = params_np["layers"]
+    out["layers"] = [
+        _map_tree(lambda a, r=r: _tensor(np.asarray(a)[r], dev),
+                  groups[f"sub{j}"])
+        for r in range(cfg.n_repeats) for j in range(len(cfg.pattern))]
+    return out

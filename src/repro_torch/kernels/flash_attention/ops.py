@@ -1,0 +1,72 @@
+"""Dispatch for the prefill attention (kernel 4).
+
+:func:`flash_attention` takes q ``(B, S, H, d)`` and k/v ``(B, Sk, KV, d)``
+in the model's layout.  For CUDA tensors it launches the hand-written
+kernel (``csrc/flash_attention.cu``), which reads kv head ``h // (H/KV)``
+through the strides itself: no GQA expansion, no transpose.  For CPU
+tensors it takes the plain version (``ref.flash_attention_ref``).  Any other
+device raises, and so does a CUDA tensor the kernel does not take: nothing
+falls back.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .. import _build
+from .._build import F32, I32, I64, P
+from .ref import flash_attention_ref
+
+# q, k, v, o; 12 strides; B, S, Sk, H, KV, d, causal, window; scale; dtype;
+# stream
+_LAUNCH_ARGS = (P,) * 4 + (I64,) * 12 + (I32,) * 8 + (F32, I32, P)
+
+HEAD_DIMS = (16, 32, 64, 96, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, S, H, d); k/v: (B, Sk, KV, d), H a multiple of KV.
+    Returns (B, S, H, d) in q's dtype."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention takes q (B, S, H, d) and k/v "
+                         "(B, Sk, KV, d)")
+    B, S, H, d = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != d \
+            or H % KV != 0:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention takes float32 or bfloat16 q, k, v "
+                        "of one dtype")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError("flash_attention: tensors on different devices")
+    if dev.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {dev}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, S, H, d), dtype=q.dtype, device=dev)
+    if out.numel() == 0 or Sk == 0:
+        return out.zero_()
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    fn = _build.kernel_fn("flash_attention", "flash_attention_launch",
+                          _LAUNCH_ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *strides, B, S, Sk, H, KV, d, int(causal),
+            0 if window is None else int(window), 1.0 / math.sqrt(d),
+            _DTYPES[q.dtype], _build.stream_of(out))
+    _build.check("flash_attention", rc)
+    return out

@@ -1,0 +1,191 @@
+"""Decoder-only LM assembly for the dense decoder: blocks, the layer loop,
+the KV cache, and the prefill / decode entry points.
+
+The port of the ``attn``/``dense`` branches of ``repro/models/lm.py``.
+Parameters are a dict: ``embed`` (V, d), ``final_norm``, ``lm_head``
+(d, V) and ``layers``, a list with one block dict per layer (JAX stacks the
+layers along a leading axis and scans; here a Python loop walks the list).
+The cache is a list with one ``{"mixer": {"k", "v"}}`` per layer.
+
+The ``mamba``, ``moe`` and ``rwkv`` kinds, prelude layers and stub-embedding
+inputs raise ``NotImplementedError`` naming their ROADMAP.md item;
+``lm_loss`` and ``softmax_xent`` wait for the training slice.  Without MoE
+there is no auxiliary loss, so :func:`apply_block` and :func:`apply_stack`
+return none.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from .layers import (apply_mlp, apply_norm, attention_decode,
+                     attention_full, init_attention, init_mlp, init_norm,
+                     init_normal, torch_dtype)
+
+Params = Dict[str, Any]
+
+_NOT_PORTED = {
+    "rwkv": "RWKV-6 serving, ROADMAP.md queue 1 item 11",
+    "rwkv_ffn": "RWKV-6 serving, ROADMAP.md queue 1 item 11",
+    "mamba": "mamba and hybrid stacks, ROADMAP.md queue 1 item 12",
+    "moe": "mixture-of-experts MLPs, ROADMAP.md queue 1 item 12",
+}
+
+
+def _check_kind(kind: Tuple[str, str]) -> None:
+    for part, want in zip(kind, ("attn", "dense")):
+        if part != want:
+            where = _NOT_PORTED.get(part)
+            if where is None:
+                raise ValueError(f"unknown block kind {part!r}")
+            raise NotImplementedError(f"block kind {part!r} is not ported "
+                                      f"yet ({where})")
+
+
+def _check_cfg(cfg: ModelConfig) -> None:
+    if cfg.prelude:
+        raise NotImplementedError("prelude layers come with DeepSeek-MoE "
+                                  "(ROADMAP.md queue 1 item 12)")
+    if not cfg.embed_inputs or cfg.encoder is not None:
+        raise NotImplementedError("stub-embedding and encoder inputs are "
+                                  "not ported yet (ROADMAP.md queue 1 "
+                                  "item 12)")
+    for kind in cfg.pattern:
+        _check_kind(kind)
+
+
+# ---------------------------------------------------------------------------
+# Single block (mixer + channel-mlp with pre-norms and residuals)
+# ---------------------------------------------------------------------------
+
+def init_block(gen: torch.Generator, kind: Tuple[str, str],
+               cfg: ModelConfig, device=None) -> Params:
+    _check_kind(kind)
+    return {"norm1": init_norm(cfg, device=device),
+            "norm2": init_norm(cfg, device=device),
+            "mixer": init_attention(gen, cfg, device=device),
+            "mlp": init_mlp(gen, cfg, device=device)}
+
+
+def block_cache_init(kind: Tuple[str, str], cfg: ModelConfig, batch: int,
+                     max_seq: int, dtype: torch.dtype, device=None) -> Params:
+    """Zero-initialized decode cache for one block."""
+    _check_kind(kind)
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    # Sliding-window archs keep a ring buffer of `window` slots.
+    S = min(max_seq, cfg.window) if cfg.window is not None else max_seq
+    return {"mixer": {
+        "k": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device)}}
+
+
+def apply_block(p: Params, x: torch.Tensor, kind: Tuple[str, str],
+                cfg: ModelConfig, mode: str, cache: Optional[Params] = None,
+                pos: Optional[int] = None,
+                positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Params]:
+    """Returns (x, new_cache)."""
+    _check_kind(kind)
+    new_cache: Params = {}
+    h = apply_norm(p["norm1"], x, cfg)
+    if mode == "decode":
+        y, new_cache["mixer"] = attention_decode(p["mixer"], h, pos,
+                                                 cache["mixer"], cfg)
+    else:
+        y, new_cache["mixer"] = attention_full(p["mixer"], h, positions, cfg)
+    x = x + y
+    h2 = apply_norm(p["norm2"], x, cfg)
+    x = x + apply_mlp(p["mlp"], h2, cfg)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Whole-model params
+# ---------------------------------------------------------------------------
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+    """Parameters drawn from ``gen`` (on ``device``) with the JAX
+    package's distributions: embed N(0, 0.02^2), projections
+    N(0, 1/fan_in), norms ones, biases zeros."""
+    _check_cfg(cfg)
+    dt = torch_dtype(cfg.param_dtype)
+    p: Params = {"embed": init_normal(gen, (cfg.vocab_size, cfg.d_model),
+                                      0.02, dt, device)}
+    kinds = tuple(cfg.pattern) * cfg.n_repeats
+    p["layers"] = [init_block(gen, kind, cfg, device) for kind in kinds]
+    p["final_norm"] = init_norm(cfg, device=device)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = init_normal(gen, (cfg.d_model, cfg.vocab_size),
+                                   cfg.d_model ** -0.5, dt, device)
+    return p
+
+
+def _unembed_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    if not cfg.tie_embeddings:
+        return params["lm_head"]
+    return params["embed"].T
+
+
+# ---------------------------------------------------------------------------
+# Stack application
+# ---------------------------------------------------------------------------
+
+def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                mode: str, cache: Optional[List[Params]] = None,
+                pos: Optional[int] = None,
+                positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, List[Params]]:
+    """Every layer in order.  Returns (x, new_cache), one entry a layer."""
+    _check_cfg(cfg)
+    kinds = tuple(cfg.pattern) * cfg.n_repeats
+    new_cache: List[Params] = []
+    for i, (p, kind) in enumerate(zip(params["layers"], kinds)):
+        c = cache[i] if cache is not None else None
+        x, nc = apply_block(p, x, kind, cfg, mode, c, pos, positions)
+        new_cache.append(nc)
+    return x, new_cache
+
+
+def embed_tokens(params: Params, batch: Dict[str, torch.Tensor],
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (x, positions) for token inputs."""
+    _check_cfg(cfg)
+    tokens = batch["tokens"]
+    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    return x, positions
+
+
+def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig) -> Tuple[torch.Tensor, List[Params]]:
+    """Full forward returning (last-position logits (B, 1, V), cache)."""
+    x, positions = embed_tokens(params, batch, cfg)
+    x, cache = apply_stack(params, x, cfg, "prefill", positions=positions)
+    x = apply_norm(params["final_norm"], x, cfg)
+    logits = (x[:, -1:] @ _unembed_matrix(params, cfg)).float()
+    return logits, cache
+
+
+def lm_decode_step(params: Params, cache: List[Params],
+                   tokens: torch.Tensor, pos: int, cfg: ModelConfig
+                   ) -> Tuple[torch.Tensor, List[Params]]:
+    """One decode step. tokens: (B, 1); pos: the tokens' position.
+    Returns (logits (B, 1, V), cache), the cache updated in place."""
+    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    x, new_cache = apply_stack(params, x, cfg, "decode", cache=cache,
+                               pos=pos)
+    x = apply_norm(params["final_norm"], x, cfg)
+    logits = (x @ _unembed_matrix(params, cfg)).float()
+    return logits, new_cache
+
+
+def lm_init_cache(params_or_none, cfg: ModelConfig, batch: int, max_seq: int,
+                  device=None) -> List[Params]:
+    _check_cfg(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    return [block_cache_init(kind, cfg, batch, max_seq, dtype, device)
+            for kind in tuple(cfg.pattern) * cfg.n_repeats]

@@ -1,9 +1,10 @@
-"""The port's CUDA kernels and engine on the card (marked ``cuda``).
+"""The port's CUDA kernels, engine and LM serving on the card (marked
+``cuda``).
 
 Each kernel against its plain PyTorch version on the same CUDA tensors,
-and the engine's kernel path against its CPU plain path from the same
-seed.  These tests import neither jax nor the JAX package, so they run on
-a machine with a card and no jax:
+and the engine's and the reduced LM server's kernel paths against their
+CPU plain paths from the same seed or weights.  These tests import neither
+jax nor the JAX package, so they run on a machine with a card and no jax:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -18,10 +19,15 @@ import torch
 import repro_torch.lsm as P
 from repro_torch.kernels import _build
 from repro_torch.kernels.dual_solve.ops import dual_solve_warm_batch
+from repro_torch.configs import get_config
 from repro_torch.kernels.dual_solve.ref import dual_solve_warm_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.merge.ops import merge_runs, two_way_merge
 from repro_torch.kernels.point_read.ops import point_read_level
+from repro_torch.launch.serve import serve_batch
 from repro_torch.lsm import store
+from repro_torch.models import build_model
 from repro_torch.utils import u64
 
 pytestmark = pytest.mark.cuda
@@ -123,3 +129,57 @@ def test_engine_on_card_matches_cpu_plain_path(dev):
     lo = np.sort(keys["cpu"][:20])
     assert trees["cpu"].range_query_batch(lo, lo + np.uint64(2 ** 36), True) \
         == trees["cuda"].range_query_batch(lo, lo + np.uint64(2 ** 36), True)
+
+
+@pytest.mark.parametrize("B,S,H,KV,d,causal,window,dtype,strided", [
+    (2, 128, 8, 2, 64, True, None, torch.float32, False),
+    (2, 256, 4, 4, 96, False, None, torch.float32, False),
+    (1, 300, 4, 1, 128, True, 100, torch.float32, True),   # ragged, window
+    (2, 77, 2, 2, 16, True, None, torch.float32, False),
+    (1, 65, 4, 2, 32, False, 30, torch.float32, True),
+    (2, 256, 8, 2, 128, True, None, torch.bfloat16, False),
+])
+def test_flash_attention_kernel_matches_plain(dev, B, S, H, KV, d, causal,
+                                              window, dtype, strided):
+    """The kernel against its plain version: float32 to 2e-5, bfloat16 to
+    2e-2 (one bfloat16 rounding of the output apart).  ``strided`` hands
+    the kernel views whose batch/seq/head strides are not the packed ones."""
+    g = torch.Generator(device=dev).manual_seed(S + d)
+
+    def draw(n):
+        wide = 2 * n if strided else n
+        t = torch.randn((B, S, wide, d), generator=g, device=dev).to(dtype)
+        return t[:, :, 1:n + 1] if strided else t
+
+    q, k, v = draw(H), draw(KV), draw(KV)
+    before = _build.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, S, H, d)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _to(tree, device):
+    if isinstance(tree, list):
+        return [_to(t, device) for t in tree]
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device)
+
+
+def test_serve_batch_on_card_matches_cpu_plain_path(dev):
+    """The reduced qwen3-14b server on the card (flash-attention kernel,
+    one launch per layer) against the CPU plain path on the same weights:
+    equal greedy tokens."""
+    cfg = get_config("qwen3-14b").reduced()
+    params = build_model(cfg, "cpu", seed=0).params
+    args = ("qwen3-14b", True, 2, 40, 8)
+    cpu = serve_batch(*args, seed=0, device="cpu", params=_to(params, "cpu"))
+    before = _build.LAUNCHES["flash_attention"]
+    gpu = serve_batch(*args, seed=0, device=dev, params=_to(params, dev))
+    assert _build.LAUNCHES["flash_attention"] == before + cfg.num_layers
+    assert gpu["logits_finite"] and gpu["device"].startswith("cuda")
+    np.testing.assert_array_equal(gpu["tokens"], cpu["tokens"])
