@@ -15,19 +15,24 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    write burst, counting ``merge`` and ``point_read`` launches; and a
    200,000-entry, 20,000-query run on the CPU plain path and on the card,
    whose ``IOStats`` and answers must be bit-identical.
-3. ``serve`` — the dense LM server: ``qwen3-14b`` at its published width
-   and depth (40 layers, d_model 5120, 14.8 B parameters in bfloat16) from
-   the port's seeded init on the card, ``serve_batch`` with batch 4,
-   prompt 2048 and 32 greedy tokens, counting ``flash_attention`` launches
-   (one per layer of the prefill); a profiled prefill and four profiled
-   decode steps (device busy share, kernels by device time); and the
-   first 2 layers of the same weights in float32 at prompt 256, whose
-   last-position prefill logits through the kernel and through the plain
-   attention must agree to 1e-3 of the largest logit.
+3. ``serve`` — the LM server, once per architecture of ``SERVE``: the
+   dense ``qwen3-14b`` (40 layers, d_model 5120, 14.8 B parameters) and
+   the attention-free ``rwkv6-3b`` (32 layers, d_model 2560, 3.1 B), each
+   at its published width and depth in bfloat16 from the port's seeded
+   init on the card, ``serve_batch`` with batch 4, prompt 2048 and 32
+   greedy tokens, counting its prefill kernel's launches
+   (``flash_attention`` or ``rwkv6``, one per layer of the prefill); a
+   profiled prefill and four profiled decode steps (device busy share,
+   kernels by device time); and the first 2 layers of the same weights in
+   float32 at prompt 256, whose last-position prefill logits through the
+   kernel and through the plain path (materialised attention, or the
+   chunked WKV in torch ops) must agree to 1e-3 of the largest logit.
+   Each architecture's weights are freed before the next one's.
 4. ``kernels`` — each kernel against its plain version on the card at the
    main path's shapes (``merge``/``point_read`` bit-identical,
    ``dual_solve`` to rel 1e-5 in value, ``flash_attention`` to 2e-2 in
-   bfloat16 and 2e-5 in float32), with the CUDA-event time per call
+   bfloat16 and 2e-5 in float32, ``rwkv6`` to 5e-2 in bfloat16 and 5e-4
+   in float32 on y and the final state), with the CUDA-event time per call
    (``ms``: what a caller waits, host launch included), the kernel's own
    device time from a profiler trace (``device_ms``), the plain version's
    time, a PyTorch library call's time where one exists, and the least
@@ -62,13 +67,18 @@ N_ENTRIES, N_QUERIES = 10_000_000, 1_000_000
 DEVICE = "cuda"
 SMALL_ENTRIES, SMALL_QUERIES = 200_000, 20_000
 MERGE_N, READ_BATCH = 5_000_000, 1_000_000
-SERVE_ARCH, SERVE_REDUCED = "qwen3-14b", False
+# (arch, the kernel its prefill runs once per layer)
+SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"))
+SERVE_REDUCED = False
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 CHECK_LAYERS, CHECK_PROMPT = 2, 256
 # float32 flash_attention cases: (B, S, H, KV, d), causal, window
 FLASH_F32_CASES = [((2, 2048, 8, 2, 64), True, 512),
                    ((2, 1024, 8, 8, 96), False, None),
                    ((2, 1531, 40, 8, 128), True, None)]       # ragged S
+# float32 rwkv6 cases: (B, S, H, n), slow decay (exp(logw) ~ 0.993)
+RWKV_F32_CASES = [((2, 2048, 8, 64), True), ((2, 512, 8, 32), False),
+                  ((2, 96, 4, 64), True)]                     # 3 chunks
 
 
 T_START = time.time()
@@ -329,11 +339,11 @@ def _to_f32(tree):
     return tree.detach().float()
 
 
-def phase_serve(torch, np, configs, models, serve, lm, build):
-    """qwen3-14b at full width: ``serve_batch`` on the port's seeded bf16
-    weights, then the kernel against the plain attention on 2 float32
-    layers of the same weights."""
-    cfg = configs.get_config(SERVE_ARCH)
+def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
+    """``arch`` at full width: ``serve_batch`` on the port's seeded bf16
+    weights, counting ``kernel``'s launches, then the kernel path against
+    the plain path on 2 float32 layers of the same weights."""
+    cfg = configs.get_config(arch)
     if SERVE_REDUCED:
         cfg = cfg.reduced()
     log(f"serve: init {cfg.name}")
@@ -346,7 +356,7 @@ def phase_serve(torch, np, configs, models, serve, lm, build):
     n_params = sum(p.numel() for p in model.parameters())
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    args = (SERVE_ARCH, SERVE_REDUCED, SERVE_BATCH)
+    args = (arch, SERVE_REDUCED, SERVE_BATCH)
     log("serve: warm-up (prompt 128, 2 tokens)")
     serve.serve_batch(*args, 128, 2, seed=1, device=DEVICE, params=params)
     log(f"serve: batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
@@ -356,9 +366,9 @@ def phase_serve(torch, np, configs, models, serve, lm, build):
                             device=DEVICE, params=params)
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check(launches["flash_attention"] == cfg.num_layers,
-          f"flash_attention launched {launches['flash_attention']} times "
-          f"in one prefill, expected {cfg.num_layers}")
+    check(launches[kernel] == cfg.num_layers,
+          f"{kernel} launched {launches[kernel]} times in one prefill, "
+          f"expected {cfg.num_layers}")
     toks = out["tokens"]
     check(toks.shape == (SERVE_BATCH, SERVE_GEN), f"tokens {toks.shape}")
     check(bool((toks >= 0).all() and (toks < cfg.vocab_size).all()),
@@ -380,7 +390,7 @@ def phase_serve(torch, np, configs, models, serve, lm, build):
     decode_prof = profile_device(torch, decode_steps)
     del cache, tokens
 
-    log(f"serve: {CHECK_LAYERS} float32 layers, kernel vs plain attention")
+    log(f"serve: {CHECK_LAYERS} float32 layers, kernel vs plain path")
     small = _to_f32({"embed": params["embed"],
                      "final_norm": params["final_norm"],
                      "lm_head": params["lm_head"],
@@ -396,19 +406,19 @@ def phase_serve(torch, np, configs, models, serve, lm, build):
                                  cfg32.replace(attention_impl="plain"))
     diff = (kern - plain).abs().max().item()
     top = plain.abs().max().item()
-    check(diff <= 1e-3 * top, f"prefill logits, kernel vs plain attention: "
-          f"max |diff| {diff} > 1e-3 * max |logit| {top}")
+    check(diff <= 1e-3 * top, f"{arch} prefill logits, kernel vs plain "
+          f"path: max |diff| {diff} > 1e-3 * max |logit| {top}")
     del model, params, small, kern, plain
     torch.cuda.empty_cache()
     return {"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "params": n_params,
             "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
             "gen": SERVE_GEN, "weight_gb": weight_bytes / 1e9,
-            "kv_cache_mb": out["kv_cache_bytes"] / 1e6,
+            "cache_mb": out["kv_cache_bytes"] / 1e6,
             "peak_allocated_gb": peak / 1e9, "init_s": t_init,
             "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
             "decode_tok_per_s": out["tok_per_s"],
-            "flash_attention_launches": launches["flash_attention"],
+            "kernel": kernel, "kernel_launches": launches[kernel],
             "tokens_in_vocab": True, "logits_finite": True,
             "first_tokens": toks[0, :8].tolist(),
             "prefill_profile": prefill_prof,
@@ -570,7 +580,7 @@ def kernel_point_read(torch, np, ops, ref, u64, tree, keys, dev):
 
 
 
-def kernel_flash_attention(torch, configs, ops, ref, dev):
+def kernel_flash_attention(torch, configs, ops, ref, dev, arch):
     """The serving prefill's shape (B 4, S 2048, H 40, KV 8, d 128, bf16,
     causal) to 2e-2, and the float32 cases of ``FLASH_F32_CASES`` (d 64
     with a 512 window, d 96 non-causal, a ragged S) to 2e-5."""
@@ -581,7 +591,7 @@ def kernel_flash_attention(torch, configs, ops, ref, dev):
         return [torch.randn((B, S, n, d), generator=g, device=dev).to(dtype)
                 for n in (H, KV, KV)]
 
-    cfg = configs.get_config(SERVE_ARCH)
+    cfg = configs.get_config(arch)
     prefill = (SERVE_BATCH, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads,
                cfg.head_dim)
     cases = [(prefill, torch.bfloat16, True, None, 2e-2)] + [
@@ -639,6 +649,70 @@ def kernel_flash_attention(torch, configs, ops, ref, dev):
             **bound(moved, pairs * 4 * d, BF16_OPS_PER_S), "checks": rows}
 
 
+def kernel_rwkv6(torch, configs, ops, ref, dev, arch):
+    """The serving prefill's shape (B 4, S 2048, H 40, n 64, r/k/v bf16,
+    logw float32 at the model's init decay) to 5e-2, and the float32 cases
+    of ``RWKV_F32_CASES`` (slow decay, n 32, three chunks) to 5e-4, on y
+    and the final state."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(B, S, H, n, dtype, slow):
+        """r/k/v ~ N(0, 1) as the projections of a normed input are;
+        logw = -exp(ww) with ww ~ w_base -0.6 + 0.5 N(0, 1) like the
+        model's, or ~ -5 + 0.1 N(0, 1) (slow); u ~ 0.1 N(0, 1) as its
+        init."""
+        rkv = [torch.randn((B, S, H, n), generator=g, device=dev).to(dtype)
+               for _ in range(3)]
+        mean, sd = (-5.0, 0.1) if slow else (-0.6, 0.5)
+        ww = torch.randn((B, S, H, n), generator=g, device=dev) * sd + mean
+        u = torch.randn((H, n), generator=g, device=dev) * 0.1
+        return (*rkv, -torch.exp(ww), u)
+
+    cfg = configs.get_config(arch)
+    n = cfg.rwkv_head_dim
+    prefill = (SERVE_BATCH, SERVE_PROMPT, cfg.d_model // n, n)
+    cases = [(prefill, torch.bfloat16, False, 5e-2)] + [
+        (shape, torch.float32, slow, 5e-4) for shape, slow in RWKV_F32_CASES]
+    rows = []
+    for shape, dtype, slow, tol in cases:
+        args = draw(*shape, dtype, slow)
+        got = ops.rwkv6(*args)
+        want = ref.rwkv6_ref(*args)
+        errs = []
+        for a, b, what in zip(got, want, ("y", "state")):
+            err = (a - b).abs()
+            check(bool((err <= tol + tol * b.abs()).all()),
+                  f"rwkv6 {shape} {dtype} slow={slow}: kernel != plain on "
+                  f"{what} (max abs {err.max().item()})")
+            errs.append(err.max().item())
+        rows.append({"B_S_H_n": list(shape), "dtype": str(dtype),
+                     "slow_decay": slow, "tol": tol, "y_max_abs_err": errs[0],
+                     "state_max_abs_err": errs[1],
+                     "y_max_abs": want[0].abs().max().item()})
+        if len(rows) == 1:
+            main = args
+        del args, got, want
+    r, k, v, logw, u = main
+    B, S, H, n = r.shape
+    moved = (3 * r.numel() * r.element_size() + 4 * logw.numel()
+             + 4 * u.numel() + 4 * r.numel() + 4 * B * H * n * n)
+    call = lambda: ops.rwkv6(*main)  # noqa: E731
+    # one (batch, head) alone: the card is nearly idle, so this is the
+    # latency of the 2048 steps in order that every (batch, head) pays
+    one = [t[:1, :, :1] for t in main[:4]] + [u[:1]]
+    return {"name": "rwkv6", "route": "cuda",
+            "source": "src/repro_torch/csrc/rwkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6/kernel.py:74",
+            "max_abs_err": max(max(rw["y_max_abs_err"],
+                                   rw["state_max_abs_err"]) for rw in rows),
+            "ms": time_ms(torch, call, 20),
+            "device_ms": device_ms(torch, call, 10, "rwkv6_kernel"),
+            "plain_ms": time_ms(torch, lambda: ref.rwkv6_ref(*main), 2),
+            "library_ms": None,
+            "one_head_ms": time_ms(torch, lambda: ops.rwkv6(*one), 20),
+            **bound(moved, B * S * H * 4 * n * n), "checks": rows}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout (no "
@@ -664,6 +738,8 @@ def main() -> int:
     from repro_torch.kernels.merge import ref as merge_ref
     from repro_torch.kernels.point_read import ops as read_ops
     from repro_torch.kernels.point_read import ref as read_ref
+    from repro_torch.kernels.rwkv6 import ops as rwkv_ops
+    from repro_torch.kernels.rwkv6 import ref as rwkv_ref
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.utils import u64
@@ -686,12 +762,15 @@ def main() -> int:
     tree, keys, engine = phase_engine(torch, np, core, lsm, quickstart,
                                       build)
     emit(engine)
-    served = phase_serve(torch, np, configs, models, serve, lm, build)
-    emit(served)
     launches = {"dual_solve": tuner["dual_solve_launches"],
                 **{k: engine["launches"][k] for k in ("merge",
-                                                      "point_read")},
-                "flash_attention": served["flash_attention_launches"]}
+                                                      "point_read")}}
+    for arch, kernel in SERVE:
+        served = phase_serve(torch, np, configs, models, serve, lm, build,
+                             arch, kernel)
+        emit(served)
+        launches[kernel] = served["kernel_launches"]
+    arch_of = {kernel: arch for arch, kernel in SERVE}
 
     dev = DEVICE
     log("kernels")
@@ -701,7 +780,9 @@ def main() -> int:
         kernel_point_read(torch, np, read_ops, read_ref, u64, tree, keys,
                           dev),
         kernel_flash_attention(torch, configs, flash_ops, flash_ref,
-                               dev),
+                               dev, arch_of["flash_attention"]),
+        kernel_rwkv6(torch, configs, rwkv_ops, rwkv_ref, dev,
+                     arch_of["rwkv6"]),
     ]
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -1,21 +1,22 @@
-"""Config registry: the dense decoders the port runs.
+"""Config registry: the architectures the port runs.
 
-Only the three dense configs are here; the JAX package's other
-architectures come with their families (ROADMAP.md queue 1 items 11-12).
+The three dense decoders and ``rwkv6-3b``; the JAX package's other
+architectures (MoE, mamba and hybrid stacks, encoder towers) come with
+their families (ROADMAP.md queue 1 item 12).
 """
 
-from . import glm4_9b, phi3_mini_3_8b, qwen3_14b
+from . import glm4_9b, phi3_mini_3_8b, qwen3_14b, rwkv6_3b
 from .base import ModelConfig
 
 ARCHS = {m.CONFIG.name: m.CONFIG
-         for m in (glm4_9b, phi3_mini_3_8b, qwen3_14b)}
+         for m in (glm4_9b, phi3_mini_3_8b, qwen3_14b, rwkv6_3b)}
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(
             f"arch {name!r} is not ported yet (see ROADMAP.md, queue 1 "
-            f"items 11-12); available: {sorted(ARCHS)}")
+            f"item 12); available: {sorted(ARCHS)}")
     return ARCHS[name]
 
 

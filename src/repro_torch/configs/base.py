@@ -1,4 +1,4 @@
-"""The dense decoder's configuration: the port's copy of
+"""The LM configuration: the port's copy of
 ``repro/configs/base.py::ModelConfig``.
 
 A :class:`ModelConfig` describes one architecture: its layer pattern of
@@ -9,11 +9,13 @@ runtime knobs.  The fields are the JAX package's, with two differences:
   ``SHAPES`` and ``shape_applicable`` come with the families that need them
   (ROADMAP.md queue 1 item 12); :meth:`ModelConfig.reduced` raises for a
   config that sets either, or M-RoPE, and :meth:`ModelConfig.param_count`
-  counts (attn, dense) blocks only.
-* ``attention_impl`` names the port's two prefill attentions: ``"flash"``
-  (the default; ``kernels/flash_attention``, the hand-written kernel on the
-  card and its plain version on the CPU — the JAX package's ``"pallas"``)
-  or ``"plain"`` (the materialised softmax in torch ops — its ``"xla"``).
+  counts ``attn``/``rwkv`` mixers and ``dense``/``rwkv_ffn`` MLPs only.
+* ``attention_impl`` names the port's two prefill paths: ``"flash"`` (the
+  default; the hand-written kernels on the card and their plain versions
+  on the CPU: ``kernels/flash_attention`` for attention and
+  ``kernels/rwkv6`` for the RWKV-6 WKV recurrence — the JAX package's
+  ``"pallas"``) or ``"plain"`` (torch ops: the materialised softmax and
+  the chunked WKV ``models/rwkv.py::wkv_chunked`` — its ``"xla"``).
   ``"xla_chunked"`` is a TPU memory workaround and is not ported.
 """
 
@@ -87,18 +89,24 @@ class ModelConfig:
         return n_scan // len(self.pattern)
 
     def param_count(self) -> int:
-        """Approximate total parameter count N, the JAX package's count for
-        (attn, dense) blocks."""
-        if set(self.prelude + tuple(self.pattern)) != {("attn", "dense")}:
-            raise NotImplementedError(
-                f"{self.name}: only (attn, dense) blocks are ported yet "
-                "(ROADMAP.md queue 1 items 11-12)")
+        """Approximate total parameter count N, the JAX package's count
+        for ``attn``/``rwkv`` mixers and ``dense``/``rwkv_ffn`` MLPs."""
         d, hd = self.d_model, self.head_dim
         attn = d * (self.num_heads * hd) * 2 \
             + d * (self.num_kv_heads * hd) * 2
-        mlp = 3 * d * self.d_ff if self.act == "swiglu" \
+        dense_mlp = 3 * d * self.d_ff if self.act == "swiglu" \
             else 2 * d * self.d_ff
-        total = self.num_layers * (attn + mlp + 2 * d)   # + 2 norms
+        rwkv = 5 * d * d + 2 * d * self.rwkv_decay_lora  # r,k,v,g,o + LoRA
+        mixers = {"attn": attn, "rwkv": rwkv}
+        mlps = {"dense": dense_mlp, "rwkv_ffn": 2 * d * self.d_ff + d * d}
+        total = 0
+        for mixer, mlp in self.prelude + tuple(self.pattern) * \
+                self.n_repeats:
+            if mixer not in mixers or mlp not in mlps:
+                raise NotImplementedError(
+                    f"{self.name}: ({mixer}, {mlp}) blocks are not ported "
+                    "yet (ROADMAP.md queue 1 item 12)")
+            total += mixers[mixer] + mlps[mlp] + 2 * d   # + 2 norms
         return total + self.vocab_size * d * (
             1 if self.tie_embeddings else 2)
 

@@ -1,0 +1,10 @@
+"""RWKV-6 (Finch) 3B: attention-free, data-dependent decay [arXiv:2404.05892]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="rwkv6-3b", family="ssm",
+    num_layers=32, d_model=2560, num_heads=40, num_kv_heads=40, head_dim=64,
+    d_ff=8960, vocab_size=65536,
+    pattern=(("rwkv", "rwkv_ffn"),),
+    rwkv_head_dim=64, rwkv_decay_lora=64, norm="ln",
+)

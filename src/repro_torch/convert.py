@@ -11,9 +11,12 @@ field) and passes them in.
   and run metadata, the value codec's intern table, the write buffer, the
   I/O counters and the flush clock.  Keys become the ordered int64 form
   of the device arenas; Bloom words, where given, are carried bit for bit.
-* :func:`lm_params_from_numpy` — a dense decoder's parameters from the
-  JAX package's ``init_lm`` tree (``np.asarray`` on each leaf), its stacked
-  layers split into the port's list of per-layer dicts.
+* :func:`lm_params_from_numpy` — an LM's parameters (dense or RWKV-6)
+  from the JAX package's ``init_lm`` tree (``np.asarray`` on each leaf),
+  its stacked layers split into the port's list of per-layer dicts; every
+  leaf keeps its dtype (RWKV's float32 ``w_base`` and ``u`` in a bfloat16
+  model stay float32) and every sub-dict (``mixer``, ``mlp``) comes
+  along.
 """
 
 from __future__ import annotations

@@ -1,12 +1,15 @@
 """Batched serving: prefill a batch of prompts, then decode greedily.
 
-The port of ``repro/launch/serve.py`` for the dense decoders.  The KV
-cache is allocated once at ``prompt_len + gen`` positions and the
-prefill's k/v are written into it in place (:func:`write_prefill_cache`),
-which takes the place of the JAX package's ``pad_cache_to``.  Times are
-host wall clock up to a device synchronise.
+The port of ``repro/launch/serve.py`` for the dense decoders and
+RWKV-6.  The decode cache is allocated once (attention k/v at
+``prompt_len + gen`` positions, the RWKV state and last rows at their
+fixed size) and the prefill's cache is written into it in place
+(:func:`write_prefill_cache`), which takes the place of the JAX package's
+``pad_cache_to``.  Times are host wall clock up to a device synchronise.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
+          --reduced --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
           --reduced --device cpu
 """
 
@@ -28,20 +31,32 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _write_kv(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Prompt k/v (B, S, KV, hd) into a cache of ``dst.shape[1]`` slots.  A
+    ring cache (sliding window, fewer slots than the prompt) keeps the last
+    positions, each at slot ``pos % slots``, as ``attention_decode``
+    indexes it."""
+    S, slots = src.shape[1], dst.shape[1]
+    if S <= slots:
+        dst[:, :S] = src
+    else:
+        pos = torch.arange(S - slots, S, device=dst.device)
+        dst[:, pos % slots] = src[:, S - slots:]
+
+
 def write_prefill_cache(cache: List[Dict[str, Any]],
                         prefill_cache: List[Dict[str, Any]]) -> None:
-    """Copy each layer's prompt k/v into the decode cache.  A ring cache
-    (sliding window, fewer slots than the prompt) keeps the last positions,
-    each at slot ``pos % slots``, as ``attention_decode`` indexes it."""
+    """Copy every tensor of each layer's prefill cache into the decode
+    cache: attention k/v along the sequence (:func:`_write_kv`), anything
+    else (the RWKV state, the time and channel mixes' ``x_prev``) whole."""
     for c, pc in zip(cache, prefill_cache):
-        for name in ("k", "v"):
-            dst, src = c["mixer"][name], pc["mixer"][name]
-            S, slots = src.shape[1], dst.shape[1]
-            if S <= slots:
-                dst[:, :S] = src
-            else:
-                pos = torch.arange(S - slots, S, device=dst.device)
-                dst[:, pos % slots] = src[:, S - slots:]
+        for part, tensors in pc.items():
+            for name, src in tensors.items():
+                dst = c[part][name]
+                if part == "mixer" and name in ("k", "v"):
+                    _write_kv(dst, src)
+                else:
+                    dst.copy_(src)
 
 
 def serve_batch(arch: str, reduced: bool = True, batch: int = 4,
@@ -49,8 +64,10 @@ def serve_batch(arch: str, reduced: bool = True, batch: int = 4,
                 device=None, params: Optional[Dict[str, Any]] = None
                 ) -> Dict[str, Any]:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and decode
-    ``gen`` tokens each, greedily.  ``params`` (``lm.init_lm``'s tree, e.g.
-    from ``convert.lm_params_from_numpy``) replaces the seeded init."""
+    ``gen`` tokens each, greedily.  ``params`` (``lm.init_lm``'s tree,
+    e.g. from ``convert.lm_params_from_numpy``) replaces the seeded init.
+    ``kv_cache_bytes`` in the result counts every tensor of the decode
+    cache, the RWKV state and last rows included."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -82,8 +99,8 @@ def serve_batch(arch: str, reduced: bool = True, batch: int = 4,
     _sync(dev)
     t_decode = time.perf_counter() - t0
 
-    kv_bytes = sum(t.numel() * t.element_size()
-                   for c in cache for t in c["mixer"].values())
+    kv_bytes = sum(t.numel() * t.element_size() for c in cache
+                   for part in c.values() for t in part.values())
     return {"tokens": out.cpu().numpy().astype(np.int32),
             "prefill_s": t_prefill, "decode_s": t_decode,
             "tok_per_s": batch * gen / max(t_decode, 1e-9),

@@ -1,4 +1,5 @@
-"""The LM tier's dense decoder (``layers``, ``lm``) and ``build_model``."""
+"""The LM tier: dense and RWKV-6 blocks (``layers``, ``rwkv``), their
+assembly (``lm``) and ``build_model``."""
 
 from .model import LM, build_model
 

@@ -1,14 +1,17 @@
-"""Decoder-only LM assembly for the dense decoder: blocks, the layer loop,
-the KV cache, and the prefill / decode entry points.
+"""Decoder-only LM assembly: blocks, the layer loop, the decode cache,
+and the prefill / decode entry points.
 
-The port of the ``attn``/``dense`` branches of ``repro/models/lm.py``.
+The port of the ``attn``/``rwkv`` mixer and ``dense``/``rwkv_ffn`` MLP
+branches of ``repro/models/lm.py``; any pairing of them is a block.
 Parameters are a dict: ``embed`` (V, d), ``final_norm``, ``lm_head``
 (d, V) and ``layers``, a list with one block dict per layer (JAX stacks the
 layers along a leading axis and scans; here a Python loop walks the list).
-The cache is a list with one ``{"mixer": {"k", "v"}}`` per layer.
+The cache is a list with one dict per layer: ``{"mixer": {"k", "v"}}`` for
+attention, ``{"mixer": {"state", "x_prev"}}`` for the RWKV time mix, and
+``"mlp": {"x_prev"}`` beside it for the RWKV channel mix.
 
-The ``mamba``, ``moe`` and ``rwkv`` kinds, prelude layers and stub-embedding
-inputs raise ``NotImplementedError`` naming their ROADMAP.md item;
+The ``mamba`` and ``moe`` kinds, prelude layers and stub-embedding inputs
+raise ``NotImplementedError`` naming their ROADMAP.md item;
 ``lm_loss`` and ``softmax_xent`` wait for the training slice.  Without MoE
 there is no auxiliary loss, so :func:`apply_block` and :func:`apply_stack`
 return none.
@@ -21,23 +24,24 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from . import rwkv as rwkv_mod
 from .layers import (apply_mlp, apply_norm, attention_decode,
                      attention_full, init_attention, init_mlp, init_norm,
                      init_normal, torch_dtype)
 
 Params = Dict[str, Any]
 
+_MIXERS = ("attn", "rwkv")
+_MLPS = ("dense", "rwkv_ffn")
 _NOT_PORTED = {
-    "rwkv": "RWKV-6 serving, ROADMAP.md queue 1 item 11",
-    "rwkv_ffn": "RWKV-6 serving, ROADMAP.md queue 1 item 11",
     "mamba": "mamba and hybrid stacks, ROADMAP.md queue 1 item 12",
     "moe": "mixture-of-experts MLPs, ROADMAP.md queue 1 item 12",
 }
 
 
 def _check_kind(kind: Tuple[str, str]) -> None:
-    for part, want in zip(kind, ("attn", "dense")):
-        if part != want:
+    for part, ported in zip(kind, (_MIXERS, _MLPS)):
+        if part not in ported:
             where = _NOT_PORTED.get(part)
             if where is None:
                 raise ValueError(f"unknown block kind {part!r}")
@@ -64,22 +68,40 @@ def _check_cfg(cfg: ModelConfig) -> None:
 def init_block(gen: torch.Generator, kind: Tuple[str, str],
                cfg: ModelConfig, device=None) -> Params:
     _check_kind(kind)
+    mixer, mlp = kind
     return {"norm1": init_norm(cfg, device=device),
             "norm2": init_norm(cfg, device=device),
-            "mixer": init_attention(gen, cfg, device=device),
-            "mlp": init_mlp(gen, cfg, device=device)}
+            "mixer": (init_attention(gen, cfg, device=device)
+                      if mixer == "attn" else
+                      rwkv_mod.init_time_mix(gen, cfg, device=device)),
+            "mlp": (init_mlp(gen, cfg, device=device) if mlp == "dense" else
+                    rwkv_mod.init_channel_mix(gen, cfg, device=device))}
 
 
 def block_cache_init(kind: Tuple[str, str], cfg: ModelConfig, batch: int,
                      max_seq: int, dtype: torch.dtype, device=None) -> Params:
     """Zero-initialized decode cache for one block."""
     _check_kind(kind)
-    KV, hd = cfg.num_kv_heads, cfg.head_dim
-    # Sliding-window archs keep a ring buffer of `window` slots.
-    S = min(max_seq, cfg.window) if cfg.window is not None else max_seq
-    return {"mixer": {
-        "k": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device)}}
+    mixer, mlp = kind
+    d = cfg.d_model
+    if mixer == "attn":
+        KV, hd = cfg.num_kv_heads, cfg.head_dim
+        # Sliding-window archs keep a ring buffer of `window` slots.
+        S = min(max_seq, cfg.window) if cfg.window is not None else max_seq
+        cache: Params = {"mixer": {
+            "k": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, S, KV, hd), dtype=dtype,
+                             device=device)}}
+    else:
+        n = cfg.rwkv_head_dim
+        cache = {"mixer": {
+            "state": torch.zeros((batch, d // n, n, n), dtype=torch.float32,
+                                 device=device),
+            "x_prev": torch.zeros((batch, d), dtype=dtype, device=device)}}
+    if mlp == "rwkv_ffn":
+        cache["mlp"] = {"x_prev": torch.zeros((batch, d), dtype=dtype,
+                                              device=device)}
+    return cache
 
 
 def apply_block(p: Params, x: torch.Tensor, kind: Tuple[str, str],
@@ -89,16 +111,32 @@ def apply_block(p: Params, x: torch.Tensor, kind: Tuple[str, str],
                 ) -> Tuple[torch.Tensor, Params]:
     """Returns (x, new_cache)."""
     _check_kind(kind)
+    mixer, mlp = kind
+    decode = mode == "decode"
     new_cache: Params = {}
     h = apply_norm(p["norm1"], x, cfg)
-    if mode == "decode":
-        y, new_cache["mixer"] = attention_decode(p["mixer"], h, pos,
-                                                 cache["mixer"], cfg)
+    if mixer == "attn":
+        if decode:
+            y, new_cache["mixer"] = attention_decode(p["mixer"], h, pos,
+                                                     cache["mixer"], cfg)
+        else:
+            y, new_cache["mixer"] = attention_full(p["mixer"], h, positions,
+                                                   cfg)
+    elif decode:
+        y, new_cache["mixer"] = rwkv_mod.time_mix_step(p["mixer"], h,
+                                                       cache["mixer"], cfg)
     else:
-        y, new_cache["mixer"] = attention_full(p["mixer"], h, positions, cfg)
+        y, new_cache["mixer"] = rwkv_mod.time_mix_full(p["mixer"], h, cfg)
     x = x + y
     h2 = apply_norm(p["norm2"], x, cfg)
-    x = x + apply_mlp(p["mlp"], h2, cfg)
+    if mlp == "dense":
+        y2 = apply_mlp(p["mlp"], h2, cfg)
+    elif decode:
+        y2, new_cache["mlp"] = rwkv_mod.channel_mix_step(p["mlp"], h2,
+                                                         cache["mlp"], cfg)
+    else:
+        y2, new_cache["mlp"] = rwkv_mod.channel_mix_full(p["mlp"], h2, cfg)
+    x = x + y2
     return x, new_cache
 
 

@@ -1,10 +1,12 @@
-"""``build_model``: the dense decoder as an ``nn.Module``.
+"""``build_model``: a decoder-only LM as an ``nn.Module``.
 
 The port of ``repro/models/model.py::build_model`` for decoder-only
-configs.  :class:`LM` holds the parameters of ``lm.init_lm``'s dict tree
-as (frozen) ``nn.Parameter``s, so ``state_dict`` and ``named_parameters``
-see them, and exposes the serving entry points ``prefill``,
-``decode_step`` and ``init_cache`` over the functions of ``lm.py``.
+configs whose blocks ``lm.py`` ports (attention or RWKV-6 time mix, dense
+or RWKV channel-mix MLPs).  :class:`LM` holds the parameters of
+``lm.init_lm``'s dict tree as (frozen) ``nn.Parameter``s, so
+``state_dict`` and ``named_parameters`` see them, and exposes the
+serving entry points ``prefill``, ``decode_step`` and ``init_cache`` over
+the functions of ``lm.py``.
 Training (``loss_fn``) and the dry run's ``input_specs`` wait for their
 slices.
 """
@@ -44,7 +46,7 @@ def _tree(m: nn.Module):
 
 
 class LM(nn.Module):
-    """A dense decoder on one device."""
+    """A decoder-only LM (dense or RWKV-6) on one device."""
 
     def __init__(self, cfg: ModelConfig, params: Params,
                  device: torch.device):
@@ -61,7 +63,8 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):
         """tokens (B, S) -> (last-position logits (B, 1, V) float32,
-        per-layer k/v of the prompt)."""
+        each layer's cache of the prompt: attention k/v, or the RWKV
+        state and last rows)."""
         return lm_mod.lm_prefill(self.params, {"tokens": tokens}, self.cfg)
 
     @torch.no_grad()

@@ -25,6 +25,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.merge.ops import merge_runs, two_way_merge
 from repro_torch.kernels.point_read.ops import point_read_level
+from repro_torch.kernels.rwkv6.ops import rwkv6
+from repro_torch.kernels.rwkv6.ref import rwkv6_ref
 from repro_torch.launch.serve import serve_batch
 from repro_torch.lsm import store
 from repro_torch.models import build_model
@@ -182,4 +184,60 @@ def test_serve_batch_on_card_matches_cpu_plain_path(dev):
     gpu = serve_batch(*args, seed=0, device=dev, params=_to(params, dev))
     assert _build.LAUNCHES["flash_attention"] == before + cfg.num_layers
     assert gpu["logits_finite"] and gpu["device"].startswith("cuda")
+    np.testing.assert_array_equal(gpu["tokens"], cpu["tokens"])
+
+
+@pytest.mark.parametrize("B,S,H,n,dtype,strided,slow", [
+    (2, 128, 4, 64, torch.float32, False, False),
+    (2, 96, 3, 32, torch.float32, False, True),      # three chunks
+    (1, 64, 2, 16, torch.float32, True, False),
+    (2, 20, 4, 64, torch.float32, False, False),     # a single chunk
+    (1, 2048, 2, 64, torch.float32, False, True),    # slow decay, long
+    (2, 256, 8, 64, torch.bfloat16, True, False),
+    (1, 128, 4, 32, torch.bfloat16, False, True),
+])
+def test_rwkv6_kernel_matches_plain(dev, B, S, H, n, dtype, strided, slow):
+    """The kernel against its plain version (the per-step recurrence), y
+    and the final state: float32 to 5e-4, bfloat16 r/k/v (float32 logw)
+    to 5e-2, the JAX kernel test's tolerances.  ``strided`` hands the
+    kernel views whose batch/seq/head strides are not the packed ones;
+    ``slow`` draws exp(logw) ~ 0.993, so the state carries across the
+    whole sequence instead of forgetting within a few steps."""
+    g = torch.Generator(device=dev).manual_seed(S + n)
+
+    def draw(dt, scale=1.0, shift=0.0):
+        wide = 2 * H if strided else H
+        t = (torch.randn((B, S, wide, n), generator=g, device=dev) * scale
+             + shift).to(dt)
+        return t[:, :, 1:H + 1] if strided else t
+
+    r, k, v = draw(dtype), draw(dtype), draw(dtype)
+    logw = -torch.exp(draw(torch.float32, 0.1, -5.0) if slow
+                      else draw(torch.float32, 0.5, -0.6))
+    u = torch.randn((H, n), generator=g, device=dev) * 0.1
+    before = _build.LAUNCHES["rwkv6"]
+    y, state = rwkv6(r, k, v, logw, u)
+    assert _build.LAUNCHES["rwkv6"] == before + 1
+    want_y, want_s = rwkv6_ref(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    assert y.dtype == state.dtype == torch.float32
+    assert y.shape == (B, S, H, n) and state.shape == (B, H, n, n)
+    tol = 5e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y, want_y, atol=tol, rtol=tol)
+    torch.testing.assert_close(state, want_s, atol=tol, rtol=tol)
+
+
+def test_rwkv6_serve_batch_on_card_matches_cpu_plain_path(dev):
+    """The reduced rwkv6-3b server on the card (the rwkv6 kernel, one
+    launch per layer of the prefill) against the CPU plain path on the
+    same weights: equal greedy tokens and cache bytes."""
+    cfg = get_config("rwkv6-3b").reduced()
+    params = build_model(cfg, "cpu", seed=0).params
+    args = ("rwkv6-3b", True, 2, 64, 8)
+    cpu = serve_batch(*args, seed=0, device="cpu", params=_to(params, "cpu"))
+    before = _build.LAUNCHES["rwkv6"]
+    gpu = serve_batch(*args, seed=0, device=dev, params=_to(params, dev))
+    assert _build.LAUNCHES["rwkv6"] == before + cfg.num_layers
+    assert gpu["logits_finite"] and gpu["device"].startswith("cuda")
+    assert gpu["kv_cache_bytes"] == cpu["kv_cache_bytes"]
     np.testing.assert_array_equal(gpu["tokens"], cpu["tokens"])

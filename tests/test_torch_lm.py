@@ -72,13 +72,14 @@ def _cfgs(arch, **kw):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("rwkv6-3b",))
 def test_configs_match_the_jax_package(arch):
     j, t = jget(arch), get_config(arch)
     shared = ("num_layers", "d_model", "num_heads", "num_kv_heads",
               "head_dim", "d_ff", "vocab_size", "pattern", "rope_theta",
               "rotary_pct", "qkv_bias", "qk_norm", "window", "norm", "act",
-              "norm_eps", "dtype", "tie_embeddings")
+              "norm_eps", "dtype", "tie_embeddings", "rwkv_head_dim",
+              "rwkv_decay_lora")
     for cj, ct in ((j, t), (j.reduced(), t.reduced())):
         assert {f: getattr(cj, f) for f in shared} \
             == {f: getattr(ct, f) for f in shared}
@@ -87,8 +88,8 @@ def test_configs_match_the_jax_package(arch):
 
 def test_unported_archs_name_the_roadmap():
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("rwkv6-3b")
-    cfg = get_config("qwen3-14b").reduced(pattern=(("rwkv", "rwkv_ffn"),))
+        get_config("mixtral-8x7b")
+    cfg = get_config("qwen3-14b").reduced(pattern=(("mamba", "dense"),))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(cfg, "cpu")
 
