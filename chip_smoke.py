@@ -28,8 +28,17 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    kernel and through the plain path (materialised attention, or the
    chunked WKV in torch ops) must agree to 1e-3 of the largest logit.
    Each architecture's weights are freed before the next one's.
-4. ``kernels`` — each kernel against its plain version on the card at the
-   main path's shapes (``merge``/``point_read`` bit-identical,
+4. ``bloom`` — the blocked-Bloom probe through its own entry points (no
+   path of the system calls it), at RocksDB's cache-local Bloom filter
+   over 10 M keys: 512-bit blocks at 10 bits per key (195,313 blocks, an
+   f32 0/1 plane of 400 MB), k = 7.  ``build_plane`` inserts 10 M
+   distinct seeded uint32 keys on the card; ``bloom_probe`` takes 1 M
+   keys, half inserted, counting ``bloom_probe`` launches.  The kernel
+   must equal the plain version bit for bit, miss no inserted key, and
+   pass 0.5%-2% of the absent ones.
+5. ``kernels`` — each kernel against its plain version on the card at the
+   main path's shapes (``merge``/``point_read``/``bloom_probe``
+   bit-identical,
    ``dual_solve`` to rel 1e-5 in value, ``flash_attention`` to 2e-2 in
    bfloat16 and 2e-5 in float32, ``rwkv6`` to 5e-2 in bfloat16 and 5e-4
    in float32 on y and the final state), with the CUDA-event time per call
@@ -72,6 +81,12 @@ SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"))
 SERVE_REDUCED = False
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 CHECK_LAYERS, CHECK_PROMPT = 2, 256
+# the bloom phase: RocksDB's format_version=5 cache-local Bloom filter
+# (512-bit blocks, its default 10 bits per key) over 10 M keys, k from
+# lsm/bloom.py::bloom_params (round(10 ln 2) = 7); 1 M probes, one read
+# batch, half of them inserted keys
+BLOOM_KEYS, BLOOM_BITS_PER_KEY, BLOOM_BLOCK_BITS = 10_000_000, 10, 512
+BLOOM_HASHES, BLOOM_PROBES = 7, 1_000_000
 # float32 flash_attention cases: (B, S, H, KV, d), causal, window
 FLASH_F32_CASES = [((2, 2048, 8, 2, 64), True, 512),
                    ((2, 1024, 8, 8, 96), False, None),
@@ -428,7 +443,62 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
                           "rel": diff / top}}
 
 
-# -- phase 4: each kernel against its plain version ----------------------------
+# -- phase 4: the blocked-Bloom probe ------------------------------------------
+
+def phase_bloom(torch, np, ops, ref, build):
+    """Build the deployment-size plane on the card and probe one read batch
+    through ``ops.bloom_probe``.  Returns the plane, the probe keys and the
+    phase's JSON."""
+    k = BLOOM_HASHES
+    n_in = BLOOM_PROBES // 2
+    rng = np.random.default_rng(6)
+    t0 = time.time()
+    keys = rng.choice(2 ** 32, BLOOM_KEYS + BLOOM_PROBES - n_in,
+                      replace=False).astype(np.int64)
+    order = rng.permutation(BLOOM_PROBES)
+    inserted = np.zeros(BLOOM_PROBES, bool)
+    inserted[:n_in] = True
+    q = torch.from_numpy(np.concatenate(
+        [keys[:n_in], keys[BLOOM_KEYS:]])[order]).to(DEVICE)
+    inserted = torch.from_numpy(inserted[order]).to(DEVICE)
+    t_keys = time.time() - t0
+    num_blocks = -(-BLOOM_BITS_PER_KEY * BLOOM_KEYS // BLOOM_BLOCK_BITS)
+    log(f"bloom: build a {num_blocks} x {BLOOM_BLOCK_BITS} plane")
+    t0 = time.time()
+    plane = ref.build_plane(torch.from_numpy(keys[:BLOOM_KEYS]), num_blocks,
+                            BLOOM_BLOCK_BITS, k, device=DEVICE)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    log(f"bloom: probe {BLOOM_PROBES} keys")
+    build.reset_launches()
+    t0 = time.time()
+    member = ops.bloom_probe(q, plane, num_hashes=k)
+    torch.cuda.synchronize()
+    t_probe = time.time() - t0
+    launches = build.LAUNCHES["bloom_probe"]
+    check(launches > 0, "bloom_probe never launched on the bloom phase")
+    same = torch.equal(member, ref.probe_ref(q, plane, k) > 0.5)
+    check(same, "bloom_probe: kernel != plain on the 1 M-key batch")
+    false_neg = int((~member & inserted).sum())
+    fp_rate = member[~inserted].float().mean().item()
+    check(false_neg == 0, f"bloom_probe: {false_neg} false negatives")
+    check(0.005 <= fp_rate <= 0.02,
+          f"bloom_probe: false-positive rate {fp_rate} outside [0.5%, 2%]")
+    plane_bytes = plane.numel() * plane.element_size()
+    log(f"bloom: plane {plane_bytes / 1e6:.1f} MB, fp rate {fp_rate}")
+    return plane, q, {
+        "phase": "bloom", "keys": BLOOM_KEYS, "num_blocks": num_blocks,
+        "block_bits": BLOOM_BLOCK_BITS, "num_hashes": k,
+        "plane_mb": plane_bytes / 1e6,
+        "packed_bits_mb": plane.numel() / 8 / 1e6,
+        "fill": plane.mean().item(), "probes": BLOOM_PROBES,
+        "inserted_probes": n_in, "false_negatives": false_neg,
+        "false_positive_rate": fp_rate, "kernel_vs_plain_identical": same,
+        "keys_s": t_keys, "build_s": t_build, "probe_s": t_probe,
+        "launches": launches}
+
+
+# -- phase 5: each kernel against its plain version ----------------------------
 
 def kernel_dual_solve(torch, core, ops, ref, dev):
     """The tuner's step-0 lane batch (the Fig. 6 grid, 9,600 lanes), and a
@@ -713,6 +783,42 @@ def kernel_rwkv6(torch, configs, ops, ref, dev, arch):
             **bound(moved, B * S * H * 4 * n * n), "checks": rows}
 
 
+def kernel_bloom_probe(torch, ops, ref, plane, q, dev):
+    """The bloom phase's 1 M-key batch against its 400 MB plane, and
+    ragged batches of 1 and 1,001 keys, bit for bit."""
+    k = BLOOM_HASHES
+    rows = []
+    for n in (1, 1001, q.numel()):
+        got = ops.bloom_probe_kernel(q[:n], plane, num_hashes=k)
+        want = ref.probe_ref(q[:n], plane, k)
+        same = torch.equal(got, want)
+        check(same, f"bloom_probe N={n}: kernel != plain")
+        rows.append({"N": n, "bit_identical": same,
+                     "max_abs_err": (got - want).abs().max().item(),
+                     "members": int(got.sum().item())})
+    N = q.numel()
+    call = lambda: ops.bloom_probe_kernel(q, plane, num_hashes=k)  # noqa: E731
+    # least bytes: a 4-byte key in (the function's uint32; the port's int64
+    # reads 8), a 4-byte result out, k 4-byte plane floats.  A gather really
+    # pays a 32-byte sector per float from a plane 8x the L2, about 6.5x
+    # these bytes at k = 7; PERF.md sets that against the measured time.
+    # Operations: k + 1 mix32s of 10 integer ops and a `%` counted as one,
+    # priced at the float32 rate.  That is a loose lower figure (a 32-bit
+    # `%` by a runtime divisor takes tens of instructions, and the INT32
+    # rate is about half the float32 one) which never binds here: even at
+    # 30 ops a hash and half the rate it is 0.0072 ms, under the bytes.
+    return {"name": "bloom_probe", "route": "cuda",
+            "source": "src/repro_torch/csrc/bloom_probe.cu",
+            "replaces": "src/repro/kernels/bloom_probe/kernel.py:63",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": time_ms(torch, call, 50),
+            "device_ms": device_ms(torch, call, 20, "bloom_probe_kernel"),
+            "plain_ms": time_ms(torch, lambda: ref.probe_ref(q, plane, k),
+                                10),
+            "library_ms": None,
+            **bound(N * (4 + 4 + 4 * k), N * (k + 1) * 11), "checks": rows}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout (no "
@@ -729,6 +835,8 @@ def main() -> int:
     import repro_torch.lsm as lsm
     from repro_torch import quickstart
     from repro_torch.kernels import _build as build
+    from repro_torch.kernels.bloom_probe import ops as bloom_ops
+    from repro_torch.kernels.bloom_probe import ref as bloom_ref
     from repro_torch.kernels.dual_solve import ops as dual_ops
     from repro_torch import configs, models
     from repro_torch.kernels.dual_solve import ref as dual_ref
@@ -771,6 +879,10 @@ def main() -> int:
         emit(served)
         launches[kernel] = served["kernel_launches"]
     arch_of = {kernel: arch for arch, kernel in SERVE}
+    plane, bloom_q, bloom = phase_bloom(torch, np, bloom_ops, bloom_ref,
+                                        build)
+    emit(bloom)
+    launches["bloom_probe"] = bloom["launches"]
 
     dev = DEVICE
     log("kernels")
@@ -783,7 +895,9 @@ def main() -> int:
                                dev, arch_of["flash_attention"]),
         kernel_rwkv6(torch, configs, rwkv_ops, rwkv_ref, dev,
                      arch_of["rwkv6"]),
+        kernel_bloom_probe(torch, bloom_ops, bloom_ref, plane, bloom_q, dev),
     ]
+    del plane, bloom_q
     for k in kernels:
         k["launches"] = launches[k["name"]]
     emit({"phase": "kernels", "kernels": kernels})

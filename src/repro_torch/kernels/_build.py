@@ -31,7 +31,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-KERNELS = ("dual_solve", "merge", "point_read", "flash_attention", "rwkv6")
+KERNELS = ("dual_solve", "merge", "point_read", "flash_attention", "rwkv6",
+           "bloom_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

@@ -18,6 +18,9 @@ import torch
 
 import repro_torch.lsm as P
 from repro_torch.kernels import _build
+from repro_torch.kernels.bloom_probe.ops import bloom_probe_kernel
+from repro_torch.kernels.bloom_probe.ref import (build_plane, mix32,
+                                                 probe_ref)
 from repro_torch.kernels.dual_solve.ops import dual_solve_warm_batch
 from repro_torch.configs import get_config
 from repro_torch.kernels.dual_solve.ref import dual_solve_warm_ref
@@ -241,3 +244,65 @@ def test_rwkv6_serve_batch_on_card_matches_cpu_plain_path(dev):
     assert gpu["logits_finite"] and gpu["device"].startswith("cuda")
     assert gpu["kv_cache_bytes"] == cpu["kv_cache_bytes"]
     np.testing.assert_array_equal(gpu["tokens"], cpu["tokens"])
+
+
+
+def _bloom_keys(seed, n):
+    """n distinct uint32 keys as int64, from a seeded numpy generator."""
+    keys = np.random.default_rng(seed).choice(2 ** 32, n, replace=False)
+    return torch.from_numpy(keys.astype(np.int64))
+
+
+def _bloom_check(dev, inserted, absent, n_in, num_blocks, k):
+    """Build a plane of 512-bit blocks from ``inserted`` on the card and
+    probe the first ``n_in`` inserted keys, then ``absent``: the kernel
+    equals the plain version bit for bit and finds every inserted key.
+    Returns the plane, the probe keys and the kernel's result."""
+    plane = build_plane(inserted, num_blocks, 512, k, device=dev)
+    q = torch.cat([inserted[:n_in], absent]).to(dev)
+    before = _build.LAUNCHES["bloom_probe"]
+    got = bloom_probe_kernel(q, plane, num_hashes=k)
+    assert _build.LAUNCHES["bloom_probe"] == before + 1
+    want = probe_ref(q, plane, k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.equal(got, want)
+    assert bool((got[:n_in] == 1.0).all())
+    return plane, q, got
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1_000_000])
+def test_bloom_probe_kernel_matches_plain(dev, n):
+    """N keys (N = 1 is not a multiple of anything), half inserted, against
+    a plane of 10 bits per inserted key, k = 7."""
+    keys = _bloom_keys(n, 3 * n)
+    n_in = (n + 1) // 2
+    _bloom_check(dev, keys[:2 * n], keys[2 * n:3 * n - n_in], n_in,
+                 -(-20 * n // 512), 7)
+
+
+def test_bloom_probe_kernel_deployment_plane(dev):
+    """10 M keys at 10 bits per key in 512-bit blocks, k = 7: the
+    195,313 x 512 plane (400 MB) of chip_smoke.py's bloom phase, probed
+    with 500,000 inserted and 500,000 absent keys."""
+    keys = _bloom_keys(0, 10_500_000)
+    plane, _, got = _bloom_check(dev, keys[:10_000_000], keys[10_000_000:],
+                                 500_000, 195_313, 7)
+    assert plane.shape == (195_313, 512)
+    fp = (got[500_000:] > 0.5).float().mean().item()
+    assert 0.005 <= fp <= 0.02
+
+
+def test_bloom_probe_kernel_64bit_plane_index(dev):
+    """A plane of 9,000,000 x 512 floats (4.6e9, past 2**32; 18.4 GB): the
+    keys whose floats lie past 2**31 and past 2**32 are read at their
+    64-bit index."""
+    num_blocks = 9_000_000
+    keys = _bloom_keys(1, 600_000)
+    plane, q, _ = _bloom_check(dev, keys[:400_000], keys[400_000:],
+                               200_000, num_blocks, 7)
+    start = (mix32(q[:200_000], 1) % num_blocks) * 512
+    assert int((start >= 2 ** 32).sum()) > 1000
+    assert int(((start >= 2 ** 31) & (start < 2 ** 32)).sum()) > 1000
+    del plane
+    torch.cuda.empty_cache()
