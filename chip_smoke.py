@@ -23,7 +23,8 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    greedy tokens, counting its prefill kernel's launches
    (``flash_attention`` or ``rwkv6``, one per layer of the prefill); a
    profiled prefill and four profiled decode steps (device busy share,
-   kernels by device time); and the first 2 layers of the same weights in
+   kernels by device time, and the prefill kernel's share of the device
+   time); and the first 2 layers of the same weights in
    float32 at prompt 256, whose last-position prefill logits through the
    kernel and through the plain path (materialised attention, or the
    chunked WKV in torch ops) must agree to 1e-3 of the largest logit.
@@ -40,15 +41,18 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    main path's shapes (``merge``/``point_read``/``bloom_probe``
    bit-identical,
    ``dual_solve`` to rel 1e-5 in value, ``flash_attention`` to 2e-2 in
-   bfloat16 and 2e-5 in float32, ``rwkv6`` to 5e-2 in bfloat16 and 5e-4
+   bfloat16 and 2e-5 in float32, each case naming the kernel that served
+   it, ``rwkv6`` to 5e-2 in bfloat16 and 5e-4
    in float32 on y and the final state), with the CUDA-event time per call
    (``ms``: what a caller waits, host launch included), the kernel's own
-   device time from a profiler trace (``device_ms``), the plain version's
+   device time from a profiler trace (``device_ms``; a trace without the
+   kernel fails the phase), the plain version's
    time, a PyTorch library call's time where one exists, and the least
    time the card could take (bytes over 3.35 TB/s, or operations over 67
    TFLOP/s, the H100 SXM data sheet's float32 rate outside the tensor
    cores; for ``flash_attention``, over its 989 TFLOP/s bfloat16
-   tensor-core rate).
+   tensor-core rate, and also its rate and SDPA's time on one
+   8192-token sequence).
 
 Each phase prints one JSON line; then the kernel table as one JSON line,
 the ``nvidia-smi`` name and power limit, and last the result line.  Any
@@ -78,6 +82,12 @@ SMALL_ENTRIES, SMALL_QUERIES = 200_000, 20_000
 MERGE_N, READ_BATCH = 5_000_000, 1_000_000
 # (arch, the kernel its prefill runs once per layer)
 SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"))
+# a part of each kernel's CUDA name, as a profiler trace records it; the
+# bf16 flash_attention kernel is the one the bf16 serving path launches
+CUDA_NAMES = {"dual_solve": "dual_solve_warm_kernel",
+              "merge": "merge_path_kernel", "point_read": "point_read_kernel",
+              "flash_attention": "flash_attention_wgmma_kernel",
+              "rwkv6": "rwkv6_kernel", "bloom_probe": "bloom_probe_kernel"}
 SERVE_REDUCED = False
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 CHECK_LAYERS, CHECK_PROMPT = 2, 256
@@ -91,6 +101,12 @@ BLOOM_HASHES, BLOOM_PROBES = 7, 1_000_000
 FLASH_F32_CASES = [((2, 2048, 8, 2, 64), True, 512),
                    ((2, 1024, 8, 8, 96), False, None),
                    ((2, 1531, 40, 8, 128), True, None)]       # ragged S
+# more bfloat16 flash_attention cases besides the serving prefill's:
+# (B, S, H, KV, d), causal, window, or an arch whose heads to take
+FLASH_BF16_CASES = [((2, 1531, 40, 8, 128), True, None),      # ragged S
+                    ("phi3-mini-3.8b", True, None),           # d 96, H = KV
+                    ("glm4-9b", True, None),                  # GQA group 16
+                    ((2, 2048, 40, 8, 128), True, 512)]       # window
 # float32 rwkv6 cases: (B, S, H, n), slow decay (exp(logw) ~ 0.993)
 RWKV_F32_CASES = [((2, 2048, 8, 64), True), ((2, 512, 8, 32), False),
                   ((2, 96, 4, 64), True)]                     # 3 chunks
@@ -136,13 +152,13 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int, kernel: str):
+def device_ms(torch, fn, iters: int, kernel: str) -> float:
     """Mean device time of the CUDA kernel whose name contains ``kernel``
     over ``iters`` calls of ``fn``, from a ``torch.profiler`` trace: the
     kernel alone, without the host's cost of launching it.  A trace that
     holds no CUDA event at all (the profiler sometimes records none) is
-    taken again, up to three times; None when no trace records the
-    kernel."""
+    taken again, up to three times; when no trace records the kernel (a
+    renamed kernel, or another kernel served the call), the check fails."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(3):
@@ -159,14 +175,16 @@ def device_ms(torch, fn, iters: int, kernel: str):
             f"{sorted({e.name[:80] for e in cuda})[:8]}")
         if cuda:
             break
-    return None
+    check(False, f"device_ms: no CUDA kernel named *{kernel}* in the trace")
 
 
-def profile_device(torch, fn) -> dict:
+def profile_device(torch, fn, kernel: str = "") -> dict:
     """Host wall time of ``fn`` (up to a synchronise) and the CUDA kernels
     a ``torch.profiler`` trace records in it: their summed device time,
     its share of the wall time, their count, and the six largest by name
-    (device fields None when the profiler records no device time)."""
+    (device fields None when the profiler records no device time); with
+    ``kernel``, also the device time of the kernels whose name contains it
+    and their share of the device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -182,9 +200,15 @@ def profile_device(torch, fn) -> dict:
         name = e.name[:70]
         top[name] = top.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])
-    return {"wall_s": wall, "device_s": busy_s if events else None,
-            "busy_share": busy_s / wall if events else None,
-            "kernels": len(events), "top_kernels_ms": top}
+    out = {"wall_s": wall, "device_s": busy_s if events else None,
+           "busy_share": busy_s / wall if events else None,
+           "kernels": len(events), "top_kernels_ms": top}
+    if kernel:
+        ms = sum(e.time_range.elapsed_us() for e in events
+                 if kernel in e.name) / 1e3
+        out[f"{kernel}_ms"] = ms
+        out[f"{kernel}_share"] = ms / 1e3 / busy_s if events else None
+    return out
 
 
 def bound(bytes_moved: float, ops: float,
@@ -384,6 +408,10 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
     check(launches[kernel] == cfg.num_layers,
           f"{kernel} launched {launches[kernel]} times in one prefill, "
           f"expected {cfg.num_layers}")
+    if kernel == "flash_attention":
+        tc = launches["flash_attention:bf16_tc"]
+        check(tc == cfg.num_layers, f"the bf16 tensor-core kernel served "
+              f"{tc} of the prefill's {cfg.num_layers} attention layers")
     toks = out["tokens"]
     check(toks.shape == (SERVE_BATCH, SERVE_GEN), f"tokens {toks.shape}")
     check(bool((toks >= 0).all() and (toks < cfg.vocab_size).all()),
@@ -393,7 +421,8 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
     log("serve: profiled prefill and decode steps")
     tokens = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=DEVICE)
-    prefill_prof = profile_device(torch, lambda: model.prefill(tokens))
+    prefill_prof = profile_device(torch, lambda: model.prefill(tokens),
+                                  CUDA_NAMES[kernel])
     cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
     step_tok = tokens[:, :1]
 
@@ -545,7 +574,7 @@ def kernel_dual_solve(torch, core, ops, ref, dev):
             "ms": time_ms(torch, lambda: ops.dual_solve_warm_batch(
                 C, W_l, rho, llam), 200),
             "device_ms": device_ms(torch, lambda: ops.dual_solve_warm_batch(
-                C, W_l, rho, llam), 50, "dual_solve_warm_kernel"),
+                C, W_l, rho, llam), 50, CUDA_NAMES["dual_solve"]),
             "plain_ms": time_ms(torch, lambda: ref.dual_solve_warm_ref(
                 C, W_l, rho, llam), 20),
             "library_ms": None,
@@ -594,7 +623,7 @@ def kernel_merge(torch, np, ops, ref, u64, dev):
             "max_abs_err": 0,
             "ms": time_ms(torch, lambda: ops.two_way_merge(*big), 20),
             "device_ms": device_ms(torch, lambda: ops.two_way_merge(*big), 10,
-                                   "merge_path_kernel"),
+                                   CUDA_NAMES["merge"]),
             "plain_ms": time_ms(torch, lambda: ref.two_way_merge_ref(*big),
                                 3),
             "library_ms": time_ms(torch, library, 10),
@@ -642,7 +671,7 @@ def kernel_point_read(torch, np, ops, ref, u64, tree, keys, dev):
             "ms": time_ms(torch, lambda: ops.point_read_level(
                 q, lv.keys, lv.vals, pack), 20),
             "device_ms": device_ms(torch, lambda: ops.point_read_level(
-                q, lv.keys, lv.vals, pack), 10, "point_read_kernel"),
+                q, lv.keys, lv.vals, pack), 10, CUDA_NAMES["point_read"]),
             "plain_ms": time_ms(torch, lambda: ref.point_read_level_ref(
                 q, lv.keys, lv.vals, pack.starts, pack.n_bits, pack.ks,
                 pack.fence_lo, pack.fence_hi, pack.words, pack.word_off), 3),
@@ -650,10 +679,13 @@ def kernel_point_read(torch, np, ops, ref, u64, tree, keys, dev):
 
 
 
-def kernel_flash_attention(torch, configs, ops, ref, dev, arch):
+def kernel_flash_attention(torch, configs, ops, ref, build, dev, arch):
     """The serving prefill's shape (B 4, S 2048, H 40, KV 8, d 128, bf16,
-    causal) to 2e-2, and the float32 cases of ``FLASH_F32_CASES`` (d 64
-    with a 512 window, d 96 non-causal, a ragged S) to 2e-5."""
+    causal) and the bf16 cases of ``FLASH_BF16_CASES`` (a ragged S, d 96
+    with H = KV, a GQA group of 16, a 512 window) to 2e-2, and the float32
+    cases of ``FLASH_F32_CASES`` (d 64 with a 512 window, d 96 non-causal,
+    a ragged S) to 2e-5; each case names the kernel whose launch count
+    moved (``bf16_tc`` or ``f32_cuda_core``)."""
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -661,45 +693,59 @@ def kernel_flash_attention(torch, configs, ops, ref, dev, arch):
         return [torch.randn((B, S, n, d), generator=g, device=dev).to(dtype)
                 for n in (H, KV, KV)]
 
-    cfg = configs.get_config(arch)
-    prefill = (SERVE_BATCH, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads,
-               cfg.head_dim)
-    cases = [(prefill, torch.bfloat16, True, None, 2e-2)] + [
+    def heads(name):
+        c = configs.get_config(name)
+        return (SERVE_BATCH, SERVE_PROMPT, c.num_heads, c.num_kv_heads,
+                c.head_dim)
+
+    bf16 = [(heads(arch), True, None)] + [
+        (heads(shape) if isinstance(shape, str) else shape, causal, window)
+        for shape, causal, window in FLASH_BF16_CASES]
+    cases = [(shape, torch.bfloat16, causal, window, 2e-2)
+             for shape, causal, window in bf16] + [
         (shape, torch.float32, causal, window, 2e-5)
         for shape, causal, window in FLASH_F32_CASES]
     rows = []
     for shape, dtype, causal, window, tol in cases:
         q, k, v = draw(*shape, dtype)
+        before = dict(build.LAUNCHES)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        served = [name.split(":")[1] for name in build.VARIANTS
+                  if build.LAUNCHES[name] > before[name]]
         want = ref.flash_attention_ref(q, k, v, causal=causal,
                                        window=window)
         err = (got.float() - want.float()).abs()
         ok = bool((err <= tol + tol * want.float().abs()).all())
         check(ok, f"flash_attention {shape} {dtype}: kernel != plain "
               f"(max abs {err.max().item()})")
+        expect = "bf16_tc" if dtype == torch.bfloat16 else "f32_cuda_core"
+        check(served == [expect], f"flash_attention {shape} {dtype}: "
+              f"served by {served}, expected {expect}")
         rows.append({"B_S_H_KV_d": list(shape), "dtype": str(dtype),
                      "causal": causal, "window": window, "tol": tol,
-                     "max_abs_err": err.max().item()})
+                     "kernel": served[0], "max_abs_err": err.max().item()})
         if len(rows) == 1:
             main = (q, k, v, got)
         del q, k, v, got, want, err
     q, k, v, out = main
     B, S, H, d = q.shape
     KV = k.shape[2]
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True)
 
-        def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-    except TypeError:                   # a PyTorch without enable_gqa
-        kt = kt.repeat_interleave(H // KV, dim=1)
-        vt = vt.repeat_interleave(H // KV, dim=1)
+    def sdpa(q, k, v, causal):
+        """PyTorch's fused attention on the same (B, S, n, d) inputs."""
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        try:
+            F.scaled_dot_product_attention(qt[:, :, :1], kt[:, :, :1],
+                                           vt[:, :, :1], enable_gqa=True)
+            extra = {"enable_gqa": True}
+        except TypeError:               # a PyTorch without enable_gqa
+            kt, vt = (t.repeat_interleave(qt.shape[1] // kt.shape[1], dim=1)
+                      for t in (kt, vt))
+            extra = {}
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, **extra)
 
-        def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    library = sdpa(q, k, v, True)
     lib_err = (library().transpose(1, 2).float() - out.float()).abs().max()
     check(lib_err.item() <= 0.1, f"flash_attention: the library yardstick "
           f"computes another function (max abs {lib_err.item()})")
@@ -707,16 +753,37 @@ def kernel_flash_attention(torch, configs, ops, ref, dev, arch):
     moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     call = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+            "f32_source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": time_ms(torch, call, 10),
-            "device_ms": device_ms(torch, call, 5, "flash_attention_kernel"),
+            "device_ms": device_ms(torch, call, 5,
+                                   CUDA_NAMES["flash_attention"]),
             "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(
                 q, k, v, causal=True), 3),
             "library_ms": time_ms(torch, library, 10),
             "library_max_abs_diff": lib_err.item(),
+            # one 8192-token sequence, not causal: each q tile reads 64 kv
+            # tiles, so the per-tile rate shows without the start-up cost
+            # of the serving shape's short causal tiles
+            **long_sequence(torch, ops, sdpa, draw, H, KV, d),
             **bound(moved, pairs * 4 * d, BF16_OPS_PER_S), "checks": rows}
+
+
+def long_sequence(torch, ops, sdpa, draw, H, KV, d, S=8192) -> dict:
+    """The kernel's and SDPA's time on one long bf16 sequence, not
+    causal, and the kernel's rate in TFLOP/s."""
+    q, k, v = draw(1, S, H, KV, d, torch.bfloat16)
+    call, library = (lambda: ops.flash_attention(q, k, v, causal=False),
+                     sdpa(q, k, v, False))
+    diff = (call().float() - library().transpose(1, 2).float()).abs().max()
+    check(diff.item() <= 0.1, f"flash_attention at S {S}: kernel and SDPA "
+          f"differ by {diff.item()}")
+    ms, lib = time_ms(torch, call, 5), time_ms(torch, library, 5)
+    return {"long_B_S_H_KV_d": [1, S, H, KV, d], "long_ms": ms,
+            "long_library_ms": lib,
+            "long_tflops": 4 * d * H * S * S / ms / 1e9}
 
 
 def kernel_rwkv6(torch, configs, ops, ref, dev, arch):
@@ -776,7 +843,7 @@ def kernel_rwkv6(torch, configs, ops, ref, dev, arch):
             "max_abs_err": max(max(rw["y_max_abs_err"],
                                    rw["state_max_abs_err"]) for rw in rows),
             "ms": time_ms(torch, call, 20),
-            "device_ms": device_ms(torch, call, 10, "rwkv6_kernel"),
+            "device_ms": device_ms(torch, call, 10, CUDA_NAMES["rwkv6"]),
             "plain_ms": time_ms(torch, lambda: ref.rwkv6_ref(*main), 2),
             "library_ms": None,
             "one_head_ms": time_ms(torch, lambda: ops.rwkv6(*one), 20),
@@ -812,7 +879,7 @@ def kernel_bloom_probe(torch, ops, ref, plane, q, dev):
             "replaces": "src/repro/kernels/bloom_probe/kernel.py:63",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": time_ms(torch, call, 50),
-            "device_ms": device_ms(torch, call, 20, "bloom_probe_kernel"),
+            "device_ms": device_ms(torch, call, 20, CUDA_NAMES["bloom_probe"]),
             "plain_ms": time_ms(torch, lambda: ref.probe_ref(q, plane, k),
                                 10),
             "library_ms": None,
@@ -891,7 +958,7 @@ def main() -> int:
         kernel_merge(torch, np, merge_ops, merge_ref, u64, dev),
         kernel_point_read(torch, np, read_ops, read_ref, u64, tree, keys,
                           dev),
-        kernel_flash_attention(torch, configs, flash_ops, flash_ref,
+        kernel_flash_attention(torch, configs, flash_ops, flash_ref, build,
                                dev, arch_of["flash_attention"]),
         kernel_rwkv6(torch, configs, rwkv_ops, rwkv_ref, dev,
                      arch_of["rwkv6"]),

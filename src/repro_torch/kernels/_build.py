@@ -12,9 +12,14 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and neither ``--use_fast_math`` nor
 FMA contraction, so ``expf``/``logf`` and every float op round as the plain
 PyTorch versions' separate ops do.
 
-Every C entry point returns ``cudaGetLastError()`` after its launch;
+Every C entry point takes the stream last and returns
+``cudaGetLastError()`` after its launch.  Wrappers launch only through
+:func:`launch`, which makes the tensors' device the current one around the
+C call (so the launch, its stream and any host-side setup of the entry go
+to that device, not to whichever device was current), then
 :func:`check` raises on a non-zero code.  :data:`LAUNCHES` counts, per
-kernel, the launches its wrapper made.
+wrapper, the launches it made, and per kernel where a wrapper chooses
+between two (``"flash_attention:bf16_tc"``).
 """
 
 from __future__ import annotations
@@ -31,15 +36,21 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
+#: the ops wrappers, each with its launch count and a source of its name
 KERNELS = ("dual_solve", "merge", "point_read", "flash_attention", "rwkv6",
            "bloom_probe")
+#: every ``csrc/<name>.cu``; ``flash_attention`` launches
+#: ``flash_attention`` (float32) or ``flash_attention_wgmma`` (bfloat16)
+SOURCES = KERNELS + ("flash_attention_wgmma",)
+#: per-kernel counts of a wrapper that dispatches between two kernels
+VARIANTS = ("flash_attention:bf16_tc", "flash_attention:f32_cuda_core")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 #: launches per kernel, counted by each ops.py wrapper where it launches
-LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS + VARIANTS, 0)
 
 _FNS: Dict[tuple, ctypes._CFuncPtr] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -70,7 +81,7 @@ def _target(name: str) -> tuple:
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every library not built yet, one ``nvcc`` per source, all
     started together.  Returns ``{name: nvcc/ptxas report}`` for the ones
     it compiled; raises with the compiler's output when one fails."""
@@ -131,19 +142,25 @@ def kernel_fn(name: str, symbol: str, argtypes: Sequence):
     return fn
 
 
-def check(name: str, rc: int) -> None:
+def check(name: str, rc: int, variant: str = "") -> None:
     """Raise if a launch returned a CUDA error; count it otherwise."""
     if rc != 0:
         msg = _library(name).kernel_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} "
                            f"(cudaError {rc})")
     LAUNCHES[name] += 1
+    if variant:
+        LAUNCHES[f"{name}:{variant}"] += 1
 
 
-def stream_of(t) -> int:
-    """PyTorch's current stream on ``t``'s device, as the raw handle."""
+def launch(name: str, fn, *args, device, variant: str = "") -> None:
+    """Call the C entry ``fn(*args, stream)`` with ``device`` current and
+    PyTorch's current stream on it, then :func:`check` (and count) the
+    launch of wrapper ``name`` (and of its kernel ``variant``)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(name, rc, variant)
 
 
 P = ctypes.c_void_p

@@ -52,9 +52,9 @@ def bloom_probe_kernel(keys: torch.Tensor, plane: torch.Tensor,
     if N == 0:
         return out
     fn = _build.kernel_fn("bloom_probe", "bloom_probe_launch", _LAUNCH_ARGS)
-    rc = fn(keys.data_ptr(), N, plane.data_ptr(), num_blocks, block_bits,
-            num_hashes, out.data_ptr(), _build.stream_of(out))
-    _build.check("bloom_probe", rc)
+    _build.launch("bloom_probe", fn, keys.data_ptr(), N, plane.data_ptr(),
+                  num_blocks, block_bits, num_hashes, out.data_ptr(),
+                  device=dev)
     return out
 
 

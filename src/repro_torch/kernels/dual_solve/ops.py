@@ -63,10 +63,10 @@ def dual_solve_warm_batch(C: torch.Tensor, W: torch.Tensor,
         return val, lnew
     fn = _build.kernel_fn("dual_solve", "dual_solve_warm_launch",
                           _LAUNCH_ARGS)
-    rc = fn(C.data_ptr(), W.data_ptr(), n if W.dim() == 2 else 0,
-            rho.data_ptr(), llam.data_ptr(), val.data_ptr(), lnew.data_ptr(),
-            L, n, half_width, n_local, n_golden, _build.stream_of(C))
-    _build.check("dual_solve", rc)
+    _build.launch("dual_solve", fn, C.data_ptr(), W.data_ptr(),
+                  n if W.dim() == 2 else 0, rho.data_ptr(), llam.data_ptr(),
+                  val.data_ptr(), lnew.data_ptr(), L, n, half_width, n_local,
+                  n_golden, device=C.device)
     return val, lnew
 
 

@@ -1,12 +1,19 @@
 """Dispatch for the prefill attention (kernel 4).
 
 :func:`flash_attention` takes q ``(B, S, H, d)`` and k/v ``(B, Sk, KV, d)``
-in the model's layout.  For CUDA tensors it launches the hand-written
-kernel (``csrc/flash_attention.cu``), which reads kv head ``h // (H/KV)``
-through the strides itself: no GQA expansion, no transpose.  For CPU
-tensors it takes the plain version (``ref.flash_attention_ref``).  Any other
-device raises, and so does a CUDA tensor the kernel does not take: nothing
-falls back.
+in the model's layout.  For CUDA tensors it launches one of two
+hand-written kernels by dtype, each reading kv head ``h // (H/KV)`` through
+the strides itself (no GQA expansion, no transpose):
+
+* bfloat16: ``csrc/flash_attention_wgmma.cu``, bf16 ``wgmma`` products on
+  the tensor cores fed by TMA loads, float32 softmax and accumulators;
+* float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores
+  (the tensor cores take float32 only as TF32, which cannot hold the
+  float32 contract of 2e-5).
+
+For CPU tensors it takes the plain version (``ref.flash_attention_ref``).
+Any other device raises, and so does a CUDA tensor that neither kernel
+takes: nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,6 +33,28 @@ _LAUNCH_ARGS = (P,) * 4 + (I64,) * 12 + (I32,) * 8 + (F32, I32, P)
 
 HEAD_DIMS = (16, 32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 kernel's entry: the same arguments without the dtype
+_WGMMA_ARGS = _LAUNCH_ARGS[:-2] + (P,)
+
+
+def tma_strides(t: torch.Tensor) -> Optional[list]:
+    """The (batch, seq, head) element strides of a ``(B, S, n, d)`` bf16
+    tensor as a TMA tensor map takes them, or None when TMA cannot read it
+    in place: TMA needs a 16-byte aligned base, a contiguous last dimension
+    and every other stride a positive multiple of 16 bytes.  A dimension of
+    size 1 is never stepped over, so its stride is replaced by the packed
+    one."""
+    B, S, n, d = t.shape
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return None
+    packed = (S * n * d, n * d, d)
+    out = []
+    for size, st, pk in zip(t.shape[:3], t.stride()[:3], packed):
+        st = st if size > 1 else pk
+        if st <= 0 or (st * t.element_size()) % 16:
+            return None
+        out.append(st)
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,16 +86,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {d}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((B, S, H, d), dtype=q.dtype, device=dev)
     if out.numel() == 0 or Sk == 0:
         return out.zero_()
+    shape = (B, S, Sk, H, KV, d, int(causal),
+             0 if window is None else int(window), 1.0 / math.sqrt(d))
+    if q.dtype == torch.bfloat16:
+        # a packed copy (a fresh, aligned allocation) of what TMA cannot
+        # read in place; contiguous() would keep a misaligned packed view
+        q, k, v = (t if tma_strides(t) is not None
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+        strides = [s for t in (q, k, v) for s in tma_strides(t)]
+        strides += out.stride()[:3]
+        fn = _build.kernel_fn("flash_attention_wgmma",
+                              "flash_attention_wgmma_launch", _WGMMA_ARGS)
+        _build.launch("flash_attention", fn, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), out.data_ptr(), *strides, *shape,
+                      device=dev, variant="bf16_tc")
+        return out
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     fn = _build.kernel_fn("flash_attention", "flash_attention_launch",
                           _LAUNCH_ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *strides, B, S, Sk, H, KV, d, int(causal),
-            0 if window is None else int(window), 1.0 / math.sqrt(d),
-            _DTYPES[q.dtype], _build.stream_of(out))
-    _build.check("flash_attention", rc)
+    _build.launch("flash_attention", fn, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), *strides, *shape,
+                  _DTYPES[q.dtype], device=dev, variant="f32_cuda_core")
     return out

@@ -48,10 +48,9 @@ def two_way_merge(a_keys: torch.Tensor, a_vals: torch.Tensor,
     if na + nb == 0:
         return out_k, out_v
     fn = _build.kernel_fn("merge", "merge_launch", _LAUNCH_ARGS)
-    rc = fn(a_keys.data_ptr(), a_vals.data_ptr(), na, b_keys.data_ptr(),
-            b_vals.data_ptr(), nb, out_k.data_ptr(), out_v.data_ptr(),
-            _build.stream_of(out_k))
-    _build.check("merge", rc)
+    _build.launch("merge", fn, a_keys.data_ptr(), a_vals.data_ptr(), na,
+                  b_keys.data_ptr(), b_vals.data_ptr(), nb, out_k.data_ptr(),
+                  out_v.data_ptr(), device=dev)
     return out_k, out_v
 
 

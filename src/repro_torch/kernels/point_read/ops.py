@@ -89,9 +89,9 @@ def point_read_level(q: torch.Tensor, arena_keys: torch.Tensor,
         return hit, enc, probes, reads, fps
     table = layout.table()
     fn = _build.kernel_fn("point_read", "point_read_launch", _LAUNCH_ARGS)
-    rc = fn(q.data_ptr(), B, arena_keys.data_ptr(), arena_vals.data_ptr(),
-            table.data_ptr(), layout.num_runs, layout.words.data_ptr(),
-            hit.data_ptr(), enc.data_ptr(), probes.data_ptr(),
-            reads.data_ptr(), fps.data_ptr(), _build.stream_of(q))
-    _build.check("point_read", rc)
+    _build.launch("point_read", fn, q.data_ptr(), B, arena_keys.data_ptr(),
+                  arena_vals.data_ptr(), table.data_ptr(), layout.num_runs,
+                  layout.words.data_ptr(), hit.data_ptr(), enc.data_ptr(),
+                  probes.data_ptr(), reads.data_ptr(), fps.data_ptr(),
+                  device=dev)
     return hit, enc, probes, reads, fps

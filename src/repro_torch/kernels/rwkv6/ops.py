@@ -75,8 +75,8 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return y, state
     strides = [s for t in (r, k, v, logw) for s in t.stride()[:3]]
     fn = _build.kernel_fn("rwkv6", "rwkv6_launch", _LAUNCH_ARGS)
-    rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-            u.data_ptr(), y.data_ptr(), state.data_ptr(), *strides, B, S, H,
-            n, _DTYPES[r.dtype], _build.stream_of(y))
-    _build.check("rwkv6", rc)
+    _build.launch("rwkv6", fn, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  logw.data_ptr(), u.data_ptr(), y.data_ptr(),
+                  state.data_ptr(), *strides, B, S, H, n, _DTYPES[r.dtype],
+                  device=dev)
     return y, state

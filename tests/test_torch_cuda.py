@@ -143,12 +143,19 @@ def test_engine_on_card_matches_cpu_plain_path(dev):
     (2, 77, 2, 2, 16, True, None, torch.float32, False),
     (1, 65, 4, 2, 32, False, 30, torch.float32, True),
     (2, 256, 8, 2, 128, True, None, torch.bfloat16, False),
+    (1, 300, 4, 1, 128, True, 100, torch.bfloat16, True),
+    (2, 77, 2, 2, 16, True, None, torch.bfloat16, False),
+    (1, 65, 4, 2, 32, False, None, torch.bfloat16, False),
+    (2, 256, 4, 4, 96, True, None, torch.bfloat16, False),  # H = KV
+    (1, 256, 32, 2, 128, True, None, torch.bfloat16, False),  # GQA 16
+    (1, 1, 4, 2, 128, True, None, torch.bfloat16, False),
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, S, H, KV, d, causal,
                                               window, dtype, strided):
     """The kernel against its plain version: float32 to 2e-5, bfloat16 to
     2e-2 (one bfloat16 rounding of the output apart).  ``strided`` hands
-    the kernel views whose batch/seq/head strides are not the packed ones."""
+    the kernel views whose batch/seq/head strides are not the packed ones.
+    bfloat16 launches the tensor-core kernel, float32 the CUDA-core one."""
     g = torch.Generator(device=dev).manual_seed(S + d)
 
     def draw(n):
@@ -157,14 +164,35 @@ def test_flash_attention_kernel_matches_plain(dev, B, S, H, KV, d, causal,
         return t[:, :, 1:n + 1] if strided else t
 
     q, k, v = draw(H), draw(KV), draw(KV)
-    before = _build.LAUNCHES["flash_attention"]
+    before = dict(_build.LAUNCHES)
     got = flash_attention(q, k, v, causal=causal, window=window)
-    assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert _build.LAUNCHES["flash_attention"] \
+        == before["flash_attention"] + 1
+    served = {name for name in _build.VARIANTS
+              if _build.LAUNCHES[name] != before[name]}
+    assert served == {"flash_attention:bf16_tc" if dtype == torch.bfloat16
+                      else "flash_attention:f32_cuda_core"}
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (B, S, H, d)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_bf16_copies_what_tma_cannot_read(dev):
+    """bf16 q/k/v that TMA cannot read in place (a base one element off
+    the 16-byte grid, a head stride of 136 bytes) are copied to packed
+    tensors and still match the plain version."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    flat = torch.randn(2 * 96 * 4 * 64 + 1, generator=g,
+                       device=dev).to(torch.bfloat16)
+    q = flat[1:].view(2, 96, 4, 64)                  # misaligned base
+    k, v = (torch.randn((2, 96, 2, 68), generator=g, device=dev)
+            .to(torch.bfloat16)[..., :64] for _ in range(2))
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def _to(tree, device):
@@ -306,3 +334,75 @@ def test_bloom_probe_kernel_64bit_plane_index(dev):
     assert int(((start >= 2 ** 31) & (start < 2 ** 32)).sum()) > 1000
     del plane
     torch.cuda.empty_cache()
+
+
+def _guarded_calls(d):
+    """One small call of each kernel's wrapper on device ``d``, as
+    (launch count to watch, thunk returning the outputs as a tuple)."""
+    rng = np.random.default_rng(7)
+    C = torch.tensor(rng.gamma(2.0, 2.0, (64, 4)), dtype=torch.float32,
+                     device=d)
+    W = torch.full((64, 4), 0.25, device=d)
+    rho = torch.full((64,), 0.5, device=d)
+    keys = _u64_keys(rng, 300)
+    a, b = np.sort(keys[::2]), np.sort(keys[1::2])
+    lv = store.LevelStore(d)
+    lv._set_runs([store.RunData.build(u64.to_device_keys(a, d),
+                                      torch.arange(len(a), device=d), 7.5,
+                                      flushes=1)])
+    q = u64.to_device_keys(keys[:50], d)
+    g = torch.Generator().manual_seed(1)     # the same numbers on any d
+    attn = [torch.randn((1, 40, n, 64), generator=g) for n in (4, 2, 2)]
+    attn = {dt: [t.to(d, dt) for t in attn]
+            for dt in (torch.bfloat16, torch.float32)}
+    rkv = [torch.randn((1, 32, 2, 16), generator=g).to(d) for _ in range(3)]
+    logw = -torch.exp(torch.randn((1, 32, 2, 16), generator=g)).to(d)
+    u = (torch.randn((2, 16), generator=g) * 0.1).to(d)
+    bkeys = _bloom_keys(3, 200)
+    plane = build_plane(bkeys[:100], 4, 512, 7, device=d)
+    return {
+        "dual_solve": lambda: dual_solve_warm_batch(
+            C, W, rho, torch.log(C.max(1).values))[:1],
+        "merge": lambda: two_way_merge(
+            u64.to_device_keys(a, d), torch.arange(len(a), device=d),
+            u64.to_device_keys(b, d), torch.arange(len(b), device=d)),
+        "point_read": lambda: point_read_level(q, lv.keys, lv.vals, lv.pack),
+        "flash_attention:bf16_tc": lambda: (flash_attention(
+            *attn[torch.bfloat16]),),
+        "flash_attention:f32_cuda_core": lambda: (flash_attention(
+            *attn[torch.float32]),),
+        "rwkv6": lambda: rwkv6(*rkv, logw, u),
+        "bloom_probe": lambda: (bloom_probe_kernel(bkeys.to(d), plane, 7),),
+    }
+
+
+@pytest.mark.parametrize("kernel", [
+    "dual_solve", "merge", "point_read", "flash_attention:bf16_tc",
+    "flash_attention:f32_cuda_core", "rwkv6", "bloom_probe"])
+def test_launch_inside_a_device_guard_stays_on_its_device(dev, kernel):
+    """Each wrapper called inside ``torch.cuda.device(0)`` launches its
+    kernel once and leaves every output on cuda:0, equal to the plain
+    version on the CPU; with a second card, tensors on cuda:1 called while
+    cuda:0 is current give the same outputs on cuda:1."""
+    want = [t.cpu() for t in _guarded_calls("cpu")[kernel]()]
+    # the kernels' contracts: dual_solve's value to rel 1e-5, float32
+    # attention to 2e-5, bf16 attention to 2e-2, rwkv6 to 5e-4
+    tol = {"dual_solve": (0.0, 1e-5), "flash_attention:bf16_tc": (2e-2, 2e-2),
+           "flash_attention:f32_cuda_core": (2e-5, 2e-5),
+           "rwkv6": (5e-4, 5e-4)}.get(kernel)
+    targets = [(0, 0)] + ([(0, 1)] if torch.cuda.device_count() > 1 else [])
+    for current, home in targets:
+        d = torch.device("cuda", home)
+        call = _guarded_calls(d)[kernel]
+        before = _build.LAUNCHES[kernel]
+        with torch.cuda.device(current):
+            got = call()
+            torch.cuda.synchronize(d)
+        assert _build.LAUNCHES[kernel] == before + 1
+        for g, w in zip(got, want):
+            assert g.device == d
+            if tol is None:
+                assert torch.equal(g.cpu(), w)
+            else:
+                torch.testing.assert_close(g.cpu().float(), w.float(),
+                                           atol=tol[0], rtol=tol[1])

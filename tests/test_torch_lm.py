@@ -40,7 +40,8 @@ from repro.models import build_model as jbuild
 from repro.models import layers as JL
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_numpy
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                    tma_strides)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.launch.serve import serve_batch, write_prefill_cache
 from repro_torch.models import build_model
@@ -242,6 +243,35 @@ def test_flash_wrapper_ragged_lengths(S, causal, window):
     cfg = get_config("qwen3-14b").reduced(window=window)
     mask = TL.causal_mask(S, S, window) if causal else None
     _close(got, TL._sdpa(q, k, v, mask, cfg), 2e-5)
+
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
+def test_tma_strides_take_packed_and_head_offset_views(d):
+    """What the bf16 kernel's TMA maps read in place: a packed tensor, and
+    a view one head into a wider one (a 2d-byte offset, 16-byte aligned
+    at every head dim), with their (batch, seq, head) strides."""
+    assert tma_strides(_bf16((2, 9, 4, d))) == [9 * 4 * d, 4 * d, d]
+    view = _bf16((2, 9, 8, d))[:, :, 1:5]
+    assert view.data_ptr() % 16 == 0
+    assert tma_strides(view) == [9 * 8 * d, 8 * d, d]
+
+
+def test_tma_strides_refuse_what_tma_cannot_read():
+    """A base off the 16-byte grid, a stride that is no multiple of 16
+    bytes, a non-contiguous last dimension: None (the wrapper then copies
+    to a packed tensor).  A size-1 dimension's stride is never stepped
+    over, so the packed one stands in for it."""
+    flat = _bf16(2 * 9 * 4 * 64 + 8)
+    assert tma_strides(flat[1:1 + 2 * 9 * 4 * 64].view(2, 9, 4, 64)) is None
+    assert tma_strides(_bf16((2, 9, 4, 68))[..., :64]) is None   # 136 B rows
+    assert tma_strides(_bf16((2, 9, 64, 4)).transpose(2, 3)) is None
+    one = torch.as_strided(_bf16(4 * 64 * 3), (1, 3, 4, 64),
+                           (5, 4 * 64, 64, 1))
+    assert tma_strides(one) == [3 * 4 * 64, 4 * 64, 64]
 
 
 # ---------------------------------------------------------------------------
