@@ -12,7 +12,8 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    6 cells, the kernel path against the plain path with the same starts.
 2. ``engine`` — quickstart's nominal and robust tunings deployed at 10 M
    entries of 64 bytes: ``populate`` and a 1 M-query ``run_session`` of the
-   write burst, counting ``merge`` and ``point_read`` launches; and a
+   write burst, counting ``merge`` and ``point_read`` launches and
+   recording the size of every merge the path launches; and a
    200,000-entry, 20,000-query run on the CPU plain path and on the card,
    whose ``IOStats`` and answers must be bit-identical.
 3. ``serve`` — the LM server, once per architecture of ``SERVE``: the
@@ -21,13 +22,15 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    at its published width and depth in bfloat16 from the port's seeded
    init on the card, ``serve_batch`` with batch 4, prompt 2048 and 32
    greedy tokens, counting its prefill kernel's launches
-   (``flash_attention`` or ``rwkv6``, one per layer of the prefill); a
+   (``flash_attention`` or ``rwkv6``, one per layer of the prefill, each
+   on the bf16 tensor-core kernel); a
    profiled prefill and four profiled decode steps (device busy share,
    kernels by device time, and the prefill kernel's share of the device
    time); and the first 2 layers of the same weights in
    float32 at prompt 256, whose last-position prefill logits through the
    kernel and through the plain path (materialised attention, or the
-   chunked WKV in torch ops) must agree to 1e-3 of the largest logit.
+   chunked WKV in torch ops) must agree to 1e-3 of the largest logit
+   (counting the float32 kernels' launches).
    Each architecture's weights are freed before the next one's.
 4. ``bloom`` — the blocked-Bloom probe through its own entry points (no
    path of the system calls it), at RocksDB's cache-local Bloom filter
@@ -42,8 +45,10 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    bit-identical,
    ``dual_solve`` to rel 1e-5 in value, ``flash_attention`` to 2e-2 in
    bfloat16 and 2e-5 in float32, each case naming the kernel that served
-   it, ``rwkv6`` to 5e-2 in bfloat16 and 5e-4
-   in float32 on y and the final state), with the CUDA-event time per call
+   it, ``rwkv6`` to 5e-2 in bfloat16 at the model's, a slow and a fast
+   decay and 5e-4 in float32 on y and the final state, each case naming
+   its kernel, the float32 one timed as a row of its own), with the
+   CUDA-event time per call
    (``ms``: what a caller waits, host launch included), the kernel's own
    device time from a profiler trace (``device_ms``; a trace without the
    kernel fails the phase), the plain version's
@@ -52,7 +57,12 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    TFLOP/s, the H100 SXM data sheet's float32 rate outside the tensor
    cores; for ``flash_attention``, over its 989 TFLOP/s bfloat16
    tensor-core rate, and also its rate and SDPA's time on one
-   8192-token sequence).
+   8192-token sequence); ``merge`` also replays the engine path's merges
+   at their recorded sizes, for their summed device time against their
+   bound.
+
+The build's ``ptxas`` report (registers and spills) for the bf16
+``rwkv6`` kernel is printed on a line of its own.
 
 Each phase prints one JSON line; then the kernel table as one JSON line,
 the ``nvidia-smi`` name and power limit, and last the result line.  Any
@@ -87,7 +97,9 @@ SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"))
 CUDA_NAMES = {"dual_solve": "dual_solve_warm_kernel",
               "merge": "merge_path_kernel", "point_read": "point_read_kernel",
               "flash_attention": "flash_attention_wgmma_kernel",
-              "rwkv6": "rwkv6_kernel", "bloom_probe": "bloom_probe_kernel"}
+              "rwkv6": "rwkv6_mma_kernel",
+              "rwkv6:f32_cuda_core": "rwkv6_kernel",
+              "bloom_probe": "bloom_probe_kernel"}
 SERVE_REDUCED = False
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 CHECK_LAYERS, CHECK_PROMPT = 2, 256
@@ -107,9 +119,14 @@ FLASH_BF16_CASES = [((2, 1531, 40, 8, 128), True, None),      # ragged S
                     ("phi3-mini-3.8b", True, None),           # d 96, H = KV
                     ("glm4-9b", True, None),                  # GQA group 16
                     ((2, 2048, 40, 8, 128), True, 512)]       # window
-# float32 rwkv6 cases: (B, S, H, n), slow decay (exp(logw) ~ 0.993)
-RWKV_F32_CASES = [((2, 2048, 8, 64), True), ((2, 512, 8, 32), False),
-                  ((2, 96, 4, 64), True)]                     # 3 chunks
+# rwkv6 decays, (mean, sd) of ww with logw = -exp(ww): the model's init,
+# a slow one (exp(logw) ~ 0.993) and a fast one (logw ~ -7.4, where a
+# one-level chunked split overflows); bf16 runs each at the prefill's shape
+RWKV_DECAYS = {"model": (-0.6, 0.5), "slow": (-5.0, 0.1),
+               "fast": (2.0, 0.1)}
+# float32 rwkv6 cases: (B, S, H, n), decay; the first is timed
+RWKV_F32_CASES = [((2, 2048, 8, 64), "slow"), ((2, 512, 8, 32), "model"),
+                  ((2, 96, 4, 64), "slow")]                   # 3 chunks
 
 
 T_START = time.time()
@@ -310,7 +327,27 @@ def device_busy(torch, lsm, quickstart, tree, keys, n_queries=100_000):
                                        n_queries=n_queries, seed=9))}
 
 
-def phase_engine(torch, np, core, lsm, quickstart, build):
+def record_merges(build, merge_ops):
+    """Wrap ``merge_ops.two_way_merge`` (the module attribute through
+    which every compaction's ``merge_runs`` calls it) to record (na, nb)
+    of each call that launched the kernel.  Returns the list and a
+    function that puts the module's own function back."""
+    sizes, inner = [], merge_ops.two_way_merge
+
+    def recorded(a_keys, a_vals, b_keys, b_vals):
+        before = build.LAUNCHES["merge"]
+        out = inner(a_keys, a_vals, b_keys, b_vals)
+        if build.LAUNCHES["merge"] > before:
+            sizes.append((a_keys.numel(), b_keys.numel()))
+        return out
+
+    merge_ops.two_way_merge = recorded
+    return sizes, lambda: setattr(merge_ops, "two_way_merge", inner)
+
+
+def phase_engine(torch, np, core, lsm, quickstart, build, merge_ops):
+    """Returns the nominal tree and its keys, the sizes (na, nb) of the
+    path's merges, and the phase's JSON."""
     out = {"phase": "engine", "entries": N_ENTRIES, "queries": N_QUERIES,
            "mix": quickstart.BURST.tolist(), "trees": {}}
     keys_of = {}
@@ -318,6 +355,7 @@ def phase_engine(torch, np, core, lsm, quickstart, build):
     trees = {name: deploy(core, lsm, phi, DEVICE, N_ENTRIES)
              for name, phi in phis.items()}
     build.reset_launches()
+    merges, unwrap = record_merges(build, merge_ops)
     for name, tree in trees.items():
         log(f"engine: populate {name}")
         t0 = time.time()
@@ -343,9 +381,16 @@ def phase_engine(torch, np, core, lsm, quickstart, build):
                             for lv in tree.store.levels) * 8 / 1e6}
         keys_of[name] = keys
     launches = dict(build.LAUNCHES)
+    unwrap()
     out["launches"] = launches
     for k in ("merge", "point_read"):
         check(launches[k] > 0, f"{k} never launched on the engine path")
+    check(len(merges) == launches["merge"], f"recorded {len(merges)} of "
+          f"the path's {launches['merge']} merge launches")
+    totals = [na + nb for na, nb in merges]
+    out["merge_path"] = {"launches": len(merges), "entries": sum(totals),
+                         "max_entries": max(totals, default=0),
+                         "sizes": [list(m) for m in merges]}
     out["device_busy"] = device_busy(torch, lsm, quickstart,
                                      trees["nominal"], keys_of["nominal"])
     # the CPU plain path and the card, bit for bit, at 200K entries
@@ -365,7 +410,7 @@ def phase_engine(torch, np, core, lsm, quickstart, build):
               for a, b in zip(small["cpu"][2], small[DEVICE][2])),
           "arenas: cpu != cuda")
     out["cpu_vs_cuda_200k"] = {"identical": True, "io": small[DEVICE][0]}
-    return trees["nominal"], keys_of["nominal"], out
+    return trees["nominal"], keys_of["nominal"], merges, out
 
 
 # -- phase 3: LM serving -------------------------------------------------------
@@ -408,10 +453,9 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
     check(launches[kernel] == cfg.num_layers,
           f"{kernel} launched {launches[kernel]} times in one prefill, "
           f"expected {cfg.num_layers}")
-    if kernel == "flash_attention":
-        tc = launches["flash_attention:bf16_tc"]
-        check(tc == cfg.num_layers, f"the bf16 tensor-core kernel served "
-              f"{tc} of the prefill's {cfg.num_layers} attention layers")
+    tc = launches[f"{kernel}:bf16_tc"]
+    check(tc == cfg.num_layers, f"the bf16 tensor-core kernel served {tc} "
+          f"of the prefill's {cfg.num_layers} {kernel} launches")
     toks = out["tokens"]
     check(toks.shape == (SERVE_BATCH, SERVE_GEN), f"tokens {toks.shape}")
     check(bool((toks >= 0).all() and (toks < cfg.vocab_size).all()),
@@ -444,10 +488,14 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
     prompts = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (SERVE_BATCH, CHECK_PROMPT))
     tokens = torch.as_tensor(prompts, dtype=torch.int64, device=DEVICE)
+    build.reset_launches()
     with torch.no_grad():
         kern, _ = lm.lm_prefill(small, {"tokens": tokens}, cfg32)
         plain, _ = lm.lm_prefill(small, {"tokens": tokens},
                                  cfg32.replace(attention_impl="plain"))
+    f32_launches = build.LAUNCHES[f"{kernel}:f32_cuda_core"]
+    check(f32_launches == CHECK_LAYERS, f"the float32 {kernel} kernel "
+          f"launched {f32_launches} times in {CHECK_LAYERS} float32 layers")
     diff = (kern - plain).abs().max().item()
     top = plain.abs().max().item()
     check(diff <= 1e-3 * top, f"{arch} prefill logits, kernel vs plain "
@@ -468,6 +516,7 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
             "prefill_profile": prefill_prof,
             "decode_profile_4_steps": decode_prof,
             "f32_check": {"layers": CHECK_LAYERS, "prompt": CHECK_PROMPT,
+                          "f32_kernel_launches": f32_launches,
                           "max_abs_diff": diff, "max_abs_logit": top,
                           "rel": diff / top}}
 
@@ -582,9 +631,11 @@ def kernel_dual_solve(torch, core, ops, ref, dev):
             "checks": rows}
 
 
-def kernel_merge(torch, np, ops, ref, u64, dev):
+def kernel_merge(torch, np, ops, ref, u64, dev, path_sizes):
     """5 M + 5 M with duplicates (a compaction's shape at this scale), and
-    ragged sizes."""
+    ragged sizes; then the engine path's merges replayed at their
+    recorded sizes ``path_sizes`` (na, nb) on fresh sorted runs, in one
+    profiler trace: their summed device time against their bound."""
     rng = np.random.default_rng(0)
     rows = []
     for na, nb in ((MERGE_N, MERGE_N), (1, 0), (0, 3), (999_983, 4_099),
@@ -617,10 +668,12 @@ def kernel_merge(torch, np, ops, ref, u64, dev):
     check(torch.equal(lk, big_out[0]) and torch.equal(lv, big_out[1]),
           "merge: the library yardstick computes another function")
     steps = int(np.ceil(np.log2(n + 1)))
+    del big_out, lk, lv
     return {"name": "merge", "route": "cuda",
             "source": "src/repro_torch/csrc/merge.cu",
             "replaces": "src/repro/kernels/merge/kernel.py:70",
             "max_abs_err": 0,
+            **merge_path_replay(torch, ops, dev, path_sizes),
             "ms": time_ms(torch, lambda: ops.two_way_merge(*big), 20),
             "device_ms": device_ms(torch, lambda: ops.two_way_merge(*big), 10,
                                    CUDA_NAMES["merge"]),
@@ -628,6 +681,37 @@ def kernel_merge(torch, np, ops, ref, u64, dev):
                                 3),
             "library_ms": time_ms(torch, library, 10),
             **bound(n * 16 * 2, n * steps * 4), "checks": rows}
+
+
+def merge_path_replay(torch, ops, dev, sizes) -> dict:
+    """The engine path's merges at their sizes: each (na, nb) on fresh
+    sorted random keys, all in one profiler trace, summing the merge
+    kernel's device time.  Their bound counts each entry's key and value
+    read once and written once (32 bytes) over 3.35 TB/s."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def run(n):
+        return torch.sort(torch.randint(-2 ** 62, 2 ** 62, (n,),
+                                        generator=gen, device=dev)).values
+
+    def replay():
+        for na, nb in sizes:
+            ops.two_way_merge(run(na), torch.arange(na, device=dev),
+                              run(nb), torch.arange(nb, device=dev))
+
+    for attempt in range(3):
+        prof = profile_device(torch, replay, CUDA_NAMES["merge"])
+        if prof["device_s"]:
+            break
+        log(f"merge replay: no CUDA events in trace {attempt + 1}")
+    entries = sum(na + nb for na, nb in sizes)
+    path_ms = prof[f"{CUDA_NAMES['merge']}_ms"]
+    check(path_ms > 0, "merge replay: no merge kernel in the trace")
+    bound_ms = entries * 32 / HBM_BYTES_PER_S * 1e3
+    return {"path_launches": len(sizes), "path_entries": entries,
+            "path_max_entries": max(na + nb for na, nb in sizes),
+            "path_device_ms": path_ms, "path_bound_ms": bound_ms,
+            "path_loss_ms": path_ms - bound_ms}
 
 
 def kernel_point_read(torch, np, ops, ref, u64, tree, keys, dev):
@@ -786,21 +870,23 @@ def long_sequence(torch, ops, sdpa, draw, H, KV, d, S=8192) -> dict:
             "long_tflops": 4 * d * H * S * S / ms / 1e9}
 
 
-def kernel_rwkv6(torch, configs, ops, ref, dev, arch):
-    """The serving prefill's shape (B 4, S 2048, H 40, n 64, r/k/v bf16,
-    logw float32 at the model's init decay) to 5e-2, and the float32 cases
-    of ``RWKV_F32_CASES`` (slow decay, n 32, three chunks) to 5e-4, on y
-    and the final state."""
+def kernel_rwkv6(torch, configs, ops, ref, build, dev, arch):
+    """Two rows.  ``rwkv6``: the bf16 tensor-core kernel at the serving
+    prefill's shape (B 4, S 2048, H 40, n 64, r/k/v bf16, logw float32)
+    at the model's, a slow and a fast decay (``RWKV_DECAYS``), to 5e-2,
+    timed at the model's.  ``rwkv6:f32_cuda_core``: the per-step float32
+    kernel at the cases of ``RWKV_F32_CASES`` (slow decay, n 32, three
+    chunks), to 5e-4, timed at the first.  Both on y and the final state;
+    each case names the kernel whose launch count moved."""
     g = torch.Generator(device=dev).manual_seed(0)
 
-    def draw(B, S, H, n, dtype, slow):
+    def draw(B, S, H, n, dtype, decay):
         """r/k/v ~ N(0, 1) as the projections of a normed input are;
-        logw = -exp(ww) with ww ~ w_base -0.6 + 0.5 N(0, 1) like the
-        model's, or ~ -5 + 0.1 N(0, 1) (slow); u ~ 0.1 N(0, 1) as its
-        init."""
+        logw = -exp(ww), ww ~ mean + sd N(0, 1) (the model's w_base is
+        -0.6 + 0.5 N); u ~ 0.1 N(0, 1) as its init."""
         rkv = [torch.randn((B, S, H, n), generator=g, device=dev).to(dtype)
                for _ in range(3)]
-        mean, sd = (-5.0, 0.1) if slow else (-0.6, 0.5)
+        mean, sd = RWKV_DECAYS[decay]
         ww = torch.randn((B, S, H, n), generator=g, device=dev) * sd + mean
         u = torch.randn((H, n), generator=g, device=dev) * 0.1
         return (*rkv, -torch.exp(ww), u)
@@ -808,46 +894,78 @@ def kernel_rwkv6(torch, configs, ops, ref, dev, arch):
     cfg = configs.get_config(arch)
     n = cfg.rwkv_head_dim
     prefill = (SERVE_BATCH, SERVE_PROMPT, cfg.d_model // n, n)
-    cases = [(prefill, torch.bfloat16, False, 5e-2)] + [
-        (shape, torch.float32, slow, 5e-4) for shape, slow in RWKV_F32_CASES]
-    rows = []
-    for shape, dtype, slow, tol in cases:
-        args = draw(*shape, dtype, slow)
+    cases = [(prefill, torch.bfloat16, decay, 5e-2)
+             for decay in RWKV_DECAYS] + [
+        (shape, torch.float32, decay, 5e-4)
+        for shape, decay in RWKV_F32_CASES]
+    rows = {torch.bfloat16: [], torch.float32: []}
+    timed = {}
+    for shape, dtype, decay, tol in cases:
+        args = draw(*shape, dtype, decay)
+        before = dict(build.LAUNCHES)
         got = ops.rwkv6(*args)
+        served = [name.split(":")[1] for name in build.VARIANTS
+                  if name.startswith("rwkv6:")
+                  and build.LAUNCHES[name] > before[name]]
+        expect = "bf16_tc" if dtype == torch.bfloat16 else "f32_cuda_core"
+        check(served == [expect], f"rwkv6 {shape} {dtype}: served by "
+              f"{served}, expected {expect}")
         want = ref.rwkv6_ref(*args)
         errs = []
         for a, b, what in zip(got, want, ("y", "state")):
             err = (a - b).abs()
             check(bool((err <= tol + tol * b.abs()).all()),
-                  f"rwkv6 {shape} {dtype} slow={slow}: kernel != plain on "
+                  f"rwkv6 {shape} {dtype} {decay}: kernel != plain on "
                   f"{what} (max abs {err.max().item()})")
             errs.append(err.max().item())
-        rows.append({"B_S_H_n": list(shape), "dtype": str(dtype),
-                     "slow_decay": slow, "tol": tol, "y_max_abs_err": errs[0],
-                     "state_max_abs_err": errs[1],
-                     "y_max_abs": want[0].abs().max().item()})
-        if len(rows) == 1:
-            main = args
+        rows[dtype].append({
+            "B_S_H_n": list(shape), "dtype": str(dtype), "decay": decay,
+            "tol": tol, "kernel": expect, "y_max_abs_err": errs[0],
+            "state_max_abs_err": errs[1],
+            "y_max_abs": want[0].abs().max().item()})
+        timed.setdefault(dtype, args)
         del args, got, want
-    r, k, v, logw, u = main
-    B, S, H, n = r.shape
-    moved = (3 * r.numel() * r.element_size() + 4 * logw.numel()
-             + 4 * u.numel() + 4 * r.numel() + 4 * B * H * n * n)
-    call = lambda: ops.rwkv6(*main)  # noqa: E731
-    # one (batch, head) alone: the card is nearly idle, so this is the
-    # latency of the 2048 steps in order that every (batch, head) pays
-    one = [t[:1, :, :1] for t in main[:4]] + [u[:1]]
-    return {"name": "rwkv6", "route": "cuda",
-            "source": "src/repro_torch/csrc/rwkv6.cu",
+
+    def max_err(dtype):
+        return max(max(rw["y_max_abs_err"], rw["state_max_abs_err"])
+                   for rw in rows[dtype])
+
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        args = timed[dtype]
+        r, k, v, logw, u = args
+        B, S, H, n = r.shape
+        # least bytes: r/k/v in their dtype, logw in, y out, the state
+        # out; operations: per token and head, the bf16 kernel's chunked
+        # products (2n^2 each for r S and the state update, C n each for
+        # the intra-chunk matrix and its product with v at C = 32, on
+        # average half a chunk) at the bf16 tensor-core rate, the float32
+        # kernel's step (4n^2) at the float32 rate
+        moved = (3 * r.numel() * r.element_size() + 4 * logw.numel()
+                 + 4 * u.numel() + 4 * r.numel() + 4 * B * H * n * n)
+        call = lambda: ops.rwkv6(*args)  # noqa: E731
+        if dtype == torch.bfloat16:
+            row = {"name": "rwkv6",
+                   "source": "src/repro_torch/csrc/rwkv6_mma.cu",
+                   **bound(moved, B * S * H * (4 * n * n + 2 * 32 * n),
+                           BF16_OPS_PER_S)}
+            # one (batch, head) alone: the card is nearly idle, so this is
+            # the latency of the sequence's chunks in order
+            one = [t[:1, :, :1] for t in args[:4]] + [u[:1]]
+            row["one_head_ms"] = time_ms(torch, lambda: ops.rwkv6(*one), 20)
+        else:
+            row = {"name": "rwkv6:f32_cuda_core",
+                   "source": "src/repro_torch/csrc/rwkv6.cu",
+                   **bound(moved, B * S * H * 4 * n * n)}
+        out.append({
+            **row, "route": "cuda",
             "replaces": "src/repro/kernels/rwkv6/kernel.py:74",
-            "max_abs_err": max(max(rw["y_max_abs_err"],
-                                   rw["state_max_abs_err"]) for rw in rows),
+            "B_S_H_n": [B, S, H, n], "max_abs_err": max_err(dtype),
             "ms": time_ms(torch, call, 20),
-            "device_ms": device_ms(torch, call, 10, CUDA_NAMES["rwkv6"]),
-            "plain_ms": time_ms(torch, lambda: ref.rwkv6_ref(*main), 2),
-            "library_ms": None,
-            "one_head_ms": time_ms(torch, lambda: ops.rwkv6(*one), 20),
-            **bound(moved, B * S * H * 4 * n * n), "checks": rows}
+            "device_ms": device_ms(torch, call, 10, CUDA_NAMES[row["name"]]),
+            "plain_ms": time_ms(torch, lambda: ref.rwkv6_ref(*args), 2),
+            "library_ms": None, "checks": rows[dtype]})
+    return out
 
 
 def kernel_bloom_probe(torch, ops, ref, plane, q, dev):
@@ -931,11 +1049,17 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.time() - t0, "gpu": gpu,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": regs})
+    # the bf16 rwkv6 kernel's registers and spills, per head dim
+    mma = regs.get("rwkv6_mma", [])
+    check(any("registers" in ln for ln in mma),
+          "no ptxas report for csrc/rwkv6_mma.cu")
+    emit({"phase": "ptxas", "source": "src/repro_torch/csrc/rwkv6_mma.cu",
+          "lines": mma})
 
     tuner = phase_tuner(torch, core, build, dual_ref.dual_solve_warm_ref)
     emit(tuner)
-    tree, keys, engine = phase_engine(torch, np, core, lsm, quickstart,
-                                      build)
+    tree, keys, merges, engine = phase_engine(torch, np, core, lsm,
+                                              quickstart, build, merge_ops)
     emit(engine)
     launches = {"dual_solve": tuner["dual_solve_launches"],
                 **{k: engine["launches"][k] for k in ("merge",
@@ -945,6 +1069,8 @@ def main() -> int:
                              arch, kernel)
         emit(served)
         launches[kernel] = served["kernel_launches"]
+        launches[f"{kernel}:f32_cuda_core"] = \
+            served["f32_check"]["f32_kernel_launches"]
     arch_of = {kernel: arch for arch, kernel in SERVE}
     plane, bloom_q, bloom = phase_bloom(torch, np, bloom_ops, bloom_ref,
                                         build)
@@ -955,13 +1081,13 @@ def main() -> int:
     log("kernels")
     kernels = [
         kernel_dual_solve(torch, core, dual_ops, dual_ref, dev),
-        kernel_merge(torch, np, merge_ops, merge_ref, u64, dev),
+        kernel_merge(torch, np, merge_ops, merge_ref, u64, dev, merges),
         kernel_point_read(torch, np, read_ops, read_ref, u64, tree, keys,
                           dev),
         kernel_flash_attention(torch, configs, flash_ops, flash_ref, build,
                                dev, arch_of["flash_attention"]),
-        kernel_rwkv6(torch, configs, rwkv_ops, rwkv_ref, dev,
-                     arch_of["rwkv6"]),
+        *kernel_rwkv6(torch, configs, rwkv_ops, rwkv_ref, build, dev,
+                      arch_of["rwkv6"]),
         kernel_bloom_probe(torch, bloom_ops, bloom_ref, plane, bloom_q, dev),
     ]
     del plane, bloom_q

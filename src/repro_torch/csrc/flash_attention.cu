@@ -271,14 +271,11 @@ struct Args {
 template <typename T, int D>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::SMEM;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  // set on every call: the attribute belongs to the current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const long long* st = a.st;
   const dim3 grid((unsigned)((a.S + BQ - 1) / BQ), (unsigned)a.H,
                   (unsigned)a.B);

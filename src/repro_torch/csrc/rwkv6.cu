@@ -1,8 +1,13 @@
-// RWKV-6 WKV recurrence, forward: y and the final state, per (batch, head).
+// RWKV-6 WKV recurrence, forward, in float32: y and the final state, per
+// (batch, head).
 //
 // Replaces: src/repro/kernels/rwkv6/kernel.py:74 rwkv6_kernel (the Pallas
 // body _wkv_kernel at :28), together with the (BH, S, n) transposes and the
-// tile of u that its wrapper (ops.py:18-24) makes.
+// tile of u that its wrapper (ops.py:18-24) makes, for float32 r/k/v.
+// bfloat16 r/k/v go to rwkv6_mma.cu, the chunked form on the tensor cores:
+// only this per-step form holds the float32 contract (5e-4) over 2048
+// slow-decay steps, since the tensor cores multiply at most 16-bit
+// operand halves.
 //
 // It computes the contract of the Pallas kernel, ref.py::wkv_ref, the
 // per-step recurrence on an n x n float32 state S (S_0 = 0):
@@ -10,7 +15,7 @@
 //   y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
 //   S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T
 //
-// r/k/v are (B, S, H, n), float32 or bfloat16, logw (B, S, H, n) float32,
+// r/k/v and logw are (B, S, H, n) float32,
 // each with any strides whose last dimension is contiguous; u is (H, n)
 // float32, contiguous.  Outputs: y (B, S, H, n) float32 and the final state
 // (B, H, n, n) float32, both contiguous.  n is 16, 32 or 64.  The Pallas
@@ -20,10 +25,10 @@
 // can overflow, and it forms each term r_i (S_im + u_i k_i v_m) as the
 // reference does (the sums over i run in another order).
 //
-// What bounds it on the H100: bytes.  At the rwkv6-3b prefill (B 4, S 2048,
-// H 40, n 64) the function moves 296 MB (r/k/v 126 MB in bf16, logw and y
-// 84 MB each in float32, the state 2.6 MB): 0.088 ms at 3.35 TB/s, against
-// 4n^2 = 16,384 flops per token and head, 5.4 GFLOP, 0.080 ms at the float32
+// What bounds it on the H100: bytes.  At the rwkv6-3b prefill's shape (B 4,
+// S 2048, H 40, n 64) in float32 the function moves 422 MB (r/k/v, logw and
+// y 84 MB each, the state 2.6 MB): 0.126 ms at 3.35 TB/s, against 4n^2 =
+// 16,384 flops per token and head, 5.4 GFLOP, 0.080 ms at the float32
 // CUDA-core peak of 67 TFLOP/s.  This design cannot reach either: the steps
 // of one (batch, head) run in order, so a block's time is its steps times
 // the cycles of one step.  Two things set those cycles (measured on the
@@ -32,8 +37,7 @@
 // for each float every lane reads, broadcast or not (so every value column
 // that reads r, k and exp(logw) again costs as much as the first); and the
 // warps an SM has to interleave, since one warp alone cannot issue every
-// cycle.  The chunked tensor-core form (intra-chunk products on mma.sync,
-// the state carried per chunk) is the next design's work.
+// cycle.
 //
 // The design: each thread owns a 4 x 4 tile of the state in registers, 4
 // rows i by 4 value columns m, so each float4 of r, k and exp(logw) it reads
@@ -49,7 +53,6 @@
 // computed.  Partial rows are padded by 4 floats so that one quarter-warp's
 // float4 writes fall in distinct banks.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -57,11 +60,6 @@ namespace {
 
 constexpr int TS = 16;   // steps staged in shared memory at a time
 constexpr int TILE = 4;  // state rows and value columns per thread
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <int N>
 struct Layout {
@@ -78,10 +76,10 @@ struct Layout {
   static_assert(THREADS % N == 0 && THREADS % NC == 0, "layout");
 };
 
-template <typename T, int N>
+template <int N>
 __global__ void __launch_bounds__(Layout<N>::THREADS)
-rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
-             const T* __restrict__ v, const float* __restrict__ logw,
+rwkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ logw,
              const float* __restrict__ u, float* __restrict__ y,
              float* __restrict__ state, long long r_sb, long long r_ss,
              long long r_sh, long long k_sb, long long k_ss, long long k_sh,
@@ -108,10 +106,10 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   // neighbouring threads read neighbouring columns of one step.
   const int t_rk = tid / N, c_rk = tid % N;
   const int t_v = tid / NC, c_v = tid % NC;
-  const T* rb = r + b * r_sb + h * r_sh + c_rk;
-  const T* kb = k + b * k_sb + h * k_sh + c_rk;
+  const float* rb = r + b * r_sb + h * r_sh + c_rk;
+  const float* kb = k + b * k_sb + h * k_sh + c_rk;
   const float* wb = logw + b * w_sb + h * w_sh + c_rk;
-  const T* vb = v + b * v_sb + h * v_sh + c0 + c_v;
+  const float* vb = v + b * v_sb + h * v_sh + c0 + c_v;
   float* yb = y + ((long long)b * S * H + h) * N + c0;
 
   float st[TILE][TILE], uu[TILE];   // st[row][column]
@@ -127,8 +125,7 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   // steps.  Steps past S load row S - 1 (a branch around the load, or a
   // use of its value here, would make each load wait for memory); they are
   // staged but never read.
-  T pr[PER], pk[PER], pv[PERV];
-  float pw[PER];
+  float pr[PER], pk[PER], pv[PERV], pw[PER];
   auto fetch = [&](int t0) {
 #pragma unroll
     for (int q = 0; q < PER; ++q) {
@@ -150,13 +147,13 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 #pragma unroll
     for (int q = 0; q < PER; ++q) {
       const int p = (t_rk + STEP * q) * N + c_rk;
-      sr[p] = to_f32(pr[q]);
-      sk[p] = to_f32(pk[q]);
+      sr[p] = pr[q];
+      sk[p] = pk[q];
       sw[p] = expf(pw[q]);
     }
 #pragma unroll
     for (int q = 0; q < PERV; ++q)
-      sv[(t_v + STEPV * q) * NC + c_v] = to_f32(pv[q]);
+      sv[(t_v + STEPV * q) * NC + c_v] = pv[q];
     __syncthreads();
     if (t0 + TS < S) fetch(t0 + TS);   // in flight while this chunk runs
 
@@ -203,55 +200,40 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 }
 
 struct Args {
-  const void *r, *k, *v;
-  const float *logw, *u;
+  const float *r, *k, *v, *logw, *u;
   float *y, *state;
   long long st[12];
   int B, S, H;
 };
 
-template <typename T, int N>
+template <int N>
 int launch(const Args& a, cudaStream_t stream) {
   using L = Layout<N>;
   constexpr size_t smem = sizeof(float) * L::SMEM_FLOATS;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rwkv6_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  // set on every call: the attribute belongs to the current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      rwkv6_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const long long* st = a.st;
   const dim3 grid((unsigned)(a.B * a.H), (unsigned)L::CS);
-  rwkv6_kernel<T, N><<<grid, L::THREADS, smem, stream>>>(
-      static_cast<const T*>(a.r), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.logw, a.u, a.y, a.state, st[0], st[1],
+  rwkv6_kernel<N><<<grid, L::THREADS, smem, stream>>>(
+      a.r, a.k, a.v, a.logw, a.u, a.y, a.state, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
       a.S, a.H);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_n(int N, const Args& a, cudaStream_t stream) {
-  switch (N) {
-    case 16: return launch<T, 16>(a, stream);
-    case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // Strides are in elements: (batch, seq, head) of r, then of k, v and logw;
-// the last dimension is contiguous.  dtype of r/k/v: 0 float32, 1 bfloat16.
+// the last dimension is contiguous.
 extern "C" int rwkv6_launch(
-    const void* r, const void* k, const void* v, const float* logw,
+    const float* r, const float* k, const float* v, const float* logw,
     const float* u, float* y, float* state, long long r_sb, long long r_ss,
     long long r_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long w_sb,
-    long long w_ss, long long w_sh, int B, int S, int H, int N, int dtype,
+    long long w_ss, long long w_sh, int B, int S, int H, int N,
     cudaStream_t stream) {
   if (B <= 0 || H <= 0) return 0;
   if (S <= 0) return (int)cudaErrorInvalidValue;
@@ -259,9 +241,12 @@ extern "C" int rwkv6_launch(
                {r_sb, r_ss, r_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, w_sb,
                 w_ss, w_sh},
                B, S, H};
-  if (dtype == 0) return launch_n<float>(N, a, stream);
-  if (dtype == 1) return launch_n<__nv_bfloat16>(N, a, stream);
-  return (int)cudaErrorInvalidValue;
+  switch (N) {
+    case 16: return launch<16>(a, stream);
+    case 32: return launch<32>(a, stream);
+    case 64: return launch<64>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* kernel_error_string(int err) {

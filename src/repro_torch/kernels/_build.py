@@ -40,10 +40,12 @@ BUILD_DIR = _PKG / "_build"
 KERNELS = ("dual_solve", "merge", "point_read", "flash_attention", "rwkv6",
            "bloom_probe")
 #: every ``csrc/<name>.cu``; ``flash_attention`` launches
-#: ``flash_attention`` (float32) or ``flash_attention_wgmma`` (bfloat16)
-SOURCES = KERNELS + ("flash_attention_wgmma",)
+#: ``flash_attention`` (float32) or ``flash_attention_wgmma`` (bfloat16),
+#: ``rwkv6`` launches ``rwkv6`` (float32) or ``rwkv6_mma`` (bfloat16)
+SOURCES = KERNELS + ("flash_attention_wgmma", "rwkv6_mma")
 #: per-kernel counts of a wrapper that dispatches between two kernels
-VARIANTS = ("flash_attention:bf16_tc", "flash_attention:f32_cuda_core")
+VARIANTS = ("flash_attention:bf16_tc", "flash_attention:f32_cuda_core",
+            "rwkv6:bf16_tc", "rwkv6:f32_cuda_core")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

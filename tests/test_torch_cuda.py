@@ -218,22 +218,36 @@ def test_serve_batch_on_card_matches_cpu_plain_path(dev):
     np.testing.assert_array_equal(gpu["tokens"], cpu["tokens"])
 
 
-@pytest.mark.parametrize("B,S,H,n,dtype,strided,slow", [
-    (2, 128, 4, 64, torch.float32, False, False),
-    (2, 96, 3, 32, torch.float32, False, True),      # three chunks
-    (1, 64, 2, 16, torch.float32, True, False),
-    (2, 20, 4, 64, torch.float32, False, False),     # a single chunk
-    (1, 2048, 2, 64, torch.float32, False, True),    # slow decay, long
-    (2, 256, 8, 64, torch.bfloat16, True, False),
-    (1, 128, 4, 32, torch.bfloat16, False, True),
+# (mean, sd) of ww, logw = -exp(ww): the model's init decay, a slow one
+# (exp(logw) ~ 0.993, the state carries across the whole sequence) and a
+# fast one (logw ~ -7.4, where a one-level chunked split overflows)
+RWKV_DECAYS = {"model": (-0.6, 0.5), "slow": (-5.0, 0.1),
+               "fast": (2.0, 0.1)}
+
+
+@pytest.mark.parametrize("B,S,H,n,dtype,strided,decay", [
+    (2, 128, 4, 64, torch.float32, False, "model"),
+    (2, 96, 3, 32, torch.float32, False, "slow"),      # three chunks
+    (1, 64, 2, 16, torch.float32, True, "model"),
+    (2, 20, 4, 64, torch.float32, False, "model"),     # a single chunk
+    (1, 2048, 2, 64, torch.float32, False, "slow"),    # slow decay, long
+    (2, 256, 8, 64, torch.bfloat16, True, "model"),
+    (1, 128, 4, 32, torch.bfloat16, False, "slow"),
+    (4, 2048, 40, 64, torch.bfloat16, False, "model"),  # the prefill
+    (4, 2048, 40, 64, torch.bfloat16, False, "slow"),
+    (4, 2048, 40, 64, torch.bfloat16, False, "fast"),
+    (2, 96, 3, 64, torch.bfloat16, False, "fast"),      # three chunks
+    (2, 16, 4, 64, torch.bfloat16, False, "slow"),      # half a chunk
+    (2, 20, 4, 32, torch.bfloat16, True, "model"),      # a ragged chunk
+    (1, 256, 2, 16, torch.bfloat16, True, "fast"),
+    (1, 1, 2, 16, torch.bfloat16, False, "model"),
 ])
-def test_rwkv6_kernel_matches_plain(dev, B, S, H, n, dtype, strided, slow):
+def test_rwkv6_kernel_matches_plain(dev, B, S, H, n, dtype, strided, decay):
     """The kernel against its plain version (the per-step recurrence), y
     and the final state: float32 to 5e-4, bfloat16 r/k/v (float32 logw)
     to 5e-2, the JAX kernel test's tolerances.  ``strided`` hands the
-    kernel views whose batch/seq/head strides are not the packed ones;
-    ``slow`` draws exp(logw) ~ 0.993, so the state carries across the
-    whole sequence instead of forgetting within a few steps."""
+    kernel views whose batch/seq/head strides are not the packed ones.
+    bfloat16 launches the tensor-core kernel, float32 the per-step one."""
     g = torch.Generator(device=dev).manual_seed(S + n)
 
     def draw(dt, scale=1.0, shift=0.0):
@@ -243,12 +257,16 @@ def test_rwkv6_kernel_matches_plain(dev, B, S, H, n, dtype, strided, slow):
         return t[:, :, 1:H + 1] if strided else t
 
     r, k, v = draw(dtype), draw(dtype), draw(dtype)
-    logw = -torch.exp(draw(torch.float32, 0.1, -5.0) if slow
-                      else draw(torch.float32, 0.5, -0.6))
+    mean, sd = RWKV_DECAYS[decay]
+    logw = -torch.exp(draw(torch.float32, sd, mean))
     u = torch.randn((H, n), generator=g, device=dev) * 0.1
-    before = _build.LAUNCHES["rwkv6"]
+    before = dict(_build.LAUNCHES)
     y, state = rwkv6(r, k, v, logw, u)
-    assert _build.LAUNCHES["rwkv6"] == before + 1
+    assert _build.LAUNCHES["rwkv6"] == before["rwkv6"] + 1
+    served = {name for name in _build.VARIANTS
+              if _build.LAUNCHES[name] != before[name]}
+    assert served == {"rwkv6:bf16_tc" if dtype == torch.bfloat16
+                      else "rwkv6:f32_cuda_core"}
     want_y, want_s = rwkv6_ref(r, k, v, logw, u)
     torch.cuda.synchronize()
     assert y.dtype == state.dtype == torch.float32
@@ -256,6 +274,26 @@ def test_rwkv6_kernel_matches_plain(dev, B, S, H, n, dtype, strided, slow):
     tol = 5e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(y, want_y, atol=tol, rtol=tol)
     torch.testing.assert_close(state, want_s, atol=tol, rtol=tol)
+
+
+def test_rwkv6_bf16_copies_what_cp_async_cannot_read(dev):
+    """bf16 r/k/v and float32 logw that 16-byte copies cannot read in
+    place (a base one element off the 16-byte grid, head strides of 72
+    and 136 bytes) are copied to packed tensors and still match the plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    flat = torch.randn(2 * 64 * 3 * 32 + 1, generator=g,
+                       device=dev).to(torch.bfloat16)
+    r = flat[1:].view(2, 64, 3, 32)                  # misaligned base
+    k, v = (torch.randn((2, 64, 3, 36), generator=g, device=dev)
+            .to(torch.bfloat16)[..., :32] for _ in range(2))
+    logw = -torch.exp(torch.randn((2, 64, 3, 34), generator=g,
+                                  device=dev)[..., :32] * 0.5 - 0.6)
+    u = torch.randn((3, 32), generator=g, device=dev) * 0.1
+    y, state = rwkv6(r, k, v, logw, u)
+    want_y, want_s = rwkv6_ref(r, k, v, logw, u)
+    torch.testing.assert_close(y, want_y, atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(state, want_s, atol=5e-2, rtol=5e-2)
 
 
 def test_rwkv6_serve_batch_on_card_matches_cpu_plain_path(dev):
@@ -355,7 +393,9 @@ def _guarded_calls(d):
     attn = [torch.randn((1, 40, n, 64), generator=g) for n in (4, 2, 2)]
     attn = {dt: [t.to(d, dt) for t in attn]
             for dt in (torch.bfloat16, torch.float32)}
-    rkv = [torch.randn((1, 32, 2, 16), generator=g).to(d) for _ in range(3)]
+    rkv = [torch.randn((1, 32, 2, 16), generator=g) for _ in range(3)]
+    rkv = {dt: [t.to(d, dt) for t in rkv]
+           for dt in (torch.bfloat16, torch.float32)}
     logw = -torch.exp(torch.randn((1, 32, 2, 16), generator=g)).to(d)
     u = (torch.randn((2, 16), generator=g) * 0.1).to(d)
     bkeys = _bloom_keys(3, 200)
@@ -371,14 +411,16 @@ def _guarded_calls(d):
             *attn[torch.bfloat16]),),
         "flash_attention:f32_cuda_core": lambda: (flash_attention(
             *attn[torch.float32]),),
-        "rwkv6": lambda: rwkv6(*rkv, logw, u),
+        "rwkv6": lambda: rwkv6(*rkv[torch.float32], logw, u),
+        "rwkv6:bf16_tc": lambda: rwkv6(*rkv[torch.bfloat16], logw, u),
         "bloom_probe": lambda: (bloom_probe_kernel(bkeys.to(d), plane, 7),),
     }
 
 
 @pytest.mark.parametrize("kernel", [
     "dual_solve", "merge", "point_read", "flash_attention:bf16_tc",
-    "flash_attention:f32_cuda_core", "rwkv6", "bloom_probe"])
+    "flash_attention:f32_cuda_core", "rwkv6", "rwkv6:bf16_tc",
+    "bloom_probe"])
 def test_launch_inside_a_device_guard_stays_on_its_device(dev, kernel):
     """Each wrapper called inside ``torch.cuda.device(0)`` launches its
     kernel once and leaves every output on cuda:0, equal to the plain
@@ -386,10 +428,11 @@ def test_launch_inside_a_device_guard_stays_on_its_device(dev, kernel):
     cuda:0 is current give the same outputs on cuda:1."""
     want = [t.cpu() for t in _guarded_calls("cpu")[kernel]()]
     # the kernels' contracts: dual_solve's value to rel 1e-5, float32
-    # attention to 2e-5, bf16 attention to 2e-2, rwkv6 to 5e-4
+    # attention to 2e-5, bf16 attention to 2e-2, rwkv6 to 5e-4 in float32
+    # and 5e-2 in bf16
     tol = {"dual_solve": (0.0, 1e-5), "flash_attention:bf16_tc": (2e-2, 2e-2),
            "flash_attention:f32_cuda_core": (2e-5, 2e-5),
-           "rwkv6": (5e-4, 5e-4)}.get(kernel)
+           "rwkv6": (5e-4, 5e-4), "rwkv6:bf16_tc": (5e-2, 5e-2)}.get(kernel)
     targets = [(0, 0)] + ([(0, 1)] if torch.cuda.device_count() > 1 else [])
     for current, home in targets:
         d = torch.device("cuda", home)

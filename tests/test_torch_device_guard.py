@@ -12,6 +12,7 @@ device the launch was guarded to is in ``tests/test_torch_cuda.py``.
 
 import ast
 import contextlib
+import re
 from pathlib import Path
 
 import pytest
@@ -147,3 +148,111 @@ def test_ops_launches_only_through_the_guard(path):
         assert not _calls_to(tree, "_build", attr), \
             f"{path.parent.name} calls _build.{attr}"
     assert "current_stream" not in path.read_text()
+
+
+# ---------------------------------------------------------------------------
+# the dynamic shared-memory attribute belongs to each device
+# ---------------------------------------------------------------------------
+
+CSRC = sorted(_build.CSRC_DIR.glob("*.cu"))
+_SET_ATTR = "cudaFuncSetAttribute"
+
+
+def _bodies_calling(src, name):
+    """The body, braces included, of the function around each call of
+    ``name`` in the C++ source ``src``: walking back from the call, the
+    outermost enclosing ``{`` whose head ends with ``)`` (a function's
+    parameter list; a namespace's head does not), matched forward."""
+    bodies = []
+    for m in re.finditer(r"\b" + name + r"\s*\(", src):
+        depth, start = 0, None
+        for j in range(m.start() - 1, -1, -1):
+            if src[j] == "}":
+                depth += 1
+            elif src[j] == "{" and depth:
+                depth -= 1
+            elif src[j] == "{" and src[:j].rstrip().endswith(")"):
+                start = j
+        assert start is not None, f"no function around {name}"
+        depth = 0
+        for j in range(start, len(src)):
+            depth += {"{": 1, "}": -1}.get(src[j], 0)
+            if depth == 0:
+                bodies.append(src[start:j + 1])
+                break
+    return bodies
+
+
+def _process_wide_guards(body):
+    """The names of ``static`` local variables in a function body that are
+    not an array indexed by the device from ``cudaGetDevice``: a flag set
+    once per process where the attribute is set once per device."""
+    body = re.sub(r"//[^\n]*", "", body)
+    names = re.findall(
+        r"\bstatic\s+(?!constexpr\b|const\b|_assert\b|_cast\b)"
+        r"[A-Za-z_][\w:<>]*\s+([A-Za-z_]\w*)\s*(\[[^\]]*\])?", body)
+    dev = re.search(r"cudaGetDevice\s*\(\s*&\s*([A-Za-z_]\w*)\s*\)", body)
+    bad = []
+    for var, index in names:
+        per_device = bool(index) and dev is not None and re.search(
+            r"\b" + var + r"\s*\[\s*" + dev.group(1) + r"\s*\]", body)
+        if not per_device:
+            bad.append(var)
+    return bad
+
+
+_PROCESS_WIDE = """
+template <int D> int launch(const Args& a, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, 1 << 16);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  return 0;
+}
+"""
+_PER_DEVICE = """
+template <int D> int launch(const Args& a, cudaStream_t stream) {
+  static bool configured[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (!configured[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, 1 << 16);
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
+  }
+  return 0;
+}
+"""
+_EVERY_CALL = """
+template <int D> int launch(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = 1 << 16;
+  static_assert(D > 0, "d");
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return (int)err;
+}
+"""
+
+
+@pytest.mark.parametrize("src,bad", [(_PROCESS_WIDE, ["configured"]),
+                                     (_PER_DEVICE, []), (_EVERY_CALL, [])],
+                         ids=["process_wide", "per_device", "every_call"])
+def test_the_static_guard_check_tells_the_cases_apart(src, bad):
+    (body,) = _bodies_calling(src, _SET_ATTR)
+    assert _process_wide_guards(body) == bad
+
+
+@pytest.mark.parametrize("path", CSRC, ids=[p.stem for p in CSRC])
+def test_shared_memory_attribute_is_set_per_device(path):
+    """Every source that raises a kernel's dynamic shared-memory limit
+    does so on every call, or behind a flag indexed by the current device:
+    never behind a process-wide ``static`` flag, which would leave a
+    second card's first launch refused for its shared memory."""
+    src = path.read_text()
+    for body in _bodies_calling(src, _SET_ATTR):
+        assert not _process_wide_guards(body), \
+            f"{path.name}: {_SET_ATTR} behind a process-wide static guard"

@@ -22,6 +22,16 @@ Tolerances (``atol`` = ``rtol``), and why:
   (bfloat16 inputs are rounded once, identically, on both sides).
 * the wrapper against ``rwkv6_chunked`` (the JAX wrapper around the
   Pallas kernel): 2e-4 on y and the final state, at unit-scale inputs.
+* the two-level twin (``ref.wkv_two_level_ref``, the bf16 tensor-core
+  kernel's arithmetic in float32) against the JAX ``wkv_ref``: 2e-4 —
+  the chunked form's decays are sums of logw over spans and products of
+  exp(logw), where the recurrence multiplies step by step (the largest
+  difference seen is 8.5e-5 of 1 + |y|); against the Pallas kernel: 5e-4,
+  the JAX kernel test's float32 tolerance (at the fast decay the Pallas
+  kernel's chunk-wide cumulative sums of logw ~ -7 lose digits, up to
+  2.9e-4 of 1 + |y|).
+* the twin with the kernel's operand rounding against the recurrence, on
+  bfloat16-rounded inputs: within a quarter of the card's 5e-2 contract.
 * the port's ``wkv_chunked`` against the recurrence: 2e-4 — chunked and
   per-step forms, both float32, differ by the exp/log round trip of the
   decays (relative error ~1e-6 per step, summed over a chunk).
@@ -29,6 +39,9 @@ Tolerances (``atol`` = ``rtol``), and why:
   heads run in another order in XLA than in PyTorch's CPU kernels.
 * ``lm_params_from_numpy``: exact — it copies.
 """
+
+import contextlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -46,8 +59,11 @@ from repro.models import build_model as jbuild
 from repro.models import rwkv as JR
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_numpy
+from repro_torch.kernels import _build
+from repro_torch.kernels.rwkv6 import ops as rwkv_ops
 from repro_torch.kernels.rwkv6.ops import rwkv6
-from repro_torch.kernels.rwkv6.ref import rwkv6_ref, wkv_ref
+from repro_torch.kernels.rwkv6.ref import (rwkv6_ref, wkv_ref,
+                                           wkv_two_level_ref)
 from repro_torch.launch.serve import serve_batch, write_prefill_cache
 from repro_torch.models import build_model
 from repro_torch.models import rwkv as TR
@@ -199,6 +215,170 @@ def test_wrapper_checks_its_arguments():
     meta = [t.to("meta") for t in (r, k, v, logw, u)]
     with pytest.raises(ValueError, match="no kernel for device meta"):
         rwkv6(*meta)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernel's algorithm (ref.wkv_two_level_ref) and the
+# wrapper's choice of kernel
+# ---------------------------------------------------------------------------
+
+# (mean, sd) of ww, logw = -exp(ww): the model's init, a slow decay
+# (exp(logw) ~ 0.993) and a fast one (logw ~ -7.4)
+DECAYS = {"model": (-0.6, 0.5), "slow": (-5.0, 0.1), "fast": (2.0, 0.1)}
+
+
+@pytest.mark.parametrize("decay", list(DECAYS))
+@pytest.mark.parametrize("S", [16, 32, 96, 256])
+@pytest.mark.parametrize("n", [16, 32, 64])
+def test_two_level_twin_matches_jax(n, S, decay):
+    """The twin of the bf16 kernel's arithmetic (chunks of 32, sub-chunks
+    of 16 and halves of 8 decayed from / to their ends, the triangles
+    along the diagonal pairwise, the state carried once a chunk), in
+    float32, against the JAX recurrence (``wkv_ref``) to 2e-4 and the
+    Pallas kernel in interpret mode to 5e-4, y and the final state."""
+    rng = np.random.default_rng(S + n)
+    args = _wkv_inputs(rng, (2, S, n), DECAYS[decay])
+    args = args[:4] + ((rng.normal(size=(2, n)) * 0.1).astype(np.float32),)
+    got_y, got_s = wkv_two_level_ref(*(_t(a) for a in args))
+    assert bool(torch.isfinite(got_y).all() and torch.isfinite(got_s).all())
+    jargs = [jnp.asarray(a) for a in args]
+    ref_y, ref_s = jwkv_ref(*jargs)
+    _close(got_y, ref_y, 2e-4)
+    _close(got_s, ref_s, 2e-4)
+    pk_y, pk_s = rwkv6_kernel(*jargs, chunk=32, interpret=True)
+    _close(got_y, pk_y, 5e-4)
+    _close(got_s, pk_s, 5e-4)
+
+
+def test_one_level_split_overflows_where_the_twin_does_not():
+    """At the fast decay (logw ~ -7.4) the one-level split of the
+    intra-chunk matrix, (r e^{Lc_prev}) (k e^{-Lc})^T over a chunk of 32,
+    takes e^{-Lc} past float32's range within 13 tokens and gives
+    non-finite values; the twin, whose exponents are all <= 0, stays
+    finite and matches the recurrence."""
+    rng = np.random.default_rng(3)
+    r, k, v, logw, _ = (_t(a) for a in _wkv_inputs(rng, (2, 32, 64),
+                                                    DECAYS["fast"]))
+    u = _t((rng.normal(size=(2, 64)) * 0.1).astype(np.float32))
+    Lc = torch.cumsum(logw, 1)
+    # e^{-Lc} passes float32's largest value at the 13th token
+    assert bool(torch.isinf(torch.exp(-Lc[:, 12])).any())
+    naive = (r * torch.exp(Lc - logw)) @ (k * torch.exp(-Lc)).transpose(1, 2)
+    assert not bool(torch.isfinite(naive).all())
+    got_y, got_s = wkv_two_level_ref(r, k, v, logw, u)
+    assert bool(torch.isfinite(got_y).all() and torch.isfinite(got_s).all())
+    want_y, want_s = wkv_ref(r, k, v, logw, u)
+    _close(got_y, want_y, 2e-4)
+    _close(got_s, want_s, 2e-4)
+
+
+@pytest.mark.parametrize("rounding,decay,limit", [
+    ("bf16_split", "model", 0.25), ("bf16_split", "slow", 0.25),
+    ("bf16_split", "fast", 0.25), ("tf32", "slow", None)])
+def test_kernel_operand_rounding_against_the_bf16_contract(rounding, decay,
+                                                           limit):
+    """The twin with the tensor-core operands rounded as the kernel takes
+    them (``bf16_split``: each float32 operand as two bf16 halves) keeps
+    y and the state within a quarter of the card's bf16 contract, |err|
+    <= 5e-2 (1 + |want|), over 2048 tokens on bfloat16-rounded inputs.
+    One-pass TF32 operands, the design the kernel does not use, miss it
+    at the slow decay, where the state sums ~150 tokens."""
+    rng = np.random.default_rng(0)
+    r, k, v = (_t(a).bfloat16().float()
+               for a in _wkv_inputs(rng, (4, 2048, 64))[:3])
+    mean, sd = DECAYS[decay]
+    logw = -_t(np.exp(rng.normal(size=(4, 2048, 64)) * sd + mean))
+    u = _t((rng.normal(size=(4, 64)) * 0.1).astype(np.float32))
+    got = wkv_two_level_ref(r, k, v, logw, u, rounding=rounding)
+    want = wkv_ref(r, k, v, logw, u)
+    share = max(((g - w).abs() / (5e-2 * (1 + w.abs()))).max().item()
+                for g, w in zip(got, want))
+    if limit is None:
+        assert share > 1.0
+    else:
+        assert share <= limit
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so that the wrapper takes
+    its kernel route on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "rwkv6:bf16_tc"), (torch.float32, "rwkv6:f32_cuda_core")])
+def test_wrapper_routes_by_dtype(monkeypatch, dtype, kernel):
+    """CUDA r/k/v in bfloat16 launch the tensor-core kernel
+    (``rwkv6_mma.cu``) and count ``rwkv6:bf16_tc``; float32 ones launch
+    the per-step kernel (``rwkv6.cu``) and count ``rwkv6:f32_cuda_core``.
+    Each call counts one launch of the wrapper and of that kernel, and
+    nothing else.  The device guard, the stream and the C entry are
+    recorders, as in ``test_torch_device_guard.py``."""
+    log = []
+
+    @contextlib.contextmanager
+    def device(dev):
+        log.append(("enter", str(dev)))
+        yield
+
+    class Stream:
+        def __init__(self, dev):
+            self.cuda_stream = 0xC0FFEE
+
+    def kernel_fn(name, symbol, argtypes):
+        def fn(*args):
+            log.append(("entry", name, symbol, len(args), args[-1]))
+            return 0
+        return fn
+
+    shim = types.SimpleNamespace(**{n: getattr(torch, n) for n in dir(torch)
+                                    if not n.startswith("__")})
+    shim.empty = lambda *a, device=None, **kw: torch.empty(*a, **kw)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    monkeypatch.setattr(_build, "kernel_fn", kernel_fn)
+    monkeypatch.setattr(rwkv_ops, "torch", shim)
+    saved = dict(_build.LAUNCHES)
+    try:
+        rng = np.random.default_rng(1)
+        r, k, v, logw, u = (_t(a) for a in _wkv_inputs(rng, (1, 64, 2, 32)))
+        r, k, v = (t.to(dtype).as_subclass(_OnCuda) for t in (r, k, v))
+        logw, u = (t.as_subclass(_OnCuda) for t in (logw, u))
+        for call in (1, 2):
+            before = dict(_build.LAUNCHES)
+            y, state = rwkv_ops.rwkv6(r, k, v, logw, u)
+            assert y.shape == (1, 64, 2, 32) and state.shape == (1, 2, 32, 32)
+            moved = {name: _build.LAUNCHES[name] - before[name]
+                     for name in before
+                     if _build.LAUNCHES[name] != before[name]}
+            assert moved == {"rwkv6": 1, kernel: 1}
+        source = "rwkv6_mma" if dtype == torch.bfloat16 else "rwkv6"
+        entries = [e for e in log if e[0] == "entry"]
+        assert entries == [("entry", source, f"{source}_launch", 24,
+                            0xC0FFEE)] * 2
+        assert ("enter", "cuda:0") in log
+    finally:
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(saved)
+
+
+def test_probe_times_every_stretch_of_the_chunk_loop():
+    """``tools/rwkv6_probe.py`` instruments a copy of the bf16 kernel's
+    source: one counter for each stretch of the chunk loop between its
+    barriers (two barriers, three stretches), saved after the loop and
+    read through an entry of its own."""
+    from repro_torch.tools.rwkv6_probe import instrument
+    src = (_build.CSRC_DIR / "rwkv6_mma.cu").read_text()
+    probed, n = instrument(src)
+    loop = probed[probed.index("  for (int c = 0; c < nchunks; ++c) {"):
+                  probed.index("g_probe[probe][threadIdx.x / 32][q]")]
+    assert n == 3 == loop.count("__syncthreads();") + 1
+    assert [f"prof[{q}] +=" in loop for q in range(n)] == [True] * n
+    assert probed.count("clock64()") == src.count("clock64()") + n + 1
+    assert 'extern "C" int rwkv6_probe_read' in probed
 
 
 # ---------------------------------------------------------------------------
