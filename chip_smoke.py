@@ -13,7 +13,9 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 2. ``engine`` — quickstart's nominal and robust tunings deployed at 10 M
    entries of 64 bytes: ``populate`` and a 1 M-query ``run_session`` of the
    write burst, counting ``merge`` and ``point_read`` launches and
-   recording the size of every merge the path launches; and a
+   recording the size of every merge the path launches; one more
+   populate in a profiler trace (its busy share, its top kernels and its
+   fold steps' device time, two ``merge`` kernels a step); and a
    200,000-entry, 20,000-query run on the CPU plain path and on the card,
    whose ``IOStats`` and answers must be bit-identical.
 3. ``serve`` — the LM server, once per architecture of ``SERVE``: the
@@ -57,12 +59,22 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    TFLOP/s, the H100 SXM data sheet's float32 rate outside the tensor
    cores; for ``flash_attention``, over its 989 TFLOP/s bfloat16
    tensor-core rate, and also its rate and SDPA's time on one
-   8192-token sequence); ``merge`` also replays the engine path's merges
-   at their recorded sizes, for their summed device time against their
-   bound.
+   8192-token sequence); ``merge`` is timed as the fold step the path
+   runs (the merge with the newest-wins drop fused in) and as
+   ``two_way_merge``, and replays the engine path's fold steps at their
+   recorded sizes, for their summed device time against their bound.
 
 The build's ``ptxas`` report (registers and spills) for the bf16
 ``rwkv6`` kernel is printed on a line of its own.
+
+    python3 chip_smoke.py --merge [--src DIR] [--sizes FILE]
+
+times only the compaction merge, as the kernels phase does (the fold
+step and ``two_way_merge`` at 5 M + 5 M; with ``--sizes``, the engine
+path's fold steps replayed at the sizes a whole run printed), on the
+``repro_torch`` under ``DIR`` (default: this checkout's ``src``), so that
+one call can time two trees in turn.  It prints one JSON line and the
+card's name and power limit.
 
 Each phase prints one JSON line; then the kernel table as one JSON line,
 the ``nvidia-smi`` name and power limit, and last the result line.  Any
@@ -72,6 +84,7 @@ without a result when CUDA is not available or the package is missing.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -82,6 +95,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+LEAD_KERNELS = 8                 # throwaway launches that open a trace
 FP32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM, tensor cores, dense
 GRID_RHOS = (0.25, 0.5, 1.0, 2.0, 3.0)
@@ -95,7 +109,7 @@ SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"))
 # a part of each kernel's CUDA name, as a profiler trace records it; the
 # bf16 flash_attention kernel is the one the bf16 serving path launches
 CUDA_NAMES = {"dual_solve": "dual_solve_warm_kernel",
-              "merge": "merge_path_kernel", "point_read": "point_read_kernel",
+              "merge": "lsm_merge_", "point_read": "point_read_kernel",
               "flash_attention": "flash_attention_wgmma_kernel",
               "rwkv6": "rwkv6_mma_kernel",
               "rwkv6:f32_cuda_core": "rwkv6_kernel",
@@ -169,30 +183,73 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int, kernel: str) -> float:
-    """Mean device time of the CUDA kernel whose name contains ``kernel``
-    over ``iters`` calls of ``fn``, from a ``torch.profiler`` trace: the
-    kernel alone, without the host's cost of launching it.  A trace that
-    holds no CUDA event at all (the profiler sometimes records none) is
-    taken again, up to three times; when no trace records the kernel (a
-    renamed kernel, or another kernel served the call), the check fails."""
+def cuda_events(torch, fn, calls: int = 0, tries: int = 3) -> tuple:
+    """Host wall seconds of ``fn`` (up to a synchronise) and the CUDA
+    activities a ``torch.profiler`` trace of it records, as (name, device
+    µs) pairs.  Late in this script a trace does not record the first one
+    or two kernels launched in it, so each trace opens with
+    ``LEAD_KERNELS`` throwaway launches of ``torch.cuda._sleep`` (its
+    ``spin_kernel`` events are left out) before ``fn``.  With ``calls``,
+    ``fn`` makes that many calls, each launching the same activities: a
+    trace in which an activity's count is not a multiple of ``calls``
+    missed events and is taken again, and when every one of ``tries``
+    traces misses some, the check fails.  Without it, only a trace that
+    holds no CUDA event at all is taken again."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(3):
+    for attempt in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(iters):
-                fn()
+            for _ in range(LEAD_KERNELS):
+                torch.cuda._sleep(100)
             torch.cuda.synchronize()
-        cuda = [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        times = [e.time_range.elapsed_us() for e in cuda if kernel in e.name]
-        if times:
-            return sum(times) / len(times) / 1e3
-        log(f"device_ms: no {kernel} in trace {attempt + 1}; CUDA events: "
-            f"{sorted({e.name[:80] for e in cuda})[:8]}")
-        if cuda:
-            break
-    check(False, f"device_ms: no CUDA kernel named *{kernel}* in the trace")
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
+        counts = {}
+        for name, _ in events:
+            counts[name] = counts.get(name, 0) + 1
+        short = {n[:60]: c for n, c in counts.items() if calls and c % calls}
+        if events and not short:
+            return wall, events
+        log(f"cuda_events: trace {attempt + 1} of {tries} holds "
+            f"{len(events)} CUDA events" + (f"; for {calls} calls, counts "
+                                             f"{short}" if short else ""))
+    check(not calls, f"cuda_events: each of {tries} traces of {calls} calls "
+          "missed device events")
+    return wall, events
+
+
+def per_call(torch, fn, iters: int, kernel: str) -> dict:
+    """``iters`` calls of ``fn`` (after one more) in one trace that holds
+    every event (``cuda_events``), per call: the device ms and the number
+    of the CUDA kernels whose name contains ``kernel``, the device ms and
+    number of all its device activities (kernels and copies), and the
+    host's wall ms."""
+    fn()
+    wall, events = cuda_events(torch, lambda: [fn() for _ in range(iters)],
+                               calls=iters)
+    mine = [us for name, us in events if kernel in name]
+    return {"device_ms": sum(mine) / 1e3 / iters,
+            "kernels": len(mine) // iters,
+            "all_device_ms": sum(us for _, us in events) / 1e3 / iters,
+            "activities": len(events) // iters,
+            "wall_ms": wall * 1e3 / iters}
+
+
+def device_ms(torch, fn, iters: int, kernel: str) -> float:
+    """Device time per call of ``fn`` in the CUDA kernels whose name
+    contains ``kernel`` (``per_call``): the kernels alone, without the
+    host's cost of launching them.  When the trace holds no such kernel
+    (a renamed kernel, or another kernel served the call), the check
+    fails."""
+    tr = per_call(torch, fn, iters, kernel)
+    check(tr["kernels"] > 0, f"device_ms: no CUDA kernel named *{kernel}* "
+          "in the trace")
+    return tr["device_ms"]
 
 
 def profile_device(torch, fn, kernel: str = "") -> dict:
@@ -200,31 +257,22 @@ def profile_device(torch, fn, kernel: str = "") -> dict:
     a ``torch.profiler`` trace records in it: their summed device time,
     its share of the wall time, their count, and the six largest by name
     (device fields None when the profiler records no device time); with
-    ``kernel``, also the device time of the kernels whose name contains it
-    and their share of the device time."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_s = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    ``kernel``, also the device time of the kernels whose name contains it,
+    their share of the device time and their count."""
+    wall, events = cuda_events(torch, fn, tries=1)
+    busy_s = sum(us for _, us in events) / 1e6
     top = {}
-    for e in events:
-        name = e.name[:70]
-        top[name] = top.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for name, us in events:
+        top[name[:70]] = top.get(name[:70], 0.0) + us / 1e3
     top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])
     out = {"wall_s": wall, "device_s": busy_s if events else None,
            "busy_share": busy_s / wall if events else None,
            "kernels": len(events), "top_kernels_ms": top}
     if kernel:
-        ms = sum(e.time_range.elapsed_us() for e in events
-                 if kernel in e.name) / 1e3
+        ms = sum(us for name, us in events if kernel in name) / 1e3
         out[f"{kernel}_ms"] = ms
         out[f"{kernel}_share"] = ms / 1e3 / busy_s if events else None
+        out[f"{kernel}_count"] = sum(kernel in name for name, _ in events)
     return out
 
 
@@ -327,12 +375,36 @@ def device_busy(torch, lsm, quickstart, tree, keys, n_queries=100_000):
                                        n_queries=n_queries, seed=9))}
 
 
+def populate_profile(torch, core, lsm, build, phi):
+    """One more populate of the nominal tuning at ``N_ENTRIES`` in a
+    ``torch.profiler`` trace: the engine's own merge calls.  Its busy share
+    and top kernels, and the summed device time of its fold steps' kernels
+    (``CUDA_NAMES["merge"]``), two for each launch of the wrapper: the
+    trace must hold them all."""
+    tree = deploy(core, lsm, phi, DEVICE, N_ENTRIES)
+    log("engine: profiled populate")
+    before = build.LAUNCHES["merge"]
+    name = CUDA_NAMES["merge"]
+    prof = profile_device(torch, lambda: lsm.populate(tree, N_ENTRIES,
+                                                      seed=1), name)
+    steps = build.LAUNCHES["merge"] - before
+    check(steps > 0, "merge never launched in the profiled populate")
+    if prof["device_s"] is not None:     # else the trace holds no event
+        check(prof[f"{name}_count"] == 2 * steps, f"the profiled populate's"
+              f" {steps} merge launches show {prof[f'{name}_count']} "
+              f"*{name}* kernels")
+    del tree
+    return {"merge_steps": steps, "merge_device_ms": prof.pop(f"{name}_ms"),
+            "merge_share": prof.pop(f"{name}_share"),
+            "merge_kernels": prof.pop(f"{name}_count"), **prof}
+
+
 def record_merges(build, merge_ops):
-    """Wrap ``merge_ops.two_way_merge`` (the module attribute through
-    which every compaction's ``merge_runs`` calls it) to record (na, nb)
-    of each call that launched the kernel.  Returns the list and a
-    function that puts the module's own function back."""
-    sizes, inner = [], merge_ops.two_way_merge
+    """Wrap ``merge_ops.merge_newest_wins`` (the module attribute through
+    which every compaction's ``merge_runs`` calls its fold steps) to record
+    (na, nb) of each call that launched the kernels.  Returns the list and
+    a function that puts the module's own function back."""
+    sizes, inner = [], merge_ops.merge_newest_wins
 
     def recorded(a_keys, a_vals, b_keys, b_vals):
         before = build.LAUNCHES["merge"]
@@ -341,8 +413,8 @@ def record_merges(build, merge_ops):
             sizes.append((a_keys.numel(), b_keys.numel()))
         return out
 
-    merge_ops.two_way_merge = recorded
-    return sizes, lambda: setattr(merge_ops, "two_way_merge", inner)
+    merge_ops.merge_newest_wins = recorded
+    return sizes, lambda: setattr(merge_ops, "merge_newest_wins", inner)
 
 
 def phase_engine(torch, np, core, lsm, quickstart, build, merge_ops):
@@ -393,6 +465,8 @@ def phase_engine(torch, np, core, lsm, quickstart, build, merge_ops):
                          "sizes": [list(m) for m in merges]}
     out["device_busy"] = device_busy(torch, lsm, quickstart,
                                      trees["nominal"], keys_of["nominal"])
+    out["populate_profile"] = populate_profile(torch, core, lsm, build,
+                                               phis["nominal"])
     # the CPU plain path and the card, bit for bit, at 200K entries
     small = {}
     for dev in ("cpu", DEVICE):
@@ -631,87 +705,198 @@ def kernel_dual_solve(torch, core, ops, ref, dev):
             "checks": rows}
 
 
+def merge_pair(rng, np, torch, u64, dev, na, nb) -> tuple:
+    """Runs A (``na`` keys, newer) and B (``nb``) for the merge, sorted,
+    drawn without repeats from one pool of distinct uint64 keys 1.6x their
+    total (so they share keys, as a compaction's runs do), in the engine's
+    ordered int64 form; values A's index and B's plus 10^9."""
+    pool = np.unique(rng.integers(0, 2 ** 64 - 1, int(1.6 * (na + nb)) + 8,
+                                  dtype=np.uint64, endpoint=True))
+    a = np.sort(rng.choice(pool, na, replace=False))
+    b = np.sort(rng.choice(pool, nb, replace=False))
+    return (u64.to_device_keys(a, dev), torch.arange(na, device=dev),
+            u64.to_device_keys(b, dev), torch.arange(nb, device=dev) + 10 ** 9)
+
+
 def kernel_merge(torch, np, ops, ref, u64, dev, path_sizes):
-    """5 M + 5 M with duplicates (a compaction's shape at this scale), and
-    ragged sizes; then the engine path's merges replayed at their
-    recorded sizes ``path_sizes`` (na, nb) on fresh sorted runs, in one
-    profiler trace: their summed device time against their bound."""
+    """The fold step, ``merge_newest_wins`` (the tiled merge with the
+    newest-wins drop fused in: what every compaction runs), and
+    ``two_way_merge`` (the same kernels without the drop: the Pallas
+    kernel's function) at 5 M + 5 M with duplicates (a compaction's shape
+    at this scale), at ragged sizes, and on the 5 M runs as views one
+    element into a buffer (8-byte aligned, not 16): each bit-identical to
+    its plain version.  Then ``merge_times``, with the engine path's fold
+    steps replayed at their recorded sizes ``path_sizes`` (na, nb)."""
     rng = np.random.default_rng(0)
     rows = []
+
+    def hold(args, what):
+        """Both entries against their plain versions on ``args``."""
+        k1, v1 = ops.merge_newest_wins(*args)
+        k2, v2 = ops.drop_adjacent_duplicates(*ref.two_way_merge_ref(*args))
+        same = torch.equal(k1, k2) and torch.equal(v1, v2)
+        check(same, f"merge step {what}: kernel != plain")
+        t1, u1 = ops.two_way_merge(*args)
+        t2, u2 = ref.two_way_merge_ref(*args)
+        same_two = torch.equal(t1, t2) and torch.equal(u1, u2)
+        check(same_two, f"two_way_merge {what}: kernel != plain")
+        err = max([0] + [(x - y).abs().max().item() for x, y in
+                         ((k1, k2), (v1, v2), (t1, t2), (u1, u2))
+                         if x.numel()])
+        rows.append({"case": what, "na": args[0].numel(),
+                     "nb": args[2].numel(), "n_out": k1.numel(),
+                     "equal_keys": int((t1[1:] == t1[:-1]).sum()),
+                     "bit_identical": same and same_two, "max_abs_err": err})
+
     for na, nb in ((MERGE_N, MERGE_N), (1, 0), (0, 3), (999_983, 4_099),
                    (37, 1_000_003)):
-        pool = np.unique(rng.integers(0, 2 ** 64 - 1, int(1.6 * (na + nb))
-                                      + 8, dtype=np.uint64, endpoint=True))
-        a = np.sort(rng.choice(pool, na, replace=False))
-        b = np.sort(rng.choice(pool, nb, replace=False))   # overlaps a
-        args = (u64.to_device_keys(a, dev), torch.arange(na, device=dev),
-                u64.to_device_keys(b, dev),
-                torch.arange(nb, device=dev) + 10 ** 9)
-        k1, v1 = ops.two_way_merge(*args)
-        k2, v2 = ref.two_way_merge_ref(*args)
-        same = torch.equal(k1, k2) and torch.equal(v1, v2)
-        check(same, f"merge {na}+{nb}: kernel != plain")
-        rows.append({"na": na, "nb": nb, "bit_identical": same,
-                     "equal_keys": int((k1[1:] == k1[:-1]).sum())})
+        args = merge_pair(rng, np, torch, u64, dev, na, nb)
+        hold(args, f"{na}+{nb}")
         if na == MERGE_N:
-            big, big_out = args, (k1, v1)
-    n = big[0].numel() + big[2].numel()
+            big = args
+    shifted = [torch.cat([t[:1], t])[1:] for t in big]
+    check(all(t.data_ptr() % 16 == 8 for t in shifted), "misaligned views")
+    hold(shifted, f"{MERGE_N}+{MERGE_N} misaligned views")
+    del shifted
 
     def library():
-        """A stable sort of both runs: the same function (A first on
-        equal keys), as one PyTorch call plus the value gather."""
+        """A stable sort of both runs: ``two_way_merge``'s function (A
+        first on equal keys), as one PyTorch call plus the value gather."""
         keys = torch.cat([big[0], big[2]])
         order = torch.sort(keys, stable=True).indices
         return keys[order], torch.cat([big[1], big[3]])[order]
 
     lk, lv = library()
-    check(torch.equal(lk, big_out[0]) and torch.equal(lv, big_out[1]),
+    tk, tv = ops.two_way_merge(*big)
+    check(torch.equal(lk, tk) and torch.equal(lv, tv),
           "merge: the library yardstick computes another function")
-    steps = int(np.ceil(np.log2(n + 1)))
-    del big_out, lk, lv
+    del lk, lv, tk, tv
+    times = merge_times(torch, ops, big, path_sizes)
+    for key in ("kernels_per_step", "two_way_kernels"):
+        check(times[key] == 2, f"merge: {times[key]} *{CUDA_NAMES['merge']}* "
+              f"kernels a call in {key}, not the partition and the tile")
+    check(times["path_kernels"] == 2 * len(path_sizes),
+          "merge replay: not two merge kernels a step")
     return {"name": "merge", "route": "cuda",
             "source": "src/repro_torch/csrc/merge.cu",
             "replaces": "src/repro/kernels/merge/kernel.py:70",
-            "max_abs_err": 0,
-            **merge_path_replay(torch, ops, dev, path_sizes),
-            "ms": time_ms(torch, lambda: ops.two_way_merge(*big), 20),
-            "device_ms": device_ms(torch, lambda: ops.two_way_merge(*big), 10,
-                                   CUDA_NAMES["merge"]),
-            "plain_ms": time_ms(torch, lambda: ref.two_way_merge_ref(*big),
-                                3),
-            "library_ms": time_ms(torch, library, 10),
-            **bound(n * 16 * 2, n * steps * 4), "checks": rows}
+            "function": "merge_newest_wins (one fold step)",
+            "max_abs_err": max(r["max_abs_err"] for r in rows), **times,
+            "plain_ms": time_ms(torch, lambda: ops.drop_adjacent_duplicates(
+                *ref.two_way_merge_ref(*big)), 3),
+            # no one PyTorch call merges with the newest-wins drop
+            "library_ms": None,
+            "two_way_plain_ms": time_ms(
+                torch, lambda: ref.two_way_merge_ref(*big), 3),
+            "two_way_library_ms": time_ms(torch, library, 10),
+            "checks": rows}
+
+
+def merge_times(torch, ops, big, sizes) -> dict:
+    """The compaction merge's times on the card, through the calls every
+    version of the port's merge wrapper takes (so ``--merge`` times
+    another tree's): the fold step, ``merge_runs`` of the two runs ``big``
+    (A newer), and ``two_way_merge`` on them, each by CUDA events per call
+    and in a trace that holds every event (``per_call``: the
+    ``CUDA_NAMES["merge"]`` kernels' device ms and count per call, and
+    every device activity's), with their bounds; then the path's fold
+    steps replayed at ``sizes``.  Bytes bound: each input entry's key and
+    value read once, each output entry's written once; operations (a
+    compare and a few selects per output, counted as 8 at the float32
+    rate) never bind."""
+    step = lambda: ops.merge_runs([big[0], big[2]],         # noqa: E731
+                                  [big[1], big[3]])
+    two = lambda: ops.two_way_merge(*big)                   # noqa: E731
+    n, n_out = big[0].numel() + big[2].numel(), step()[0].numel()
+    step_tr = per_call(torch, step, 10, CUDA_NAMES["merge"])
+    two_tr = per_call(torch, two, 10, CUDA_NAMES["merge"])
+    return {"na": big[0].numel(), "nb": big[2].numel(), "n_out": n_out,
+            "ms": time_ms(torch, step, 20),
+            "device_ms": step_tr["device_ms"],
+            "kernels_per_step": step_tr["kernels"],
+            "step_all_device_ms": step_tr["all_device_ms"],
+            "step_activities": step_tr["activities"],
+            **bound(16 * (n + n_out), n * 8),
+            "two_way_ms": time_ms(torch, two, 20),
+            "two_way_device_ms": two_tr["device_ms"],
+            "two_way_kernels": two_tr["kernels"],
+            "two_way_all_device_ms": two_tr["all_device_ms"],
+            "two_way_bound_ms": bound(32 * n, n * 8)["bound_ms"],
+            **merge_path_replay(torch, ops, big[0].device, sizes)}
 
 
 def merge_path_replay(torch, ops, dev, sizes) -> dict:
-    """The engine path's merges at their sizes: each (na, nb) on fresh
-    sorted random keys, all in one profiler trace, summing the merge
-    kernel's device time.  Their bound counts each entry's key and value
-    read once and written once (32 bytes) over 3.35 TB/s."""
+    """The engine path's fold steps at their sizes: each (na, nb) as
+    ``merge_runs`` of two fresh sorted random runs, made before the trace
+    (so every device activity in it is a step's), all in one trace that
+    holds every event (``cuda_events``, a step a call): the merge kernels'
+    summed device time and count, and every activity's, against their
+    bound: 16 bytes read per input entry and 16 written per kept one, over
+    3.35 TB/s.  Nothing without ``sizes``."""
+    if not sizes:
+        return {}
     gen = torch.Generator(device=dev).manual_seed(4)
 
     def run(n):
         return torch.sort(torch.randint(-2 ** 62, 2 ** 62, (n,),
                                         generator=gen, device=dev)).values
 
-    def replay():
-        for na, nb in sizes:
-            ops.two_way_merge(run(na), torch.arange(na, device=dev),
-                              run(nb), torch.arange(nb, device=dev))
+    runs = [(run(na), torch.arange(na, device=dev), run(nb),
+             torch.arange(nb, device=dev)) for na, nb in sizes]
+    kept = []
 
-    for attempt in range(3):
-        prof = profile_device(torch, replay, CUDA_NAMES["merge"])
-        if prof["device_s"]:
-            break
-        log(f"merge replay: no CUDA events in trace {attempt + 1}")
+    def replay():
+        kept.clear()
+        for ak, av, bk, bv in runs:
+            kept.append(ops.merge_runs([ak, bk], [av, bv])[0].numel())
+
+    replay()
+    wall, events = cuda_events(torch, replay, calls=len(sizes))
+    del runs
+    name = CUDA_NAMES["merge"]
+    path_ms = sum(us for n, us in events if name in n) / 1e3
     entries = sum(na + nb for na, nb in sizes)
-    path_ms = prof[f"{CUDA_NAMES['merge']}_ms"]
-    check(path_ms > 0, "merge replay: no merge kernel in the trace")
-    bound_ms = entries * 32 / HBM_BYTES_PER_S * 1e3
+    bound_ms = 16 * (entries + sum(kept)) / HBM_BYTES_PER_S * 1e3
     return {"path_launches": len(sizes), "path_entries": entries,
+            "path_n_out": sum(kept),
             "path_max_entries": max(na + nb for na, nb in sizes),
-            "path_device_ms": path_ms, "path_bound_ms": bound_ms,
+            "path_device_ms": path_ms,
+            "path_kernels": sum(name in n for n, _ in events),
+            "path_all_device_ms": sum(us for _, us in events) / 1e3,
+            "path_activities": len(events),
+            "path_wall_ms": wall * 1e3, "path_bound_ms": bound_ms,
             "path_loss_ms": path_ms - bound_ms}
+
+
+def load_sizes(path: str) -> list:
+    """The (na, nb) of each merge the engine path launched: ``path`` holds
+    a JSON list of pairs, or the output of a whole run (its engine
+    line)."""
+    text = Path(path).read_text()
+    if text.lstrip().startswith("["):
+        return [tuple(p) for p in json.loads(text)]
+    for line in text.splitlines():
+        if line.startswith("{") and '"phase": "engine"' in line:
+            return [tuple(p) for p in json.loads(line)["merge_path"]["sizes"]]
+    raise ValueError(f"{path}: no sizes and no engine line")
+
+
+def merge_main(torch, np, sizes_file) -> int:
+    """``--merge``: ``merge_times`` on the 5 M + 5 M pair the kernels
+    phase draws first, and on the path's sizes in ``sizes_file`` (none
+    without it); one JSON line, then the card's name and power limit."""
+    from repro_torch.kernels import _build as build
+    from repro_torch.kernels.merge import ops
+    from repro_torch.utils import u64
+    log(f"merge only, {Path(ops.__file__).parents[3]}")
+    build.build(["merge"])
+    big = merge_pair(np.random.default_rng(0), np, torch, u64, DEVICE,
+                     MERGE_N, MERGE_N)
+    sizes = load_sizes(sizes_file) if sizes_file else []
+    emit({"phase": "merge", "src": str(Path(ops.__file__).parents[3]),
+          **merge_times(torch, ops, big, sizes)})
+    print(gpu_line(), flush=True)
+    return 0
 
 
 def kernel_point_read(torch, np, ops, ref, u64, tree, keys, dev):
@@ -1004,10 +1189,22 @@ def kernel_bloom_probe(torch, ops, ref, plane, q, dev):
             **bound(N * (4 + 4 + 4 * k), N * (k + 1) * 11), "checks": rows}
 
 
-def main() -> int:
-    if not (SRC / "repro_torch" / "csrc").is_dir():
-        print("chip_smoke.py: run it from the root of a checkout (no "
-              "src/repro_torch here)", file=sys.stderr)
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--merge", action="store_true",
+                    help="time only the compaction merge, as the kernels "
+                    "phase does, and exit")
+    ap.add_argument("--src", default=str(SRC),
+                    help="with --merge: the src directory whose repro_torch "
+                    "to time (another tree's, to compare two in one run)")
+    ap.add_argument("--sizes", help="with --merge: also replay the engine "
+                    "path's merges at the sizes this file holds (a JSON "
+                    "list of (na, nb), or a whole run's output)")
+    args = ap.parse_args(argv)
+    src = Path(args.src)
+    if not (src / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke.py: no {src}/repro_torch (run it from the root "
+              "of a checkout)", file=sys.stderr)
         return 2
     import numpy as np
     import torch
@@ -1015,7 +1212,9 @@ def main() -> int:
         print("chip_smoke.py: CUDA is not available; the port's main path "
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 3
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
+    if args.merge:
+        return merge_main(torch, np, args.sizes)
     import repro_torch.core as core
     import repro_torch.lsm as lsm
     from repro_torch import quickstart

@@ -144,6 +144,12 @@ def kernel_fn(name: str, symbol: str, argtypes: Sequence):
     return fn
 
 
+def library_int(name: str, symbol: str) -> int:
+    """The ``int`` constant ``symbol`` that kernel ``name``'s library
+    exports (a size its wrapper must know to allocate for the entry)."""
+    return ctypes.c_int.in_dll(_library(name), symbol).value
+
+
 def check(name: str, rc: int, variant: str = "") -> None:
     """Raise if a launch returned a CUDA error; count it otherwise."""
     if rc != 0:

@@ -26,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.dual_solve.ref import dual_solve_warm_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.merge import ops as merge_ops
 from repro_torch.kernels.merge.ops import merge_runs, two_way_merge
 from repro_torch.kernels.point_read.ops import point_read_level
 from repro_torch.kernels.rwkv6.ops import rwkv6
@@ -93,6 +94,91 @@ def test_merge_kernel_matches_plain(dev, na, nb):
     rk, rv = merge_runs([args[0].cpu(), args[2].cpu()],
                         [args[1].cpu(), args[3].cpu()])
     assert torch.equal(k.cpu(), rk) and torch.equal(v.cpu(), rv)
+
+
+def _merge_step_runs(case, dev):
+    """(A keys, A vals, B keys, B vals) on ``dev`` for the fold-step card
+    tests: the four sizes of ``test_merge_kernel_matches_plain``, runs
+    sharing most keys, a duplicate pair straddling every tile boundary
+    (B holds one smaller key, then both runs hold the same even keys: A's
+    copy of a key is output TILE - 1 of a tile, B's output TILE), runs of
+    one key repeated, runs that are views one element into a buffer (at an
+    8-byte offset: no 16-byte alignment), and runs of 1,024 tiles and more
+    (where the partition probes 8 ways a boundary, not 32)."""
+    rng = np.random.default_rng(len(case))
+    tile = merge_ops._tile()
+    if case == "misaligned":
+        keys = u64.to_device_keys(_u64_keys(rng, 30_001), dev)
+        vals = torch.arange(len(keys), device=dev)
+        args = [keys[1:], vals[1:], keys[3::2].contiguous()[1:],
+                vals[3::2].contiguous()[1:]]
+        assert args[0].data_ptr() % 16 == 8 and args[2].data_ptr() % 16 == 8
+        return args
+    if isinstance(case, tuple):
+        na, nb = case
+        pool = _u64_keys(rng, int(1.5 * (na + nb)) + 4)
+        a = np.sort(rng.choice(pool, na, replace=False))
+        b = np.sort(rng.choice(pool, nb, replace=False))
+    elif case == "shared":
+        pool = _u64_keys(rng, 40_000)
+        a, b = pool[::2], np.sort(np.concatenate([pool[::4], pool[1::6]]))
+    elif case == "straddle":
+        evens = np.arange(2, 2 * (3 * tile + 77), 2, dtype=np.uint64)
+        a, b = evens, np.concatenate([[np.uint64(1)], evens])
+    elif case == "repeated":
+        a = np.full(2 * tile + 5, 2 ** 64 - 2, np.uint64)
+        b = np.full(tile + 3, 2 ** 64 - 2, np.uint64)
+    elif case == "1024_tiles":
+        n = 1024 * tile + 17
+        pool = _u64_keys(rng, int(1.3 * n))
+        a = np.sort(rng.choice(pool, n // 2, replace=False))
+        b = np.sort(rng.choice(pool, n - n // 2, replace=False))
+    return [u64.to_device_keys(a, dev), torch.arange(len(a), device=dev),
+            u64.to_device_keys(b, dev),
+            torch.arange(len(b), device=dev) + 10 ** 9]
+
+
+@pytest.mark.parametrize("case", [(50_000, 70_000), (1, 0), (0, 3),
+                                  (129, 1), "shared", "straddle",
+                                  "repeated", "misaligned", "1024_tiles"])
+def test_merge_newest_wins_matches_plain(dev, case):
+    """The fold step on the card (one launch of the wrapper: the tiled
+    merge with the drop fused in) equals the plain merge followed by the
+    torch-op drop, bit for bit; and so does ``two_way_merge`` (the same
+    kernels without the drop) equal the plain merge."""
+    args = _merge_step_runs(case, dev)
+    before = _build.LAUNCHES["merge"]
+    k, v = merge_ops.merge_newest_wins(*args)
+    launched = sum(t.numel() for t in args[::2]) > 0
+    assert _build.LAUNCHES["merge"] == before + launched
+    cpu = [t.cpu() for t in args]
+    rk, rv = merge_ops.drop_adjacent_duplicates(*two_way_merge(*cpu))
+    assert torch.equal(k.cpu(), rk) and torch.equal(v.cpu(), rv)
+    k, v = two_way_merge(*args)
+    rk, rv = two_way_merge(*cpu)
+    assert torch.equal(k.cpu(), rk) and torch.equal(v.cpu(), rv)
+
+
+def test_merge_runs_multi_run_fold_matches_plain(dev):
+    """A five-run newest-first fold with overlaps, an empty run and a
+    misaligned view: every step on the card, bit-identical to the CPU."""
+    rng = np.random.default_rng(11)
+    pool = _u64_keys(rng, 200_000)
+    runs = [np.sort(rng.choice(pool, n, replace=False))
+            for n in (70_000, 1, 0, 120_000, 33_333)]
+    vals = [np.arange(len(r), dtype=np.int64) + 10 ** 6 * i
+            for i, r in enumerate(runs)]
+    out = {}
+    for d in ("cpu", dev):
+        ks = [u64.to_device_keys(r, d) for r in runs]
+        vs = [torch.from_numpy(x).to(d) for x in vals]
+        ks[3], vs[3] = (torch.cat([t[:1], t])[1:] for t in (ks[3], vs[3]))
+        before = _build.LAUNCHES["merge"]
+        out[str(d)] = merge_runs(ks, vs)
+        if d == dev:
+            assert _build.LAUNCHES["merge"] == before + 3
+    assert torch.equal(out["cuda"][0].cpu(), out["cpu"][0])
+    assert torch.equal(out["cuda"][1].cpu(), out["cpu"][1])
 
 
 def test_point_read_kernel_matches_plain(dev):

@@ -12,6 +12,7 @@ device the launch was guarded to is in ``tests/test_torch_cuda.py``.
 
 import ast
 import contextlib
+import importlib
 import re
 from pathlib import Path
 
@@ -148,6 +149,39 @@ def test_ops_launches_only_through_the_guard(path):
         assert not _calls_to(tree, "_build", attr), \
             f"{path.parent.name} calls _build.{attr}"
     assert "current_stream" not in path.read_text()
+
+
+_C_ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
+
+
+@pytest.mark.parametrize("path", OPS, ids=[p.parent.name for p in OPS])
+def test_entry_types_every_parameter_of_its_c_signature(path):
+    """Each C entry's ``argtypes`` (the tuple handed to
+    ``_build.kernel_fn``) has one type per parameter of the entry in
+    ``csrc/*.cu``, the stream's a pointer: an argument past the types
+    would go through as a C ``int``, and a stream so passed is garbage in
+    its upper half."""
+    entries = {m.group(1): [a for a in m.group(2).split(",") if a.strip()]
+               for cu in _build.CSRC_DIR.glob("*.cu")
+               for m in _C_ENTRY.finditer(cu.read_text())}
+    src = path.read_text()
+    module = importlib.import_module(
+        f"repro_torch.kernels.{path.parent.name}.ops")
+    launch_names = {n.value for n in ast.walk(ast.parse(src))
+                    if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                    and n.value in entries}
+    calls = _calls_to(ast.parse(src), "_build", "kernel_fn")
+    assert calls
+    for call in calls:
+        argtypes = getattr(module, call.args[2].id)
+        symbols = ([call.args[1].value]
+                   if isinstance(call.args[1], ast.Constant) else launch_names)
+        assert symbols
+        for symbol in symbols:
+            params = entries[symbol]
+            assert len(argtypes) == len(params), symbol
+            assert "cudaStream_t" in params[-1], symbol
+            assert argtypes[-1] is _build.P, symbol
 
 
 # ---------------------------------------------------------------------------
