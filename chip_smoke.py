@@ -13,7 +13,8 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 2. ``engine`` — quickstart's nominal and robust tunings deployed at 10 M
    entries of 64 bytes: ``populate`` and a 1 M-query ``run_session`` of the
    write burst, counting ``merge`` and ``point_read`` launches and
-   recording the size of every merge the path launches; one more
+   recording the size of every merge the path launches, the inputs of
+   every point read it launches and the key samples it builds; one more
    populate in a profiler trace (its busy share, its top kernels and its
    fold steps' device time, two ``merge`` kernels a step); and a
    200,000-entry, 20,000-query run on the CPU plain path and on the card,
@@ -62,7 +63,10 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    8192-token sequence); ``merge`` is timed as the fold step the path
    runs (the merge with the newest-wins drop fused in) and as
    ``two_way_merge``, and replays the engine path's fold steps at their
-   recorded sizes, for their summed device time against their bound.
+   recorded sizes, for their summed device time against their bound;
+   ``point_read`` likewise replays the path's point reads and the samples
+   they built; and ``launch_floor_ms``, a one-element add's device
+   time.
 
 The build's ``ptxas`` report (registers and spills) for the bf16
 ``rwkv6`` kernel is printed on a line of its own.
@@ -75,6 +79,15 @@ path's fold steps replayed at the sizes a whole run printed), on the
 ``repro_torch`` under ``DIR`` (default: this checkout's ``src``), so that
 one call can time two trees in turn.  It prints one JSON line and the
 card's name and power limit.
+
+    python3 chip_smoke.py --point-read [--src DIR]
+
+times only the point read, as the kernels phase does, on the same trees
+(quickstart's tunings populated at 10 M entries, their sessions run):
+the 1 M-key batch against the nominal tree's deepest level, the engine
+path's launches replayed on their recorded inputs against their summed
+bounds, and the samples the path built rebuilt; on the ``repro_torch``
+under ``DIR``, one JSON line, then the card's name and power limit.
 
 Each phase prints one JSON line; then the kernel table as one JSON line,
 the ``nvidia-smi`` name and power limit, and last the result line.  Any
@@ -252,6 +265,14 @@ def device_ms(torch, fn, iters: int, kernel: str) -> float:
     return tr["device_ms"]
 
 
+def launch_floor_ms(torch) -> float:
+    """The device time of a one-element PyTorch op (an in-place add), read
+    as ``device_ms`` reads a kernel's: the least a kernel launch costs on
+    the card, set against ``dual_solve``'s time."""
+    one = torch.zeros(1, device=DEVICE)
+    return per_call(torch, lambda: one.add_(1), 50, "")["device_ms"]
+
+
 def profile_device(torch, fn, kernel: str = "") -> dict:
     """Host wall time of ``fn`` (up to a synchronise) and the CUDA kernels
     a ``torch.profiler`` trace records in it: their summed device time,
@@ -417,44 +438,100 @@ def record_merges(build, merge_ops):
     return sizes, lambda: setattr(merge_ops, "merge_newest_wins", inner)
 
 
-def phase_engine(torch, np, core, lsm, quickstart, build, merge_ops):
-    """Returns the nominal tree and its keys, the sizes (na, nb) of the
-    path's merges, and the phase's JSON."""
-    out = {"phase": "engine", "entries": N_ENTRIES, "queries": N_QUERIES,
-           "mix": quickstart.BURST.tolist(), "trees": {}}
-    keys_of = {}
+def record_reads(build, read_path, read_ops):
+    """Wrap ``read_path._point_read`` (through which every read batch's
+    per-level ``point_read_level`` launches the kernel) to keep the inputs
+    (keys, arena keys and values, layout) of each call that launched it,
+    and ``read_ops.sample_runs``, where the tree has one, to keep the
+    (arena keys, run starts) of each sample it builds.  Returns both lists
+    and a function that puts the modules' own functions back."""
+    reads, builds = [], []
+    inner = read_path._point_read
+    inner_sample = getattr(read_ops, "sample_runs", None)
+
+    def recorded(q, keys, vals, layout):
+        before = build.LAUNCHES["point_read"]
+        out = inner(q, keys, vals, layout)
+        if build.LAUNCHES["point_read"] > before:
+            reads.append((q, keys, vals, layout))
+        return out
+
+    def recorded_sample(keys, starts, *args, **kw):
+        builds.append((keys, list(starts)))
+        return inner_sample(keys, starts, *args, **kw)
+
+    read_path._point_read = recorded
+    if inner_sample is not None:
+        read_ops.sample_runs = recorded_sample
+
+    def unwrap():
+        read_path._point_read = inner
+        if inner_sample is not None:
+            read_ops.sample_runs = inner_sample
+
+    return reads, builds, unwrap
+
+
+def engine_trees(torch, core, lsm, quickstart, build, merge_ops, read_path,
+                 read_ops):
+    """Quickstart's nominal and robust tunings deployed at ``N_ENTRIES``,
+    each populated and run through a ``N_QUERIES`` session of the write
+    burst, counting the kernels' launches and recording the path's merges
+    and point reads.  Returns the trees, their keys, their rows, the
+    launches, the merges' sizes, the reads' inputs and the samples
+    built."""
     phis = quickstart_tunings(core, quickstart)
     trees = {name: deploy(core, lsm, phi, DEVICE, N_ENTRIES)
              for name, phi in phis.items()}
     build.reset_launches()
-    merges, unwrap = record_merges(build, merge_ops)
-    for name, tree in trees.items():
-        log(f"engine: populate {name}")
-        t0 = time.time()
-        keys = lsm.populate(tree, N_ENTRIES, seed=1)
-        torch.cuda.synchronize()
-        t1 = time.time()
-        log(f"engine: session {name}")
-        res = lsm.run_session(tree, keys, quickstart.BURST,
-                              n_queries=N_QUERIES, seed=2)
-        torch.cuda.synchronize()
-        t2 = time.time()
-        check(res.avg_io_per_query > 0 and res.queries == N_QUERIES,
-              f"{name}: empty session")
-        check(tree.num_entries >= N_ENTRIES, f"{name}: entries lost")
-        out["trees"][name] = {
-            "T": tree.cfg.T, "K": list(tree.cfg.K[:4]),
-            "buf_entries": tree.cfg.buf_entries, "shape": [
-                (lv, len(runs), sum(runs)) for lv, runs in tree.shape()],
-            "populate_s": t1 - t0, "session_s": t2 - t1,
-            "avg_io_per_query": res.avg_io_per_query,
-            "io": res.io.as_dict(),
-            "arena_mb": sum(lv.keys.numel() + lv.vals.numel()
-                            for lv in tree.store.levels) * 8 / 1e6}
-        keys_of[name] = keys
-    launches = dict(build.LAUNCHES)
-    unwrap()
-    out["launches"] = launches
+    merges, unwrap_merges = record_merges(build, merge_ops)
+    reads, builds, unwrap_reads = record_reads(build, read_path, read_ops)
+    rows, keys_of = {}, {}
+    try:
+        for name, tree in trees.items():
+            log(f"engine: populate {name}")
+            t0 = time.time()
+            keys = lsm.populate(tree, N_ENTRIES, seed=1)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            log(f"engine: session {name}")
+            res = lsm.run_session(tree, keys, quickstart.BURST,
+                                  n_queries=N_QUERIES, seed=2)
+            torch.cuda.synchronize()
+            t2 = time.time()
+            check(res.avg_io_per_query > 0 and res.queries == N_QUERIES,
+                  f"{name}: empty session")
+            check(tree.num_entries >= N_ENTRIES, f"{name}: entries lost")
+            rows[name] = {
+                "T": tree.cfg.T, "K": list(tree.cfg.K[:4]),
+                "buf_entries": tree.cfg.buf_entries, "shape": [
+                    (lv, len(runs), sum(runs)) for lv, runs in tree.shape()],
+                "populate_s": t1 - t0, "session_s": t2 - t1,
+                "avg_io_per_query": res.avg_io_per_query,
+                "io": res.io.as_dict(),
+                "arena_mb": sum(lv.keys.numel() + lv.vals.numel()
+                                for lv in tree.store.levels) * 8 / 1e6}
+            keys_of[name] = keys
+        launches = dict(build.LAUNCHES)
+    finally:
+        unwrap_merges()
+        unwrap_reads()
+    check(len(reads) == launches["point_read"], f"recorded {len(reads)} of "
+          f"the path's {launches['point_read']} point_read launches")
+    return phis, trees, keys_of, rows, launches, merges, reads, builds
+
+
+def phase_engine(torch, np, core, lsm, quickstart, build, merge_ops,
+                 read_path, read_ops):
+    """Returns the nominal tree and its keys, the sizes (na, nb) of the
+    path's merges, its point reads' inputs, the samples it built, and the
+    phase's JSON."""
+    phis, trees, keys_of, rows, launches, merges, reads, builds = \
+        engine_trees(torch, core, lsm, quickstart, build, merge_ops,
+                     read_path, read_ops)
+    out = {"phase": "engine", "entries": N_ENTRIES, "queries": N_QUERIES,
+           "mix": quickstart.BURST.tolist(), "trees": rows,
+           "launches": launches}
     for k in ("merge", "point_read"):
         check(launches[k] > 0, f"{k} never launched on the engine path")
     check(len(merges) == launches["merge"], f"recorded {len(merges)} of "
@@ -463,6 +540,12 @@ def phase_engine(torch, np, core, lsm, quickstart, build, merge_ops):
     out["merge_path"] = {"launches": len(merges), "entries": sum(totals),
                          "max_entries": max(totals, default=0),
                          "sizes": [list(m) for m in merges]}
+    out["read_path"] = {
+        "launches": len(reads),
+        "entries_runs_batch": [(k.numel(), layout.num_runs, q.numel())
+                               for q, k, _, layout in reads],
+        "sample_builds": len(builds),
+        "sample_build_keys": sum(k.numel() for k, _ in builds)}
     out["device_busy"] = device_busy(torch, lsm, quickstart,
                                      trees["nominal"], keys_of["nominal"])
     out["populate_profile"] = populate_profile(torch, core, lsm, build,
@@ -484,7 +567,8 @@ def phase_engine(torch, np, core, lsm, quickstart, build, merge_ops):
               for a, b in zip(small["cpu"][2], small[DEVICE][2])),
           "arenas: cpu != cuda")
     out["cpu_vs_cuda_200k"] = {"identical": True, "io": small[DEVICE][0]}
-    return trees["nominal"], keys_of["nominal"], merges, out
+    return (trees["nominal"], keys_of["nominal"], merges, reads, builds,
+            out)
 
 
 # -- phase 3: LM serving -------------------------------------------------------
@@ -899,15 +983,32 @@ def merge_main(torch, np, sizes_file) -> int:
     return 0
 
 
-def kernel_point_read(torch, np, ops, ref, u64, tree, keys, dev):
-    """A 1 M-key batch, half hits and half misses, against the deepest
-    level of the populated 10 M-entry tree (and against every level)."""
+def read_batch(np, u64, keys, dev):
+    """The kernels phase's read batch: 1 M keys, half of them drawn from
+    the tree's keys and half absent (seed 1)."""
     rng = np.random.default_rng(1)
     hits = rng.choice(keys, READ_BATCH // 2)
     misses = rng.integers(0, 2 ** 48, READ_BATCH // 2).astype(np.uint64) | \
         np.uint64(1 << 60)
-    q = u64.to_device_keys(rng.permutation(np.concatenate([hits, misses])),
-                           dev)
+    return u64.to_device_keys(rng.permutation(np.concatenate([hits, misses])),
+                              dev)
+
+
+def read_bound(np, B, entries, ks, probes, reads) -> dict:
+    """A point-read launch's bound.  Least bytes: each key in, 33 bytes of
+    results out, one Bloom word per probe, one key and one value per
+    positive run.  Operations (priced at the float32 rate, never binding):
+    12 a hash a probe, 4 a halving of a plain search."""
+    moved = B * (8 + 33) + probes * 8 + reads * 16
+    return bound(moved, probes * max(ks, default=1) * 12
+                 + reads * 4 * int(np.log2(entries + 1)))
+
+
+def kernel_point_read(torch, np, ops, ref, u64, tree, keys, reads, builds,
+                      dev):
+    """The read batch against every level of the populated 10 M-entry
+    tree, bit for bit against the plain version; then ``read_times``."""
+    q = read_batch(np, u64, keys, dev)
     rows = []
     for i, lv in enumerate(tree.store.levels):
         if not lv.num_runs:
@@ -924,28 +1025,138 @@ def kernel_point_read(torch, np, ops, ref, u64, tree, keys, dev):
                      "entries": lv.entries, "bit_identical": same,
                      "hits": int(got[0].sum()), "probes": int(got[2].sum()),
                      "reads": int(got[3].sum()), "fps": int(got[4].sum())})
-        deepest = (lv, pack, rows[-1])
-    lv, pack, row = deepest
-    B = q.numel()
-    # least bytes: each key in, 33 bytes of results out, one Bloom word per
-    # probe, one key + one value per positive run
-    moved = B * (8 + 33) + row["probes"] * 8 + row["reads"] * 16
-    k = max(pack.ks)
-    ops_count = row["probes"] * k * 12 + row["reads"] * 4 * int(
-        np.log2(lv.entries + 1))
+    lv = [lv for lv in tree.store.levels if lv.num_runs][-1]
+    pack = lv.pack
     return {"name": "point_read", "route": "cuda",
             "source": "src/repro_torch/csrc/point_read.cu",
             "replaces": "src/repro/kernels/point_read/kernel.py:115",
             "max_abs_err": 0,
-            "ms": time_ms(torch, lambda: ops.point_read_level(
-                q, lv.keys, lv.vals, pack), 20),
-            "device_ms": device_ms(torch, lambda: ops.point_read_level(
-                q, lv.keys, lv.vals, pack), 10, CUDA_NAMES["point_read"]),
+            **read_times(torch, np, ops, tree, q, reads, builds),
             "plain_ms": time_ms(torch, lambda: ref.point_read_level_ref(
                 q, lv.keys, lv.vals, pack.starts, pack.n_bits, pack.ks,
                 pack.fence_lo, pack.fence_hi, pack.words, pack.word_off), 3),
-            "library_ms": None, **bound(moved, ops_count), "checks": rows}
+            "library_ms": None, "checks": rows}
 
+
+def read_times(torch, np, ops, tree, q, reads, builds) -> dict:
+    """The point read's times on the card, through the calls every version
+    of the port's wrapper takes (so ``--point-read`` times another
+    tree's): the batch ``q`` against the tree's deepest level, by CUDA
+    events per call and in a trace that holds every event (``per_call``),
+    with its bound (``read_bound``); the engine path's launches replayed on
+    their recorded inputs (``read_path_replay``); the samples the path
+    built, rebuilt (``sample_replay``); and the tree's arena and sample
+    sizes."""
+    lv = [lv for lv in tree.store.levels if lv.num_runs][-1]
+    pack = lv.pack
+    call = lambda: ops.point_read_level(q, lv.keys, lv.vals,  # noqa: E731
+                                        pack)
+    got = call()
+    tr = per_call(torch, call, 10, CUDA_NAMES["point_read"])
+    check(tr["kernels"] == 1, f"point_read: {tr['kernels']} "
+          f"*{CUDA_NAMES['point_read']}* kernels a call")
+    packs = [lv.pack for lv in tree.store.levels if lv.num_runs]
+    sample_mb = sum(getattr(p, t).numel() for p in packs
+                    for t in ("sample", "top") if hasattr(p, t)) * 8 / 1e6
+    return {"B": q.numel(), "level_entries": lv.entries,
+            "level_runs": lv.num_runs, "hits": int(got[0].sum()),
+            "positives": int(got[3].sum()),
+            "ms": time_ms(torch, call, 20), "device_ms": tr["device_ms"],
+            "all_device_ms": tr["all_device_ms"],
+            **read_bound(np, q.numel(), lv.entries, pack.ks,
+                         int(got[2].sum()), int(got[3].sum())),
+            "tree_key_mb": sum(lv.keys.numel() for lv in tree.store.levels)
+            * 8 / 1e6,
+            "tree_arena_mb": sum(lv.keys.numel() + lv.vals.numel()
+                                 for lv in tree.store.levels) * 8 / 1e6,
+            "tree_sample_mb": sample_mb,
+            **read_path_replay(torch, np, ops, reads),
+            **sample_replay(torch, ops, builds)}
+
+
+def read_path_replay(torch, np, ops, reads) -> dict:
+    """The engine path's point-read launches replayed on their recorded
+    inputs, all in one trace that holds every event (``cuda_events``, a
+    launch a call): the kernels' summed device time and count against the
+    launches' summed bounds (``read_bound``, from each launch's own
+    counters).  Nothing without ``reads``."""
+    if not reads:
+        return {}
+    bound_ms = 0.0
+    for q, keys, vals, layout in reads:
+        out = ops.point_read_level(q, keys, vals, layout)
+        bound_ms += read_bound(np, q.numel(), keys.numel(), layout.ks,
+                               int(out[2].sum()), int(out[3].sum()))[
+                                   "bound_ms"]
+
+    def replay():
+        for q, keys, vals, layout in reads:
+            ops.point_read_level(q, keys, vals, layout)
+
+    # the launches' kernels differ in name (their KMAX), so a trace is
+    # whole when it holds one point_read kernel a launch
+    name = CUDA_NAMES["point_read"]
+    for _ in range(3):
+        wall, events = cuda_events(torch, replay, tries=1)
+        if sum(name in n for n, _ in events) == len(reads):
+            break
+    check(sum(name in n for n, _ in events) == len(reads),
+          "point_read replay: traces miss launches")
+    path_ms = sum(us for n, us in events if name in n) / 1e3
+    return {"path_launches": len(reads),
+            "path_keys": sum(q.numel() for q, *_ in reads),
+            "path_device_ms": path_ms,
+            "path_kernels": sum(name in n for n, _ in events),
+            "path_wall_ms": wall * 1e3, "path_bound_ms": bound_ms,
+            "path_loss_ms": path_ms - bound_ms}
+
+
+def sample_replay(torch, ops, builds) -> dict:
+    """The samples the engine path built (``ops.sample_runs``, on each
+    pack of a changed level), rebuilt in one trace: their count, entries
+    and summed device time (every device activity: the strided copies).
+    Nothing for a tree without samples."""
+    if not builds or not hasattr(ops, "sample_runs"):
+        return {"sample_builds": 0}
+    out = [ops.sample_runs(keys, starts) for keys, starts in builds]
+    wall, events = cuda_events(torch, lambda: [
+        ops.sample_runs(keys, starts) for keys, starts in builds])
+    return {"sample_builds": len(builds),
+            "sample_build_keys": sum(k.numel() for k, _ in builds),
+            "sample_build_entries": sum(o["sample"].numel() + o["top"].numel()
+                                        for o in out),
+            "sample_build_device_ms": sum(us for _, us in events) / 1e3,
+            "sample_build_wall_ms": wall * 1e3}
+
+
+def point_read_main(torch, np) -> int:
+    """``--point-read``: the engine phase's trees on the ``repro_torch``
+    under ``--src``, their path's point reads recorded, then
+    ``read_times`` on the nominal tree; one JSON line, then the card's
+    name and power limit."""
+    import repro_torch.core as core
+    import repro_torch.lsm as lsm
+    from repro_torch import quickstart
+    from repro_torch.kernels import _build as build
+    from repro_torch.kernels.merge import ops as merge_ops
+    from repro_torch.kernels.point_read import ops
+    from repro_torch.lsm import read_path
+    from repro_torch.utils import u64
+    src = str(Path(ops.__file__).parents[3])
+    log(f"point_read only, {src}")
+    build.build(["merge", "point_read", "dual_solve"])
+    _, trees, keys_of, rows, launches, _, reads, builds = engine_trees(
+        torch, core, lsm, quickstart, build, merge_ops, read_path, ops)
+    tree = trees["nominal"]
+    q = read_batch(np, u64, keys_of["nominal"], DEVICE)
+    emit({"phase": "point_read", "src": src,
+          "avg_io_per_query": {n: r["avg_io_per_query"]
+                               for n, r in rows.items()},
+          "session_s": {n: r["session_s"] for n, r in rows.items()},
+          "launches": launches["point_read"],
+          **read_times(torch, np, ops, tree, q, reads, builds)})
+    print(gpu_line(), flush=True)
+    return 0
 
 
 def kernel_flash_attention(torch, configs, ops, ref, build, dev, arch):
@@ -1194,9 +1405,14 @@ def main(argv=None) -> int:
     ap.add_argument("--merge", action="store_true",
                     help="time only the compaction merge, as the kernels "
                     "phase does, and exit")
+    ap.add_argument("--point-read", action="store_true",
+                    help="time only the point read, as the kernels phase "
+                    "does, with the engine path's launches replayed, and "
+                    "exit")
     ap.add_argument("--src", default=str(SRC),
-                    help="with --merge: the src directory whose repro_torch "
-                    "to time (another tree's, to compare two in one run)")
+                    help="with --merge or --point-read: the src directory "
+                    "whose repro_torch to time (another tree's, to compare "
+                    "two in one run)")
     ap.add_argument("--sizes", help="with --merge: also replay the engine "
                     "path's merges at the sizes this file holds (a JSON "
                     "list of (na, nb), or a whole run's output)")
@@ -1215,6 +1431,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(src))
     if args.merge:
         return merge_main(torch, np, args.sizes)
+    if args.point_read:
+        return point_read_main(torch, np)
     import repro_torch.core as core
     import repro_torch.lsm as lsm
     from repro_torch import quickstart
@@ -1233,6 +1451,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.rwkv6 import ops as rwkv_ops
     from repro_torch.kernels.rwkv6 import ref as rwkv_ref
     from repro_torch.launch import serve
+    from repro_torch.lsm import read_path
     from repro_torch.models import lm
     from repro_torch.utils import u64
 
@@ -1257,8 +1476,9 @@ def main(argv=None) -> int:
 
     tuner = phase_tuner(torch, core, build, dual_ref.dual_solve_warm_ref)
     emit(tuner)
-    tree, keys, merges, engine = phase_engine(torch, np, core, lsm,
-                                              quickstart, build, merge_ops)
+    tree, keys, merges, reads, builds, engine = phase_engine(
+        torch, np, core, lsm, quickstart, build, merge_ops, read_path,
+        read_ops)
     emit(engine)
     launches = {"dual_solve": tuner["dual_solve_launches"],
                 **{k: engine["launches"][k] for k in ("merge",
@@ -1282,17 +1502,18 @@ def main(argv=None) -> int:
         kernel_dual_solve(torch, core, dual_ops, dual_ref, dev),
         kernel_merge(torch, np, merge_ops, merge_ref, u64, dev, merges),
         kernel_point_read(torch, np, read_ops, read_ref, u64, tree, keys,
-                          dev),
+                          reads, builds, dev),
         kernel_flash_attention(torch, configs, flash_ops, flash_ref, build,
                                dev, arch_of["flash_attention"]),
         *kernel_rwkv6(torch, configs, rwkv_ops, rwkv_ref, build, dev,
                       arch_of["rwkv6"]),
         kernel_bloom_probe(torch, bloom_ops, bloom_ref, plane, bloom_q, dev),
     ]
-    del plane, bloom_q
+    del plane, bloom_q, reads, builds
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    emit({"phase": "kernels", "kernels": kernels})
+    emit({"phase": "kernels", "launch_floor_ms": launch_floor_ms(torch),
+          "kernels": kernels})
     keyset = ("name", "route", "source", "replaces", "launches",
               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")

@@ -10,8 +10,10 @@ signed order is unsigned key order).
 The host keeps what the planner and the read path's layout need, so that
 neither has to wait for the device: run offsets (``starts``), fence keys
 (``min_keys``/``max_keys``, uint64), Bloom parameters (``n_bits``, ``ks``),
-flush lineage and tombstone ages.  Bloom words are built on the device on a
-level's first read and packed flat (``kernels/point_read.LevelLayout``).
+flush lineage and tombstone ages.  Bloom words and the point read's key
+sample are built on the device on a level's first read and packed flat
+(``kernels/point_read.LevelLayout``); a change of the level's runs drops
+them (``_set_runs``).
 
 Values are encoded int64s (:class:`ValueCodec`, host side): inline ints,
 interned objects, and the tombstone sentinel ``TOMB``.  The store only
@@ -27,6 +29,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels.point_read import ops as read_ops
 from ..kernels.point_read.ops import LevelLayout
 from ..utils.u64 import ordered_to_int
 from .bloom import bloom_params, build_words
@@ -177,7 +180,8 @@ class LevelStore:
 
     @property
     def pack(self) -> LevelLayout:
-        """The level's read layout; builds missing Bloom words first."""
+        """The level's read layout; builds missing Bloom words first, then
+        the search's key sample (``point_read.ops.sample_runs``)."""
         if self._pack is None:
             for r in range(self.num_runs):
                 if self.words_list[r] is None:
@@ -187,13 +191,13 @@ class LevelStore:
             lens = [w.shape[0] for w in self.words_list]
             words = torch.cat(self.words_list) if self.words_list else \
                 torch.zeros(0, dtype=torch.int64, device=self.device)
+            starts = self.starts.tolist()
             self._pack = LevelLayout(
-                starts=self.starts.tolist(), n_bits=list(self.n_bits),
-                ks=list(self.ks),
+                starts=starts, n_bits=list(self.n_bits), ks=list(self.ks),
                 fence_lo=[int(k) - _HALF for k in self.min_keys],
                 fence_hi=[int(k) - _HALF for k in self.max_keys],
                 word_off=np.concatenate([[0], np.cumsum(lens)]).tolist(),
-                words=words)
+                words=words, **read_ops.sample_runs(self.keys, starts))
         return self._pack
 
     # -- mutation ----------------------------------------------------------

@@ -23,6 +23,7 @@ import torch
 MASK64 = (1 << 64) - 1
 SIGN = -(1 << 63)               # int64 with only the top bit set
 _LOW63 = (1 << 63) - 1
+_M32 = (1 << 32) - 1
 
 SPLITMIX_GAMMA = 0x9E3779B97F4A7C15
 _MIX1 = 0xBF58476D1CE4E5B9
@@ -45,6 +46,32 @@ def umod(x: torch.Tensor, n) -> torch.Tensor:
     (an int or an int64 tensor broadcasting against ``x``)."""
     top = ((1 << 62) % n) * 2 % n          # 2**63 mod n without overflow
     return ((x & _LOW63) % n + (x < 0).long() * top) % n
+
+
+def umulhi(x: torch.Tensor, m: int) -> torch.Tensor:
+    """The high 64 bits of the unsigned 128-bit product of bit patterns
+    ``x`` and ``0 <= m < 2**64``, from 32-bit halves (each partial product
+    and sum is below 2**64, so int64's wrapping gives its bits)."""
+    xl, xh = x & _M32, lsr(x, 32)
+    ml, mh = m & _M32, m >> 32
+    t = xh * ml + lsr(xl * ml, 32)
+    w = (t & _M32) + xl * mh
+    return xh * mh + lsr(t, 32) + lsr(w, 32)
+
+
+def mod_magic(n: int) -> int:
+    """The reciprocal of ``n`` for :func:`umod_magic`: ``(2**64 - 1) // n``."""
+    return MASK64 // n
+
+
+def umod_magic(x: torch.Tensor, n: int, magic: int) -> torch.Tensor:
+    """Unsigned ``x % n`` by the reciprocal ``magic = mod_magic(n)``, for
+    ``1 <= n < 2**62``: ``q = umulhi(x, magic)`` is the quotient or one
+    less (``magic >= 2**64 / n - 1``, so ``x * magic / 2**64 > x / n -
+    1``), so ``x - q * n`` lies in ``[0, 2n)`` and one subtraction of
+    ``n`` corrects it.  The point-read kernel's modulo, step for step."""
+    r = x - umulhi(x, magic) * n
+    return torch.where(r >= n, r - n, r)
 
 
 def splitmix64(x: torch.Tensor, seed: int) -> torch.Tensor:

@@ -201,6 +201,57 @@ def test_point_read_kernel_matches_plain(dev):
         assert torch.equal(g.cpu(), w)
 
 
+def _point_read_level(d, runs, bpk):
+    lv = store.LevelStore(d)
+    lv._set_runs([store.RunData.build(
+        u64.to_device_keys(r, d), torch.arange(len(r), device=d) * 2 + 1,
+        bpk, flushes=1) for r in runs])
+    return lv
+
+
+@pytest.mark.parametrize("case", ["one_run_sampled", "one_run_short",
+                                  "above_and_below_min_run", "tiered_10_runs",
+                                  "misaligned_queries", "kmax_17",
+                                  "kmax_32"])
+def test_point_read_sampled_kernel_matches_plain(dev, case):
+    """The kernel against its plain version on the CPU, bit for bit: one-run
+    levels with and without a sample, a level of runs on both sides of
+    ``SAMPLE_MIN_RUN``, a tiered level of 10 runs, queries as a view one
+    element into a buffer, and filters of 17 and 32 (the bound) hashes."""
+    from repro_torch.kernels.point_read import ops as read_ops
+    rng = np.random.default_rng(len(case))
+    keys = _u64_keys(rng, 120_000)
+    m = read_ops.SAMPLE_MIN_RUN
+    runs = {"one_run_sampled": [keys[::2]], "one_run_short": [keys[:m - 1]],
+            "above_and_below_min_run": [keys[:m - 1], keys[1::3],
+                                        keys[5:m + 5], keys[::7]],
+            "tiered_10_runs": [np.sort(rng.choice(keys, n, replace=False))
+                               for n in (100, 5000, 900, 20_000, 4096, 4095,
+                                         0, 30_000, 60_000, 7)],
+            "misaligned_queries": [keys[::3], keys[1::4]],
+            "kmax_17": [keys[::5], keys[::11]],
+            "kmax_32": [keys[::6]]}[case]
+    bpk = {"kmax_17": 24.5, "kmax_32": 46.0}.get(case, 7.5)
+    levels = {str(d): _point_read_level(d, runs, bpk) for d in ("cpu", dev)}
+    kmax = max(levels["cpu"].ks)
+    assert kmax <= read_ops.KMAX_BOUND
+    q = np.concatenate([rng.choice(keys, 7000), _u64_keys(rng, 3001),
+                        keys[[0, -1]]])
+    qd = u64.to_device_keys(q, dev)
+    if case == "misaligned_queries":
+        qd = torch.cat([qd[:1], qd])[1:]
+        assert qd.data_ptr() % 16 == 8
+    before = _build.LAUNCHES["point_read"]
+    got = point_read_level(qd, levels["cuda"].keys, levels["cuda"].vals,
+                           levels["cuda"].pack)
+    assert _build.LAUNCHES["point_read"] == before + 1
+    want = point_read_level(u64.to_device_keys(q, "cpu"), levels["cpu"].keys,
+                            levels["cpu"].vals, levels["cpu"].pack)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[0].sum()) > 0
+
+
 def test_engine_on_card_matches_cpu_plain_path(dev):
     cfg = P.EngineConfig(T=5, K=(4,) * 8, buf_entries=300,
                          expected_entries=20_000, mfilt_bits_per_entry=6.0)
