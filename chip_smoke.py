@@ -8,13 +8,16 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 
 1. ``tuner``  — the robust and the nominal sweep over the Fig. 6 grid (15
    expected workloads x rho in (0.25, 0.5, 1, 2, 3), CLASSIC, 64 starts,
-   250 Adam steps: 9,600 lanes), counting ``dual_solve`` launches; and, on
-   6 cells, the kernel path against the plain path with the same starts.
+   250 Adam steps: 9,600 lanes), counting ``dual_solve`` launches; on 6
+   cells, the kernel path against the plain path with the same starts;
+   and one robust Adam step's kernels and device ms from two profiled
+   runs of the grid (``kernels_per_step``).
 2. ``engine`` — quickstart's nominal and robust tunings deployed at 10 M
    entries of 64 bytes: ``populate`` and a 1 M-query ``run_session`` of the
    write burst, counting ``merge`` and ``point_read`` launches and
    recording the size of every merge the path launches, the inputs of
-   every point read it launches and the key samples it builds; one more
+   every point read it launches and the key samples it builds (their
+   count and device ms, replayed); one more
    populate in a profiler trace (its busy share, its top kernels and its
    fold steps' device time, two ``merge`` kernels a step); and a
    200,000-entry, 20,000-query run on the CPU plain path and on the card,
@@ -42,11 +45,14 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    distinct seeded uint32 keys on the card; ``bloom_probe`` takes 1 M
    keys, half inserted, counting ``bloom_probe`` launches.  The kernel
    must equal the plain version bit for bit, miss no inserted key, and
-   pass 0.5%-2% of the absent ones.
+   pass 0.5%-2% of the absent ones; its row records the plane floats it
+   read a present and an absent key, by its own count.
 5. ``kernels`` — each kernel against its plain version on the card at the
    main path's shapes (``merge``/``point_read``/``bloom_probe``
    bit-identical,
-   ``dual_solve`` to rel 1e-5 in value, ``flash_attention`` to 2e-2 in
+   ``dual_solve`` to rel 1e-5 in value and in the envelope gradient it
+   writes, with the share of lanes bit-equal to the plain version,
+   ``flash_attention`` to 2e-2 in
    bfloat16 and 2e-5 in float32, each case naming the kernel that served
    it, ``rwkv6`` to 5e-2 in bfloat16 at the model's, a slow and a fast
    decay and 5e-4 in float32 on y and the final state, each case naming
@@ -88,6 +94,17 @@ the 1 M-key batch against the nominal tree's deepest level, the engine
 path's launches replayed on their recorded inputs against their summed
 bounds, and the samples the path built rebuilt; on the ``repro_torch``
 under ``DIR``, one JSON line, then the card's name and power limit.
+
+    python3 chip_smoke.py --dual-solve [--src DIR]
+    python3 chip_smoke.py --bloom [--src DIR]
+
+time only the dual solve (the tuner's 9,600 lanes, the share of lanes
+bit-equal to the plain version, the launch floor, a robust Adam step's
+kernels and device ms, the robust sweep's wall time) or only the Bloom
+probe (the bloom phase's plane and 1 M keys; where the tree has them,
+every compiled design's device ms and loads a key, and whether an L2
+miss fetches 32 or 64 bytes), on the ``repro_torch`` under ``DIR``: one
+JSON line, then the card's name and power limit.
 
 Each phase prints one JSON line; then the kernel table as one JSON line,
 the ``nvidia-smi`` name and power limit, and last the result line.  Any
@@ -353,7 +370,55 @@ def phase_tuner(torch, core, build, ref_dual):
             "nominal_sweep_s": t_nom,
             "dual_solve_launches": launches,
             "six_cell_kernel_vs_plain_max_rel": rel,
-            "six_cell_costs": kern.tolist()}
+            "six_cell_costs": kern.tolist(),
+            "adam_step": adam_step_profile(torch, core)}
+
+
+def adam_step_profile(torch, core, steps=(2, 12)) -> dict:
+    """One robust Adam step of the sweep's lane batch (the Fig. 6 grid x
+    ``GRID_RHOS``, CLASSIC, ``N_STARTS`` starts: 9,600 lanes), through
+    ``core.solve_grid`` at two step counts, each in a profiler trace
+    (``cuda_events``): what the extra steps add, over their number, is a
+    step's CUDA kernels (``kernels_per_step``; copies and fills counted
+    apart), their device ms, the ``dual_solve`` kernels and their device
+    ms, and the host's wall ms.  Any tree's ``solve_grid`` takes these
+    arguments."""
+    import numpy as np
+    sys_t = core.LSMSystem()
+    W = np.repeat(core.EXPECTED_WORKLOADS.astype("float32"), len(GRID_RHOS),
+                  0)
+    rhos = np.tile(np.asarray(GRID_RHOS, np.float32),
+                   len(core.EXPECTED_WORKLOADS))
+    common = dict(design=core.DesignSpace.CLASSIC, sys=sys_t,
+                  n_starts=N_STARTS, lr=0.25, robust=True, seed=0,
+                  device=DEVICE)
+    core.solve_grid(W, rhos, steps=steps[0], **common)
+    runs = [cuda_events(torch, lambda s=s: core.solve_grid(
+        W, rhos, steps=s, **common)) for s in steps]
+    name = CUDA_NAMES["dual_solve"]
+
+    def count(events, keep):
+        mine = [us for n, us in events if keep(n)]
+        return len(mine), sum(mine) / 1e3
+
+    def per_step(keep):
+        (n0, ms0), (n1, ms1) = (count(ev, keep) for _, ev in runs)
+        return (n1 - n0) / (steps[1] - steps[0]), \
+            (ms1 - ms0) / (steps[1] - steps[0])
+
+    def is_copy(n):
+        return n.startswith(("Memcpy", "Memset"))
+
+    kernels, kernel_ms = per_step(lambda n: not is_copy(n))
+    copies, copy_ms = per_step(is_copy)
+    dual, dual_ms = per_step(lambda n: name in n)
+    return {"lanes": len(W) * 2 * N_STARTS, "steps_traced": list(steps),
+            "kernels_per_step": kernels, "device_ms_per_step": kernel_ms,
+            "copies_per_step": copies, "copy_ms_per_step": copy_ms,
+            "dual_solve_kernels_per_step": dual,
+            "dual_solve_device_ms_per_step": dual_ms,
+            "wall_ms_per_step": (runs[1][0] - runs[0][0]) * 1e3
+            / (steps[1] - steps[0])}
 
 
 # -- phase 2: the engine -------------------------------------------------------
@@ -438,16 +503,24 @@ def record_merges(build, merge_ops):
     return sizes, lambda: setattr(merge_ops, "merge_newest_wins", inner)
 
 
+#: the point read's sample work that a level's layout does, by tree: the
+#: per-run builds and the packs of a layout (this tree), or a whole
+#: level's ``sample_runs`` on every layout (a tree before the repair)
+SAMPLE_FNS = (("run_sample", "pack_samples"), ("sample_runs",))
+
+
 def record_reads(build, read_path, read_ops):
     """Wrap ``read_path._point_read`` (through which every read batch's
     per-level ``point_read_level`` launches the kernel) to keep the inputs
     (keys, arena keys and values, layout) of each call that launched it,
-    and ``read_ops.sample_runs``, where the tree has one, to keep the
-    (arena keys, run starts) of each sample it builds.  Returns both lists
-    and a function that puts the modules' own functions back."""
-    reads, builds = [], []
+    and the tree's sample functions (``SAMPLE_FNS``), where it has them,
+    to keep (name, arguments) of each call the store makes.  Returns both
+    lists and a function that puts the modules' own functions back."""
+    reads, samples = [], []
     inner = read_path._point_read
-    inner_sample = getattr(read_ops, "sample_runs", None)
+    names = next((ns for ns in SAMPLE_FNS
+                  if all(hasattr(read_ops, n) for n in ns)), ())
+    inner_fns = {n: getattr(read_ops, n) for n in names}
 
     def recorded(q, keys, vals, layout):
         before = build.LAUNCHES["point_read"]
@@ -456,20 +529,23 @@ def record_reads(build, read_path, read_ops):
             reads.append((q, keys, vals, layout))
         return out
 
-    def recorded_sample(keys, starts, *args, **kw):
-        builds.append((keys, list(starts)))
-        return inner_sample(keys, starts, *args, **kw)
+    def recorder(name, fn):
+        def recorded_sample(*args, **kw):
+            samples.append((name, tuple(list(a) if isinstance(a, list)
+                                        else a for a in args), kw))
+            return fn(*args, **kw)
+        return recorded_sample
 
     read_path._point_read = recorded
-    if inner_sample is not None:
-        read_ops.sample_runs = recorded_sample
+    for n, fn in inner_fns.items():
+        setattr(read_ops, n, recorder(n, fn))
 
     def unwrap():
         read_path._point_read = inner
-        if inner_sample is not None:
-            read_ops.sample_runs = inner_sample
+        for n, fn in inner_fns.items():
+            setattr(read_ops, n, fn)
 
-    return reads, builds, unwrap
+    return reads, samples, unwrap
 
 
 def engine_trees(torch, core, lsm, quickstart, build, merge_ops, read_path,
@@ -544,8 +620,7 @@ def phase_engine(torch, np, core, lsm, quickstart, build, merge_ops,
         "launches": len(reads),
         "entries_runs_batch": [(k.numel(), layout.num_runs, q.numel())
                                for q, k, _, layout in reads],
-        "sample_builds": len(builds),
-        "sample_build_keys": sum(k.numel() for k, _ in builds)}
+        **sample_replay(torch, read_ops, builds)}
     out["device_busy"] = device_busy(torch, lsm, quickstart,
                                      trees["nominal"], keys_of["nominal"])
     out["populate_profile"] = populate_profile(torch, core, lsm, build,
@@ -683,8 +758,8 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
 
 def phase_bloom(torch, np, ops, ref, build):
     """Build the deployment-size plane on the card and probe one read batch
-    through ``ops.bloom_probe``.  Returns the plane, the probe keys and the
-    phase's JSON."""
+    through ``ops.bloom_probe``.  Returns the plane, the probe keys, which
+    of them were inserted, and the phase's JSON."""
     k = BLOOM_HASHES
     n_in = BLOOM_PROBES // 2
     rng = np.random.default_rng(6)
@@ -722,7 +797,7 @@ def phase_bloom(torch, np, ops, ref, build):
           f"bloom_probe: false-positive rate {fp_rate} outside [0.5%, 2%]")
     plane_bytes = plane.numel() * plane.element_size()
     log(f"bloom: plane {plane_bytes / 1e6:.1f} MB, fp rate {fp_rate}")
-    return plane, q, {
+    return plane, q, inserted, {
         "phase": "bloom", "keys": BLOOM_KEYS, "num_blocks": num_blocks,
         "block_bits": BLOOM_BLOCK_BITS, "num_hashes": k,
         "plane_mb": plane_bytes / 1e6,
@@ -736,9 +811,10 @@ def phase_bloom(torch, np, ops, ref, build):
 
 # -- phase 5: each kernel against its plain version ----------------------------
 
-def kernel_dual_solve(torch, core, ops, ref, dev):
-    """The tuner's step-0 lane batch (the Fig. 6 grid, 9,600 lanes), and a
-    ragged batch with rho = 0 lanes."""
+def dual_inputs(torch, core, dev) -> tuple:
+    """The tuner's step-0 lane batch (C, W, rho, log lambda): the Fig. 6
+    grid x ``GRID_RHOS``, CLASSIC, ``N_STARTS`` starts, 9,600 lanes, the
+    cost vectors of seeded starts and a cold solve's log lambda."""
     sys_t = core.LSMSystem()
     W = torch.tensor(core.EXPECTED_WORKLOADS, dtype=torch.float32)
     P = len(W) * len(GRID_RHOS)
@@ -754,23 +830,71 @@ def kernel_dual_solve(torch, core, ops, ref, dev):
     C = core.cost_vector(core.to_phi_policy(theta, pol, sys_t), sys_t,
                          smooth=True)
     _, llam = core.dual_solve_cold(C, W_l, rho)
+    return C, W_l, rho, llam
+
+
+def dual_times(torch, ops, ref, C, W, rho, llam) -> dict:
+    """The no-grad solve's times on the card, through the call every
+    version of the port's wrapper takes (so ``--dual-solve`` times another
+    tree's): CUDA-event ms per call, the kernel's device ms (``device_ms``)
+    and the plain version's ms; and the share of lanes whose value and
+    log lambda equal the plain version's bit for bit."""
+    call = lambda: ops.dual_solve_warm_batch(C, W, rho, llam)  # noqa: E731
+    v1, l1 = call()
+    v2, l2 = ref.dual_solve_warm_ref(C, W, rho, llam)
+    same = (v1 == v2) & (l1 == l2)
+    return {"L": C.shape[0], "n": C.shape[1],
+            "ms": time_ms(torch, call, 200),
+            "device_ms": device_ms(torch, call, 50, CUDA_NAMES["dual_solve"]),
+            "plain_ms": time_ms(torch, lambda: ref.dual_solve_warm_ref(
+                C, W, rho, llam), 20),
+            "bit_equal_lane_share": same.float().mean().item()}
+
+
+def kernel_dual_solve(torch, core, ops, ref, dev):
+    """The tuner's step-0 lane batch (``dual_inputs``, 9,600 lanes), and a
+    ragged batch with rho = 0 lanes: values to rel 1e-5, 99% of log lambda
+    within 1e-5, and the envelope gradient ``dc`` the kernel writes to rel
+    1e-5; the share of lanes bit-equal to the plain version; the no-grad
+    call timed (``dual_times``) and the tuner's call, with ``dc``, by its
+    device ms."""
+    C, W_l, rho, llam = dual_inputs(torch, core, dev)
     rows = []
     m = min(1237, C.shape[0])                  # ragged: not a block multiple
     rho_m = torch.where(torch.arange(m, device=dev) % 7 == 0, 0.0, rho[:m])
     for C_, W_, r_, l_ in ((C, W_l, rho, llam),
                            (C[:m], W_l[:m], rho_m, llam[:m])):
-        v1, l1 = ops.dual_solve_warm_batch(C_, W_, r_, l_)
-        v2, l2 = ref.dual_solve_warm_ref(C_, W_, r_, l_)
+        v1, l1, dc1 = ops.dual_solve_warm_batch(C_, W_, r_, l_, grad=True)
+        v2, l2, dc2 = ref.dual_solve_warm_ref(C_, W_, r_, l_, grad=True)
         rel = ((v1 - v2).abs() / v2.abs()).max().item()
         dl = (l1 - l2).abs()
         frac = (dl <= 1e-5).float().mean().item()
+        # dc is the envelope gradient at the kernel's own lambda: held
+        # against the plain formula there (a lane whose golden compare
+        # flipped has its gradient at another lambda than the plain
+        # version's), and against the plain dc where the lambdas agree
+        def rel_err(a, b):
+            d = (a - b).abs()
+            return torch.where(d == 0, 0.0, d / b.abs()).max().item()
+
+        dc_at = ref.envelope_grad(C_, W_, r_, l1)
+        dc_rel = rel_err(dc1, dc_at)
+        same_l = l1 == l2
+        dc_plain_rel = rel_err(dc1[same_l], dc2[same_l])
         check(rel <= 1e-5, f"dual_solve value rel {rel} > 1e-5")
         check(frac >= 0.99 and dl.max().item() <= 0.1,
               f"dual_solve log lambda: {frac} within 1e-5, max {dl.max()}")
+        check(dc_rel <= 1e-5 and dc_plain_rel <= 1e-5,
+              f"dual_solve dc rel {dc_rel} (at the kernel's lambda), "
+              f"{dc_plain_rel} (the plain dc, lambdas equal) > 1e-5")
         rows.append({"L": C_.shape[0], "val_max_rel": rel,
                      "val_max_abs": (v1 - v2).abs().max().item(),
                      "llam_frac_within_1e-5": frac,
-                     "llam_max_abs": dl.max().item()})
+                     "llam_max_abs": dl.max().item(),
+                     "bit_equal_lane_share": ((v1 == v2) & (l1 == l2))
+                     .float().mean().item(),
+                     "dc_max_rel": dc_rel, "dc_plain_max_rel": dc_plain_rel,
+                     "dc_max_abs": (dc1 - dc_at).abs().max().item()})
     L, n = C.shape
     evals = 3 + 2 + 6 + 1                       # g-evaluations per lane
     ops_per_g = 6 * n + 6                       # exp, div, add, max, sub, ...
@@ -778,12 +902,11 @@ def kernel_dual_solve(torch, core, ops, ref, dev):
             "source": "src/repro_torch/csrc/dual_solve.cu",
             "replaces": "src/repro/kernels/dual_solve/kernel.py:93",
             "max_abs_err": max(r["val_max_abs"] for r in rows),
-            "ms": time_ms(torch, lambda: ops.dual_solve_warm_batch(
-                C, W_l, rho, llam), 200),
-            "device_ms": device_ms(torch, lambda: ops.dual_solve_warm_batch(
-                C, W_l, rho, llam), 50, CUDA_NAMES["dual_solve"]),
-            "plain_ms": time_ms(torch, lambda: ref.dual_solve_warm_ref(
-                C, W_l, rho, llam), 20),
+            **dual_times(torch, ops, ref, C, W_l, rho, llam),
+            "grad_device_ms": device_ms(
+                torch, lambda: ops.dual_solve_warm_batch(
+                    C, W_l, rho, llam, grad=True), 50,
+                CUDA_NAMES["dual_solve"]),
             "library_ms": None,
             **bound(L * (2 * n + 2 + 2) * 4, L * evals * ops_per_g),
             "checks": rows}
@@ -1111,22 +1234,44 @@ def read_path_replay(torch, np, ops, reads) -> dict:
             "path_loss_ms": path_ms - bound_ms}
 
 
-def sample_replay(torch, ops, builds) -> dict:
-    """The samples the engine path built (``ops.sample_runs``, on each
-    pack of a changed level), rebuilt in one trace: their count, entries
-    and summed device time (every device activity: the strided copies).
-    Nothing for a tree without samples."""
-    if not builds or not hasattr(ops, "sample_runs"):
-        return {"sample_builds": 0}
-    out = [ops.sample_runs(keys, starts) for keys, starts in builds]
-    wall, events = cuda_events(torch, lambda: [
-        ops.sample_runs(keys, starts) for keys, starts in builds])
+def sample_replay(torch, ops, samples) -> dict:
+    """The sample work the engine path did (``record_reads``), replayed
+    on its recorded arguments in a trace each: the builds (``run_sample``
+    of a new run, or an older tree's ``sample_runs`` of a whole level),
+    their count, the arena keys they read, the entries they made and
+    their summed device time (every device activity: strided copies, pads
+    and concatenations); then the packs of a layout (``pack_samples``),
+    their count and device time; and the two times' sum."""
+    builds = [c for c in samples if c[0] != "pack_samples"]
+    packs = [c for c in samples if c[0] == "pack_samples"]
+
+    def run(calls):
+        return [getattr(ops, n)(*args, **kw) for n, args, kw in calls]
+
+    def traced(calls, tries=3):
+        if not calls:
+            return 0.0, 0.0, 0
+        wall, events = cuda_events(torch, lambda: run(calls), tries=tries)
+        return sum(us for _, us in events) / 1e3, wall * 1e3, len(events)
+
+    made = run(builds)
+    build_ms, build_wall, build_acts = traced(builds)
+    # a layout of one run's sample is views of it, launching nothing:
+    # one trace, not three
+    pack_ms, pack_wall, pack_acts = traced(packs, tries=1)
     return {"sample_builds": len(builds),
-            "sample_build_keys": sum(k.numel() for k, _ in builds),
-            "sample_build_entries": sum(o["sample"].numel() + o["top"].numel()
-                                        for o in out),
-            "sample_build_device_ms": sum(us for _, us in events) / 1e3,
-            "sample_build_wall_ms": wall * 1e3}
+            "sample_build_keys": sum(args[0].numel() for _, args, _ in
+                                     builds),
+            "sample_build_entries": sum(
+                o.numel() if torch.is_tensor(o)
+                else o["sample"].numel() + o["top"].numel() for o in made),
+            "sample_build_device_ms": build_ms,
+            "sample_build_activities": build_acts,
+            "sample_build_wall_ms": build_wall,
+            "sample_packs": len(packs), "sample_pack_device_ms": pack_ms,
+            "sample_pack_activities": pack_acts,
+            "sample_pack_wall_ms": pack_wall,
+            "sample_device_ms": build_ms + pack_ms}
 
 
 def point_read_main(torch, np) -> int:
@@ -1364,9 +1509,10 @@ def kernel_rwkv6(torch, configs, ops, ref, build, dev, arch):
     return out
 
 
-def kernel_bloom_probe(torch, ops, ref, plane, q, dev):
+def kernel_bloom_probe(torch, ops, ref, plane, q, inserted):
     """The bloom phase's 1 M-key batch against its 400 MB plane, and
-    ragged batches of 1 and 1,001 keys, bit for bit."""
+    ragged batches of 1 and 1,001 keys, bit for bit; the plane floats the
+    kernel read a key, present and absent (``bloom_loads``)."""
     k = BLOOM_HASHES
     rows = []
     for n in (1, 1001, q.numel()):
@@ -1380,14 +1526,16 @@ def kernel_bloom_probe(torch, ops, ref, plane, q, dev):
     N = q.numel()
     call = lambda: ops.bloom_probe_kernel(q, plane, num_hashes=k)  # noqa: E731
     # least bytes: a 4-byte key in (the function's uint32; the port's int64
-    # reads 8), a 4-byte result out, k 4-byte plane floats.  A gather really
-    # pays a 32-byte sector per float from a plane 8x the L2, about 6.5x
-    # these bytes at k = 7; PERF.md sets that against the measured time.
-    # Operations: k + 1 mix32s of 10 integer ops and a `%` counted as one,
-    # priced at the float32 rate.  That is a loose lower figure (a 32-bit
-    # `%` by a runtime divisor takes tens of instructions, and the INT32
-    # rate is about half the float32 one) which never binds here: even at
-    # 30 ops a hash and half the rate it is 0.0072 ms, under the bytes.
+    # reads 8), a 4-byte result out, and the 4-byte plane floats this run's
+    # keys need: each key's floats up to its first zero (all k for a key
+    # that passes), since the product is 0 from there on the 0/1 plane.  A
+    # gather really pays a 32-byte sector (or more) per float from a plane
+    # 8x the L2; PERF.md sets that against the measured time.  Operations:
+    # a mix32 of 10 integer ops and a `%` counted as one for the block and
+    # each float read, priced at the float32 rate: a loose lower figure (a
+    # 32-bit `%` by a runtime divisor takes tens of instructions, and the
+    # INT32 rate is about half the float32 one) which never binds here.
+    needed = int(ref.probe_loads_ref(q, plane, k, 1, 1).sum())
     return {"name": "bloom_probe", "route": "cuda",
             "source": "src/repro_torch/csrc/bloom_probe.cu",
             "replaces": "src/repro/kernels/bloom_probe/kernel.py:63",
@@ -1396,8 +1544,139 @@ def kernel_bloom_probe(torch, ops, ref, plane, q, dev):
             "device_ms": device_ms(torch, call, 20, CUDA_NAMES["bloom_probe"]),
             "plain_ms": time_ms(torch, lambda: ref.probe_ref(q, plane, k),
                                 10),
-            "library_ms": None,
-            **bound(N * (4 + 4 + 4 * k), N * (k + 1) * 11), "checks": rows}
+            "library_ms": None, "needed_floats": needed,
+            **bound(N * (4 + 4) + 4 * needed, (N + needed) * 11),
+            "all_k_bound_ms": bound(N * (4 + 4 + 4 * k),
+                                    N * (k + 1) * 11)["bound_ms"],
+            **bloom_loads(torch, ops, ref, plane, q, inserted, k),
+            "checks": rows}
+
+
+def bloom_loads(torch, ops, ref, plane, q, inserted, k) -> dict:
+    """The plane floats the launched design reads a key, as the kernel
+    counts them (``ops.bloom_probe_loads``), for the inserted and the
+    absent keys; the count must be ``ref.probe_loads_ref``'s and the
+    membership the plain version's.  Nothing for a tree without it."""
+    if not hasattr(ops, "bloom_probe_loads"):
+        return {}
+    member, loads = ops.bloom_probe_loads(q, plane, k)
+    check(torch.equal(member, ref.probe_ref(q, plane, k)),
+          "bloom_probe_loads: kernel != plain")
+    design = ops.DESIGN
+    check(torch.equal(loads, ref.probe_loads_ref(q, plane, k, design.first,
+                                                 design.step)),
+          "bloom_probe_loads: the kernel's count != probe_loads_ref's")
+    absent = loads[~inserted].float()
+    return {"design": design._asdict(),
+            "loads_per_present_key": loads[inserted].float().mean().item(),
+            "loads_per_absent_key": absent.mean().item(),
+            "loads_per_key": loads.float().mean().item(),
+            "loads_total": int(loads.sum())}
+
+
+def sector_probe(torch, plane, n=2 ** 22, chunk=2048) -> dict:
+    """What one random 4-byte read of the plane costs in HBM traffic,
+    from three gathers (``index_select``) of ``n`` random 64-byte segments
+    of the plane: ``one``, a float of each segment's first 32-byte sector
+    (n reads); ``pair``, that float and one of the segment's second sector,
+    read ``chunk`` outputs apart (2n reads in separate requests, the
+    second soon after the first, while the segment is still in the L2);
+    ``apart``, that float and one of another random segment (2n).  If an
+    L2 miss fetches 64 bytes from HBM, ``pair`` costs about what ``one``
+    does; if it fetches 32, about what ``apart`` does.  Device ms each."""
+    flat = plane.view(-1)
+    dev = plane.device
+    g = torch.Generator(device=dev).manual_seed(8)
+    segs = flat.numel() // 16
+    a = torch.randint(0, segs, (n,), generator=g, device=dev) * 16
+    b = torch.randint(0, segs, (n,), generator=g, device=dev) * 16
+
+    def split(x, y):
+        """x and y in alternating runs of ``chunk``."""
+        return torch.stack([x.view(-1, chunk), y.view(-1, chunk)],
+                           1).reshape(-1)
+
+    idx = {"one": a, "pair": split(a, a + 8), "apart": split(a, b)}
+    out = {f"{name}_ms": device_ms(torch, lambda i=i: flat.index_select(0, i),
+                                   10, "")
+           for name, i in idx.items()}
+    out["segments"] = n
+    out["pair_over_one"] = out["pair_ms"] / out["one_ms"]
+    out["apart_over_one"] = out["apart_ms"] / out["one_ms"]
+    return out
+
+
+def bloom_main(torch, np) -> int:
+    """``--bloom``: the bloom phase's plane and 1 M probe keys on the
+    ``repro_torch`` under ``--src``; the launched design's device ms and
+    loads a key, then, where the tree has them, every compiled design's
+    device ms and loads (``ops.DESIGNS``), and ``sector_probe``; one JSON
+    line, then the card's name and power limit."""
+    from repro_torch.kernels import _build as build
+    from repro_torch.kernels.bloom_probe import ops, ref
+    src = str(Path(ops.__file__).parents[3])
+    log(f"bloom only, {src}")
+    build.build(["bloom_probe"])
+    plane, q, inserted, phase = phase_bloom(torch, np, ops, ref, build)
+    k = BLOOM_HASHES
+    name = CUDA_NAMES["bloom_probe"]
+    call = lambda: ops.bloom_probe_kernel(q, plane, num_hashes=k)  # noqa: E731
+    out = {"phase": "bloom_turn", "src": src,
+           "false_positive_rate": phase["false_positive_rate"],
+           "ms": time_ms(torch, call, 50),
+           "device_ms": device_ms(torch, call, 20, name)}
+    if hasattr(ops, "DESIGNS"):
+        out.update(bloom_loads(torch, ops, ref, plane, q, inserted, k))
+        designs = []
+        for d in ops.DESIGNS:
+            member, loads = ops.bloom_probe_loads(q, plane, k, d)
+            check(torch.equal(member, ref.probe_ref(q, plane, k)),
+                  f"bloom_probe {d}: kernel != plain")
+            designs.append({**d._asdict(), "device_ms": device_ms(
+                torch, lambda d=d: ops.bloom_probe_kernel(q, plane, k, d),
+                20, name), "loads_per_key": loads.float().mean().item()})
+        out["designs"] = designs
+        out["sector_probe"] = sector_probe(torch, plane)
+    emit(out)
+    print(gpu_line(), flush=True)
+    return 0
+
+
+def dual_solve_main(torch, np) -> int:
+    """``--dual-solve``: the dual solve on the ``repro_torch`` under
+    ``--src``: ``dual_times`` on the tuner's 9,600 lanes, the card's
+    launch floor, a robust Adam step (``adam_step_profile``) and the
+    robust sweep's steady wall time; one JSON line, then the card's name
+    and power limit."""
+    import repro_torch.core as core
+    from repro_torch.kernels import _build as build
+    from repro_torch.kernels.dual_solve import ops, ref
+    src = str(Path(ops.__file__).parents[3])
+    log(f"dual_solve only, {src}")
+    build.build(["dual_solve"])
+    W = core.EXPECTED_WORKLOADS.astype("float32")
+    sweeps = []
+    for _ in range(2):
+        t0 = time.time()
+        core.tune_robust_many(W, GRID_RHOS, core.LSMSystem(),
+                              n_starts=N_STARTS, steps=STEPS, device=DEVICE)
+        torch.cuda.synchronize()
+        sweeps.append(time.time() - t0)
+    args = dual_inputs(torch, core, DEVICE)
+    name = CUDA_NAMES["dual_solve"]
+    # device ms by chain length: n_golden dependent evaluations after the
+    # scan and (a0, b0), with one scan point and with the three
+    chain = {f"n_local_{nl}_n_golden_{ng}": device_ms(
+        torch, lambda nl=nl, ng=ng: ops.dual_solve_warm_batch(
+            *args, 0.8, nl, ng), 50, name)
+        for nl in (1, 3) for ng in (0, 3, 6, 12)}
+    emit({"phase": "dual_solve", "src": src,
+          **dual_times(torch, ops, ref, *args), "chain_device_ms": chain,
+          "launch_floor_ms": launch_floor_ms(torch),
+          "adam_step": adam_step_profile(torch, core),
+          "robust_sweep_first_s": sweeps[0], "robust_sweep_s": sweeps[1]})
+    print(gpu_line(), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -1409,10 +1688,17 @@ def main(argv=None) -> int:
                     help="time only the point read, as the kernels phase "
                     "does, with the engine path's launches replayed, and "
                     "exit")
+    ap.add_argument("--dual-solve", action="store_true",
+                    help="time only the dual solve and a robust Adam step, "
+                    "and exit")
+    ap.add_argument("--bloom", action="store_true",
+                    help="time only the Bloom probe on the bloom phase's "
+                    "plane (every compiled design, where the tree has "
+                    "them), and exit")
     ap.add_argument("--src", default=str(SRC),
-                    help="with --merge or --point-read: the src directory "
-                    "whose repro_torch to time (another tree's, to compare "
-                    "two in one run)")
+                    help="with --merge, --point-read, --dual-solve or "
+                    "--bloom: the src directory whose repro_torch to time "
+                    "(another tree's, to compare two in one run)")
     ap.add_argument("--sizes", help="with --merge: also replay the engine "
                     "path's merges at the sizes this file holds (a JSON "
                     "list of (na, nb), or a whole run's output)")
@@ -1433,6 +1719,10 @@ def main(argv=None) -> int:
         return merge_main(torch, np, args.sizes)
     if args.point_read:
         return point_read_main(torch, np)
+    if args.dual_solve:
+        return dual_solve_main(torch, np)
+    if args.bloom:
+        return bloom_main(torch, np)
     import repro_torch.core as core
     import repro_torch.lsm as lsm
     from repro_torch import quickstart
@@ -1491,8 +1781,8 @@ def main(argv=None) -> int:
         launches[f"{kernel}:f32_cuda_core"] = \
             served["f32_check"]["f32_kernel_launches"]
     arch_of = {kernel: arch for arch, kernel in SERVE}
-    plane, bloom_q, bloom = phase_bloom(torch, np, bloom_ops, bloom_ref,
-                                        build)
+    plane, bloom_q, bloom_in, bloom = phase_bloom(torch, np, bloom_ops,
+                                                  bloom_ref, build)
     emit(bloom)
     launches["bloom_probe"] = bloom["launches"]
 
@@ -1507,9 +1797,10 @@ def main(argv=None) -> int:
                                dev, arch_of["flash_attention"]),
         *kernel_rwkv6(torch, configs, rwkv_ops, rwkv_ref, build, dev,
                       arch_of["rwkv6"]),
-        kernel_bloom_probe(torch, bloom_ops, bloom_ref, plane, bloom_q, dev),
+        kernel_bloom_probe(torch, bloom_ops, bloom_ref, plane, bloom_q,
+                           bloom_in),
     ]
-    del plane, bloom_q, reads, builds
+    del plane, bloom_q, bloom_in, reads, builds
     for k in kernels:
         k["launches"] = launches[k["name"]]
     emit({"phase": "kernels", "launch_floor_ms": launch_floor_ms(torch),

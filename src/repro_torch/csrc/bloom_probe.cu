@@ -1,4 +1,4 @@
-// Blocked-Bloom membership probe, one thread per key.
+// Blocked-Bloom membership probe: each key stops at its first zero bit.
 //
 // Replaces: src/repro/kernels/bloom_probe/kernel.py:63 bloom_probe_kernel
 // (the Pallas tile body _probe_kernel at :39, the hash _mix32 at :31).
@@ -7,35 +7,49 @@
 //   block = mix32(key, 1) % num_blocks
 //   bit_j = mix32(key, j + 2) % block_bits,       j = 0..k-1
 //   out   = 1 * plane[block][bit_0] * ... * plane[block][bit_{k-1}]
-// in uint32 arithmetic (mix32 wraps mod 2^32) and that product order, as
-// the Pallas kernel and the plain version (kernels/bloom_probe/ref.py) do.
+// in uint32 arithmetic (mix32 wraps mod 2^32), as the Pallas kernel and the
+// plain version (kernels/bloom_probe/ref.py) do.
 //
 // Translation: the Pallas kernel keeps the whole plane in VMEM and fetches
 // a key's row as a one-hot matmul on the MXU, because the TPU has no
-// scalar gather.  Here the plane stays in HBM and each thread gathers its
-// k floats directly, at a 64-bit index (block * block_bits + bit), so a
-// plane of 2^31 floats or more is read right.  Keys are the port's int64
-// form; the thread hashes their low 32 bits.  Any N: the last block masks
-// the ragged edge, with no padding to 128.
+// scalar gather.  Here the plane stays in HBM and each thread gathers the
+// floats it needs directly, at a 64-bit index (block * block_bits + bit),
+// so a plane of 2^31 floats or more is read right.  Keys are the port's
+// int64 form; the thread hashes their low 32 bits.  Any N: the last block
+// masks the ragged edge.
 //
-// All k values are read, with no stop at the first zero bit: the k loads
-// do not depend on each other, so a thread has them in flight at once,
-// and the product is the plain version's for any plane, not only a 0/1
-// one.  (Stopping at the first zero would give the same result on a 0/1
-// plane and read fewer floats for keys that are absent, but would make
-// the loads wait on each other.)
+// What bounds it on the H100: sector traffic and memory latency.  A key
+// moves 4 bytes of key (8 as the port's int64), 4 bytes of result and up to
+// k * 4 bytes of plane, but every plane load lands in its own 32-byte
+// sector of a plane that, at the 10 M-key deployment size (400 MB), is 8x
+// the 50 MB L2.
 //
-// What bounds it on the H100: memory latency and sector traffic.  A key
-// moves 4 bytes of key (8 as the port's int64), 4 bytes of result and
-// k * 4 bytes of plane, but every probe lands in its own 32-byte sector of
-// a plane that, at the 10 M-key deployment size (400 MB), is 8x the 50 MB
-// L2: the card moves k * 32 bytes of plane per key, about 6.5x the bytes
-// bound at k = 7 (236 bytes of traffic per key against 36).
+// The design cuts the sectors.  A key stops at its first zero bit: on the
+// contract's 0/1 plane (what build_plane makes, and what the JAX kernel's
+// docstring asks for), a key whose j-th float is 0 has the product +0.0
+// whatever comes after, so the result is the plain version's bit for bit.
+// (On a plane of other values it would not be: the product would skip the
+// factors after a zero.)  At the deployment's fill of ~0.5 an absent key
+// reads ~2 floats, not k = 7.  Stopping makes a key's loads wait on each
+// other.  The kernel compiles designs that differ in how it waits: KPT
+// keys a thread (coalesced: key t of a thread is base + t * kThreads),
+// whose loads of a round issue together; FIRST floats a key in the first
+// round and up to STEP in each later one; an evict-first L2 policy on the
+// plane's loads or none.  Keys go through the read-only path and results
+// are streaming stores.  chip_smoke.py --bloom times them against each
+// other, and kernels/bloom_probe/ops.py::DESIGN names the one the wrapper
+// launches: on the H100, one key a thread and one float a round, with no
+// L2 policy (a 1 M-key batch holds enough threads to overlap the waits;
+// more keys a thread, wider rounds and the policy each measured slower;
+// PERF.md).  With `loads`, each key's count of plane floats read is
+// written too.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x, uint32_t seed) {
   x += seed * 0x9E3779B9u;
@@ -44,36 +58,160 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x, uint32_t seed) {
   return x ^ (x >> 16);
 }
 
-__global__ void bloom_probe_kernel(const long long* __restrict__ keys,
-                                   long long n,
-                                   const float* __restrict__ plane,
-                                   uint32_t num_blocks, uint32_t block_bits,
-                                   int k, float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t key = (uint32_t)keys[i];
-  const float* row =
-      plane + (uint64_t)(mix32(key, 1u) % num_blocks) * block_bits;
-  float member = 1.0f;
-#pragma unroll 8
-  for (int j = 0; j < k; ++j) {
-    member *= __ldg(row + mix32(key, (uint32_t)(j + 2)) % block_bits);
+template <bool EVICT_FIRST>
+__device__ __forceinline__ float load_plane(const float* p, uint64_t pol) {
+  if (!EVICT_FIRST) return __ldg(p);
+  float v;
+  asm volatile("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
+               : "=f"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+// One round of loads: up to G floats of each live key from bit j on,
+// issued together, then multiplied in j order.
+template <int KPT, int G, bool EVICT_FIRST>
+__device__ __forceinline__ void round_of(const uint32_t (&key)[KPT],
+                                         const float* const (&row)[KPT],
+                                         float (&m)[KPT], int (&cnt)[KPT],
+                                         int j, int k, uint32_t block_bits,
+                                         uint64_t pol) {
+  float v[KPT][G];
+#pragma unroll
+  for (int t = 0; t < KPT; ++t) {
+    const bool live = m[t] != 0.0f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      v[t][g] = 1.0f;
+      if (live && j + g < k) {
+        v[t][g] = load_plane<EVICT_FIRST>(
+            row[t] + mix32(key[t], (uint32_t)(j + g + 2)) % block_bits, pol);
+        ++cnt[t];
+      }
+    }
   }
-  out[i] = member;
+#pragma unroll
+  for (int t = 0; t < KPT; ++t) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) m[t] *= v[t][g];
+  }
+}
+
+template <int KPT, int FIRST, int STEP, bool EVICT_FIRST>
+__global__ void __launch_bounds__(kThreads) bloom_probe_kernel(
+    const long long* __restrict__ keys, long long n,
+    const float* __restrict__ plane, uint32_t num_blocks,
+    uint32_t block_bits, int k, float* __restrict__ out,
+    int* __restrict__ loads) {
+  const long long base =
+      (long long)blockIdx.x * (kThreads * KPT) + threadIdx.x;
+  uint64_t pol = 0;
+  if (EVICT_FIRST)
+    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
+  uint32_t key[KPT];
+  const float* row[KPT];
+  float m[KPT];
+  int cnt[KPT];
+#pragma unroll
+  for (int t = 0; t < KPT; ++t) {
+    const long long i = base + (long long)t * kThreads;
+    key[t] = i < n ? (uint32_t)__ldg(keys + i) : 0u;
+    row[t] = plane + (uint64_t)(mix32(key[t], 1u) % num_blocks) * block_bits;
+    m[t] = i < n ? 1.0f : 0.0f;
+    cnt[t] = 0;
+  }
+  round_of<KPT, FIRST, EVICT_FIRST>(key, row, m, cnt, 0, k, block_bits, pol);
+  for (int j = FIRST; j < k; j += STEP) {
+    bool live = false;
+#pragma unroll
+    for (int t = 0; t < KPT; ++t) live |= m[t] != 0.0f;
+    if (!live) break;
+    round_of<KPT, STEP, EVICT_FIRST>(key, row, m, cnt, j, k, block_bits,
+                                     pol);
+  }
+#pragma unroll
+  for (int t = 0; t < KPT; ++t) {
+    const long long i = base + (long long)t * kThreads;
+    if (i < n) {
+      __stcs(out + i, m[t]);
+      if (loads != nullptr) loads[i] = cnt[t];
+    }
+  }
+}
+
+template <int KPT, int FIRST, int STEP, bool EVICT_FIRST>
+void launch(const long long* keys, long long n, const float* plane,
+            uint32_t num_blocks, uint32_t block_bits, int k, float* out,
+            int* loads, cudaStream_t stream) {
+  const long long per_block = (long long)kThreads * KPT;
+  const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
+  bloom_probe_kernel<KPT, FIRST, STEP, EVICT_FIRST>
+      <<<blocks, kThreads, 0, stream>>>(keys, n, plane, num_blocks,
+                                        block_bits, k, out, loads);
+}
+
+template <int KPT, bool EVICT_FIRST>
+bool launch_rounds(int first, int step, const long long* keys, long long n,
+                   const float* plane, uint32_t num_blocks,
+                   uint32_t block_bits, int k, float* out, int* loads,
+                   cudaStream_t stream) {
+#define BLOOM_ROUNDS(F, S)                                                  \
+  if (first == F && step == S) {                                            \
+    launch<KPT, F, S, EVICT_FIRST>(keys, n, plane, num_blocks, block_bits, \
+                                   k, out, loads, stream);                  \
+    return true;                                                            \
+  }
+  BLOOM_ROUNDS(1, 1)   // one float at a time
+  BLOOM_ROUNDS(1, 8)   // 1, then the rest (k <= 9) together
+  BLOOM_ROUNDS(2, 8)   // 2, then the rest together
+  BLOOM_ROUNDS(8, 8)   // all of k <= 8 together: no stop at k = 7
+#undef BLOOM_ROUNDS
+  return false;
+}
+
+template <bool EVICT_FIRST>
+bool launch_keys(int kpt, int first, int step, const long long* keys,
+                 long long n, const float* plane, uint32_t num_blocks,
+                 uint32_t block_bits, int k, float* out, int* loads,
+                 cudaStream_t stream) {
+  switch (kpt) {
+    case 1:
+      return launch_rounds<1, EVICT_FIRST>(first, step, keys, n, plane,
+                                           num_blocks, block_bits, k, out,
+                                           loads, stream);
+    case 2:
+      return launch_rounds<2, EVICT_FIRST>(first, step, keys, n, plane,
+                                           num_blocks, block_bits, k, out,
+                                           loads, stream);
+    case 4:
+      return launch_rounds<4, EVICT_FIRST>(first, step, keys, n, plane,
+                                           num_blocks, block_bits, k, out,
+                                           loads, stream);
+    default:
+      return false;
+  }
 }
 
 }  // namespace
 
-// num_blocks and block_bits lie in [1, 2^32): the wrapper checks.
+// num_blocks and block_bits lie in [1, 2^32): the wrapper checks.  loads
+// may be null.  (keys_per_thread, first, step, evict_first) names one of
+// the compiled designs; any other returns cudaErrorInvalidValue.
 extern "C" int bloom_probe_launch(const long long* keys, long long n,
                                   const float* plane, long long num_blocks,
                                   long long block_bits, int k, float* out,
+                                  int* loads, int keys_per_thread, int first,
+                                  int step, int evict_first,
                                   cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  bloom_probe_kernel<<<blocks, threads, 0, stream>>>(
-      keys, n, plane, (uint32_t)num_blocks, (uint32_t)block_bits, k, out);
+  const bool ok =
+      evict_first
+          ? launch_keys<true>(keys_per_thread, first, step, keys, n, plane,
+                              (uint32_t)num_blocks, (uint32_t)block_bits, k,
+                              out, loads, stream)
+          : launch_keys<false>(keys_per_thread, first, step, keys, n, plane,
+                               (uint32_t)num_blocks, (uint32_t)block_bits, k,
+                               out, loads, stream);
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

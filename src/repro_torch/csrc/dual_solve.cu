@@ -1,4 +1,4 @@
-// Warm-started KL-dual solve, one thread per lane.
+// Warm-started KL-dual solve, a group of threads per lane.
 //
 // Replaces: src/repro/kernels/dual_solve/kernel.py:93 dual_solve_warm_kernel
 // (the Pallas tile body _dual_solve_tile at :41).
@@ -7,19 +7,43 @@
 // log lam +- half_width, the bracket around the smallest value (first index
 // on ties), n_golden cached-point golden-section iterations, the clip of the
 // bracket midpoint to log(span) +- 16, and g at that point (w.c when
-// rho <= 0).  The op order is the Pallas tile's, written out per lane:
-// the same hand-written LSE (m + log sum exp(x - m)), the same selects.
+// rho <= 0).  The op order is the Pallas tile's, written out per lane: the
+// same hand-written LSE (m + log sum exp(x - m)), the same selects.  When
+// the caller passes `dc`, the kernel also writes the envelope gradient
+// d value / d c = softmax(log w + c / lam) at the returned lambda (w where
+// rho <= 0), from the terms of its last g: the tuner's backward is then one
+// multiply.
 //
 // What bounds it on the H100: neither bytes nor operations.  A lane reads
-// 2n+2 floats and writes 2; at the tuner's L = 9,600 lanes that is ~0.4 MB,
-// about 0.1 us at 3.35 TB/s, and 12 g-evaluations of ~5n transcendentals
-// each, ~2.3 M in all.  One launch is below the card's launch floor of a few
-// microseconds, so the launch itself bounds it.
+// 2n+2 floats and writes 2 (n more with dc); at the tuner's L = 9,600 lanes
+// that is ~0.4 MB, about 0.1 us at 3.35 TB/s, and 12 g-evaluations of ~5n
+// transcendentals each.  Above the launch floor, the time is the latency of
+// a lane's chain of dependent evaluations.
 //
-// The simple design: one thread per lane, everything in registers (n is a
-// template bound of 4 for the tuner's cost vectors), 128 threads per block,
-// no shared memory, no synchronisation.  Nothing to tile: lanes are
-// independent and each thread's working set is a few dozen registers.
+// The design: a group of G threads a lane (kGroupSmall = 4 threads for
+// n <= 4, the tuner's cost vectors, and kGroupLarge = 16 for n <= 16), 128
+// threads a block, so the tuner's 9,600 lanes x 4 make 300 blocks, two to
+// three an SM.  Thread i of a group holds component i's c, log w and w.
+// An evaluation forms x_i = log w_i + c_i / lam (a true division) and
+// exp(x_i - m) on each thread; the max comes by butterfly shuffles within
+// the group (exact in any order) and the sum by gathering the n terms on
+// every thread and adding them in index order, as the one-thread design
+// did: the golden section's compares flip on a 1-ulp difference, so the
+// order of the sum is kept.  Every thread of a group then holds the same g
+// and takes the same branch.  Evaluations that do not depend on each other
+// run side by side, interleaved in one pass: the scan's points (3 at a
+// time), then a0 and b0, then each golden step's new point beside the two
+// points the next step may need (one for each outcome of the compare that
+// waits on it: the pass resolves two steps).  The last step's new point is
+// never read (the returned bracket is fixed by its compare), so its pass
+// holds the final g at each outcome's lambda instead.  At n_golden = 6 the
+// chain is scan, (a0, b0) and three passes of 3: 5 passes where the
+// one-thread design had 12 evaluations in a row.  Each g is the one-thread
+// design's, op for op (built without FMA contraction or fast math), at the
+// same points, so on every lane the value and log lambda are bit for bit
+// those of the one-thread design.  A group never straddles a warp's half (G
+// divides 16), and every shuffle names only its group's threads, so a warp
+// whose last groups lie past L (they return at once) does not wait on them.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -27,33 +51,114 @@
 namespace {
 
 constexpr float kGR = 0.6180339887498949f;   // golden ratio conjugate
+constexpr int kGroupSmall = 4;               // threads a lane, n <= 4
+constexpr int kGroupLarge = 16;              // threads a lane, n <= 16
+constexpr int kThreads = 128;
+constexpr int kScanWidth = 3;                // scan points evaluated at once
 
-template <int NMAX>
-struct Lane {
-  float c[NMAX];
-  float logw[NMAX];
+// One lane's component, held by one thread of its group.
+template <int G>
+struct Part {
+  float c, logw, w;
+  bool on;          // this thread's component exists (sub < n)
   int n;
   float rho;
+  unsigned mask;    // the group's threads in the warp
 
-  __device__ float g(float ll) const {
-    const float lam = fmaxf(expf(ll), 1e-12f);
-    float x[NMAX];
-    float m = -INFINITY;
+  // g at each of the K log lambdas in ll, side by side; every thread of the
+  // group returns the same K values.  With e, also each lambda's
+  // exp(x_i - m) and the sum of the terms (for the envelope gradient).
+  template <int K>
+  __device__ void g(const float (&ll)[K], float (&out)[K],
+                    float (*e_out)[K] = nullptr,
+                    float (*s_out)[K] = nullptr) const {
+    float lam[K], x[K], m[K], e[K], s[K];
 #pragma unroll
-    for (int i = 0; i < NMAX; ++i) {
-      if (i < n) {
-        x[i] = logw[i] + c[i] / lam;
-        m = fmaxf(m, x[i]);
+    for (int k = 0; k < K; ++k) {
+      lam[k] = fmaxf(expf(ll[k]), 1e-12f);
+      x[k] = on ? logw + c / lam[k] : -INFINITY;
+      m[k] = x[k];
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        m[k] = fmaxf(m[k], __shfl_xor_sync(mask, m[k], off, G));
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      e[k] = expf(x[k] - m[k]);
+      s[k] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float t = __shfl_sync(mask, e[k], i, G);
+        if (i < n) s[k] += t;
       }
     }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      out[k] = rho * lam[k] + lam[k] * (m[k] + logf(s[k]));
+    if (e_out != nullptr) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        (*e_out)[k] = e[k];
+        (*s_out)[k] = s[k];
+      }
+    }
+  }
+
+  // The sum over the group of v_i, in index order from 0.
+  __device__ float sum_in_order(float v) const {
     float s = 0.0f;
 #pragma unroll
-    for (int i = 0; i < NMAX; ++i) {
-      if (i < n) s += expf(x[i] - m);
+    for (int i = 0; i < G; ++i) {
+      const float t = __shfl_sync(mask, v, i, G);
+      if (i < n) s += t;
     }
-    return rho * lam + lam * (m + logf(s));
+    return s;
+  }
+
+  __device__ float group_max(float v) const {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      v = fmaxf(v, __shfl_xor_sync(mask, v, off, G));
+    return v;
+  }
+
+  __device__ float group_min(float v) const {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      v = fminf(v, __shfl_xor_sync(mask, v, off, G));
+    return v;
   }
 };
+
+// One golden-section step from the bracket (lo, hi) and its points (a, b),
+// by the compare `smaller` = g(a) < g(b): the new bracket and points, and
+// the point p whose g the step needs.
+struct Step {
+  float lo, hi, a, b, p;
+};
+
+__device__ __forceinline__ Step step(float llo, float lhi, float a, float b,
+                                     bool smaller) {
+  Step s;
+  s.lo = smaller ? llo : a;
+  s.hi = smaller ? b : lhi;
+  s.a = smaller ? s.hi - kGR * (s.hi - s.lo) : b;
+  s.b = smaller ? a : s.lo + kGR * (s.hi - s.lo);
+  s.p = smaller ? s.a : s.b;
+  return s;
+}
+
+// The returned log lambda: the bracket's midpoint clipped to
+// log(span) +- 16.
+__device__ __forceinline__ float clip_mid(float llo, float lhi, float lspan) {
+  return fminf(fmaxf(0.5f * (llo + lhi), lspan - 16.0f), lspan + 16.0f);
+}
 
 // offs = linspace(-half_width, half_width, n_local) in float32, as
 // jnp.linspace forms it: start * (1 - t) + stop * t, t = j / (n_local - 1)
@@ -62,41 +167,52 @@ __device__ __forceinline__ float offset(int j, int n_local, float hw) {
   return -hw * (1.0f - t) + hw * t;
 }
 
-template <int NMAX>
-__global__ void dual_solve_warm_kernel(
+template <int G>
+__global__ void __launch_bounds__(kThreads) dual_solve_warm_kernel(
     const float* __restrict__ C, const float* __restrict__ W,
     long long w_stride, const float* __restrict__ rho_in,
     const float* __restrict__ llam_in, float* __restrict__ val_out,
-    float* __restrict__ lnew_out, long long L, int n, float half_width,
-    int n_local, int n_golden) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
+    float* __restrict__ lnew_out, float* __restrict__ dc_out, long long L,
+    int n, float half_width, int n_local, int n_golden) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long lane = tid / G;
+  if (lane >= L) return;                 // the whole group returns
+  const int sub = (int)(tid % G);
+  const int warp_lane = threadIdx.x & 31;
 
-  Lane<NMAX> p;
+  Part<G> p;
+  p.mask = ((1u << G) - 1u) << (warp_lane & ~(G - 1));
   p.n = n;
+  p.on = sub < n;
   p.rho = rho_in[lane];
-  float w[NMAX];
-  float cmax = -INFINITY, cmin = INFINITY;
-#pragma unroll
-  for (int i = 0; i < NMAX; ++i) {
-    if (i < n) {
-      p.c[i] = C[lane * n + i];
-      w[i] = W[lane * w_stride + i];
-      p.logw[i] = logf(w[i]);
-      cmax = fmaxf(cmax, p.c[i]);
-      cmin = fminf(cmin, p.c[i]);
-    }
-  }
+  p.c = p.on ? C[lane * n + sub] : 0.0f;
+  p.w = p.on ? W[lane * w_stride + sub] : 0.0f;
+  p.logw = logf(p.w);
+  const float cmax = p.group_max(p.on ? p.c : -INFINITY);
+  const float cmin = p.group_min(p.on ? p.c : INFINITY);
   const float llam = llam_in[lane];
 
-  // local scan + bracket (argmin keeps the first index on ties)
+  // local scan + bracket (argmin keeps the first index on ties); the
+  // scan's points kScanWidth at a time, a pass's spare points at j = 0
   int best = 0;
-  float best_v = p.g(llam + offset(0, n_local, half_width));
-  for (int j = 1; j < n_local; ++j) {
-    const float v = p.g(llam + offset(j, n_local, half_width));
-    if (v < best_v) {
-      best_v = v;
-      best = j;
+  float best_v = 0.0f;
+  for (int j0 = 0; j0 < n_local; j0 += kScanWidth) {
+    float ll[kScanWidth], v[kScanWidth];
+#pragma unroll
+    for (int k = 0; k < kScanWidth; ++k) {
+      const int j = j0 + k < n_local ? j0 + k : 0;
+      ll[k] = llam + offset(j, n_local, half_width);
+    }
+    p.g(ll, v);
+#pragma unroll
+    for (int k = 0; k < kScanWidth; ++k) {
+      const int j = j0 + k;
+      if (j == 0) {
+        best_v = v[k];
+      } else if (j < n_local && v[k] < best_v) {
+        best_v = v[k];
+        best = j;
+      }
     }
   }
   const int jlo = best > 0 ? best - 1 : 0;
@@ -104,64 +220,110 @@ __global__ void dual_solve_warm_kernel(
   float llo = llam + offset(jlo, n_local, half_width);
   float lhi = llam + offset(jhi, n_local, half_width);
 
-  // cached-point golden section: one new g per iteration
+  // cached-point golden section: a0 and b0 side by side; then each
+  // evaluation runs beside the two candidates of the next (one for each
+  // outcome of the compare that waits on it), so two steps cost one pass
   float a = lhi - kGR * (lhi - llo);
   float b = llo + kGR * (lhi - llo);
-  float fa = p.g(a);
-  float fb = p.g(b);
-  for (int it = 0; it < n_golden; ++it) {
+  float fa, fb;
+  {
+    const float ab[2] = {a, b};
+    float f[2];
+    p.g(ab, f);
+    fa = f[0];
+    fb = f[1];
+  }
+  const float lspan = logf(fmaxf(cmax - cmin, 1e-9f));
+  bool have_final = false;       // the final g came with the last pass
+  float g_final = 0.0f, e_final = 0.0f, s_final = 0.0f;
+  int it = 0;
+  while (it < n_golden) {
     const bool smaller = fa < fb;
-    const float nlo = smaller ? llo : a;
-    const float nhi = smaller ? b : lhi;
-    const float na = smaller ? nhi - kGR * (nhi - nlo) : b;
-    const float nb = smaller ? a : nlo + kGR * (nhi - nlo);
-    const float fnew = p.g(smaller ? na : nb);
-    const float nfa = smaller ? fnew : fb;
-    const float nfb = smaller ? fa : fnew;
-    llo = nlo;
-    lhi = nhi;
-    a = na;
-    b = nb;
-    fa = nfa;
-    fb = nfb;
+    Step s1 = step(llo, lhi, a, b, smaller);
+    ++it;
+    if (it == n_golden) {        // the new point's g is never read
+      llo = s1.lo, lhi = s1.hi;
+      break;
+    }
+    const Step s2[2] = {step(s1.lo, s1.hi, s1.a, s1.b, true),
+                        step(s1.lo, s1.hi, s1.a, s1.b, false)};
+    // the last step's point is never evaluated: its pass holds the final
+    // g at each outcome's lambda instead
+    const bool last = it + 1 == n_golden;
+    const float at[3] = {
+        s1.p, last ? clip_mid(s2[0].lo, s2[0].hi, lspan) : s2[0].p,
+        last ? clip_mid(s2[1].lo, s2[1].hi, lspan) : s2[1].p};
+    float f[3], e[3], s[3];
+    p.g(at, f, &e, &s);
+    const float nfa = smaller ? f[0] : fb;
+    const float nfb = smaller ? fa : f[0];
+    const bool smaller2 = nfa < nfb;
+    const int o = smaller2 ? 0 : 1;
+    ++it;
+    llo = s2[o].lo, lhi = s2[o].hi, a = s2[o].a, b = s2[o].b;
+    if (last) {
+      have_final = true;
+      g_final = f[1 + o], e_final = e[1 + o], s_final = s[1 + o];
+      break;
+    }
+    fa = smaller2 ? f[1 + o] : nfb;
+    fb = smaller2 ? nfa : f[1 + o];
   }
 
-  const float lspan = logf(fmaxf(cmax - cmin, 1e-9f));
-  const float lnew =
-      fminf(fmaxf(0.5f * (llo + lhi), lspan - 16.0f), lspan + 16.0f);
-  float val;
+  const float lnew = clip_mid(llo, lhi, lspan);
+  float val, dc;
   if (p.rho <= 0.0f) {
-    val = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NMAX; ++i) {
-      if (i < n) val += w[i] * p.c[i];
-    }
+    val = p.sum_in_order(p.w * p.c);
+    dc = p.w;
   } else {
-    val = p.g(lnew);
+    if (!have_final) {
+      const float at[1] = {lnew};
+      float f[1], e[1], s[1];
+      p.g(at, f, &e, &s);
+      g_final = f[0], e_final = e[0], s_final = s[0];
+    }
+    val = g_final;
+    dc = e_final / s_final;
   }
-  val_out[lane] = val;
-  lnew_out[lane] = lnew;
+  if (sub == 0) {
+    val_out[lane] = val;
+    lnew_out[lane] = lnew;
+  }
+  if (dc_out != nullptr && p.on) dc_out[lane * n + sub] = dc;
+}
+
+template <int G>
+void launch_group(const float* C, const float* W, long long w_stride,
+                  const float* rho, const float* llam, float* val,
+                  float* lnew, float* dc, long long L, int n,
+                  float half_width, int n_local, int n_golden,
+                  cudaStream_t stream) {
+  const long long threads = L * G;
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  dual_solve_warm_kernel<G><<<blocks, kThreads, 0, stream>>>(
+      C, W, w_stride, rho, llam, val, lnew, dc, L, n, half_width, n_local,
+      n_golden);
 }
 
 }  // namespace
 
+// dc may be null (no gradient); n lies in [1, kGroupLarge]: the wrapper
+// checks.
 extern "C" int dual_solve_warm_launch(const float* C, const float* W,
                                       long long w_stride, const float* rho,
                                       const float* llam, float* val,
-                                      float* lnew, long long L, int n,
-                                      float half_width, int n_local,
+                                      float* lnew, float* dc, long long L,
+                                      int n, float half_width, int n_local,
                                       int n_golden, cudaStream_t stream) {
   if (L <= 0) return 0;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((L + threads - 1) / threads);
-  if (n <= 4) {
-    dual_solve_warm_kernel<4><<<blocks, threads, 0, stream>>>(
-        C, W, w_stride, rho, llam, val, lnew, L, n, half_width, n_local,
-        n_golden);
+  if (n < 1 || n > kGroupLarge || n_local < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n <= kGroupSmall) {
+    launch_group<kGroupSmall>(C, W, w_stride, rho, llam, val, lnew, dc, L, n,
+                              half_width, n_local, n_golden, stream);
   } else {
-    dual_solve_warm_kernel<16><<<blocks, threads, 0, stream>>>(
-        C, W, w_stride, rho, llam, val, lnew, L, n, half_width, n_local,
-        n_golden);
+    launch_group<kGroupLarge>(C, W, w_stride, rho, llam, val, lnew, dc, L, n,
+                              half_width, n_local, n_golden, stream);
   }
   return (int)cudaGetLastError();
 }

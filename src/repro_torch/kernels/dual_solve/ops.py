@@ -2,14 +2,16 @@
 
 * :func:`dual_solve_warm_batch` — no-grad, lane-batched: the CUDA kernel
   (``csrc/dual_solve.cu``) for CUDA tensors, the plain version
-  (``ref.dual_solve_warm_ref``) for CPU tensors, and nothing else.
+  (``ref.dual_solve_warm_ref``) for CPU tensors, and nothing else.  With
+  ``grad=True`` it also returns the envelope gradient ``dc`` (L, n) of
+  ``repro/core/robust.py:35-45``: at the returned lambda, d value / d c =
+  softmax(log w + c / lambda), or w where rho <= 0, which the kernel
+  writes from the terms of its last evaluation.
 * :func:`dual_solve_warm` — the same solve under autograd, as the robust
-  tuner calls it once per Adam step over every lane.  Its backward is the
-  envelope gradient of ``repro/core/robust.py:35-45``: at the returned
-  lambda, d value / d c = softmax(log w + c / lambda), or w where
-  rho <= 0.  The new log lambda is not differentiable (the reference's
-  ``stop_gradient``).  The backward is plain torch ops: the TPU kernel has
-  no backward kernel either.
+  tuner calls it once per Adam step over every lane.  Its forward asks for
+  ``dc`` and its backward is ``g_val[:, None] * dc``.  The new log lambda
+  is not differentiable (the reference's ``stop_gradient``).  The TPU
+  kernel has no backward kernel either.
 """
 
 from __future__ import annotations
@@ -22,18 +24,21 @@ from .. import _build
 from .._build import F32, I32, I64, P
 from .ref import dual_solve_warm_ref
 
-_LAUNCH_ARGS = (P, P, I64, P, P, P, P, I64, I32, F32, I32, I32, P)
+_LAUNCH_ARGS = (P, P, I64, P, P, P, P, P, I64, I32, F32, I32, I32, P)
 
-N_MAX = 16      # widest cost vector the kernel takes (register arrays)
+#: widest cost vector the kernel takes: its large thread group
+#: (``kGroupLarge``), a component a thread
+N_MAX = 16
 
 
 def dual_solve_warm_batch(C: torch.Tensor, W: torch.Tensor,
                           rho: torch.Tensor, llam: torch.Tensor,
                           half_width: float = 0.8, n_local: int = 3,
-                          n_golden: int = 6
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(values (L,), new log lam* (L,)) for C (L, n), W (L, n) or (n,),
-    rho/llam (L,), all float32 on one device."""
+                          n_golden: int = 6, grad: bool = False
+                          ) -> Tuple[torch.Tensor, ...]:
+    """(values (L,), new log lam* (L,)), and with ``grad`` the envelope
+    gradient (L, n), for C (L, n), W (L, n) or (n,), rho/llam (L,), all
+    float32 on one device."""
     if C.dim() != 2:
         raise ValueError(f"C must be (L, n), got {tuple(C.shape)}")
     L, n = C.shape
@@ -43,6 +48,8 @@ def dual_solve_warm_batch(C: torch.Tensor, W: torch.Tensor,
                          f"llam (L,); got C {tuple(C.shape)}, W "
                          f"{tuple(W.shape)}, rho {tuple(rho.shape)}, llam "
                          f"{tuple(llam.shape)}")
+    if n_local < 1:
+        raise ValueError(f"dual_solve: n_local {n_local} < 1")
     ts = (C, W, rho, llam)
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError("dual_solve takes float32 tensors")
@@ -51,44 +58,44 @@ def dual_solve_warm_batch(C: torch.Tensor, W: torch.Tensor,
     if C.device.type == "cpu":
         with torch.no_grad():
             return dual_solve_warm_ref(C, W, rho, llam, half_width, n_local,
-                                       n_golden)
+                                       n_golden, grad=grad)
     if C.device.type != "cuda":
         raise ValueError(f"dual_solve: no kernel for device {C.device}")
-    if n > N_MAX:
-        raise ValueError(f"dual_solve kernel takes n <= {N_MAX}, got {n}")
+    if not 1 <= n <= N_MAX:
+        raise ValueError(f"dual_solve kernel takes 1 <= n <= {N_MAX}, "
+                         f"got {n}")
     C, W, rho, llam = (t.detach().contiguous() for t in ts)
     val = torch.empty(L, dtype=torch.float32, device=C.device)
     lnew = torch.empty_like(val)
+    dc = torch.empty_like(C) if grad else None
+    out = (val, lnew, dc) if grad else (val, lnew)
     if L == 0:
-        return val, lnew
+        return out
     fn = _build.kernel_fn("dual_solve", "dual_solve_warm_launch",
                           _LAUNCH_ARGS)
     _build.launch("dual_solve", fn, C.data_ptr(), W.data_ptr(),
                   n if W.dim() == 2 else 0, rho.data_ptr(), llam.data_ptr(),
-                  val.data_ptr(), lnew.data_ptr(), L, n, half_width, n_local,
-                  n_golden, device=C.device)
-    return val, lnew
+                  val.data_ptr(), lnew.data_ptr(),
+                  dc.data_ptr() if grad else None, L, n, half_width,
+                  n_local, n_golden, device=C.device)
+    return out
 
 
 class DualSolveWarm(torch.autograd.Function):
-    """Kernel forward, envelope-gradient backward (see module docstring)."""
+    """Kernel forward with the envelope gradient; the backward scales it
+    (see module docstring)."""
 
     @staticmethod
     def forward(ctx, C, W, rho, llam, half_width, n_local, n_golden):
-        val, lnew = dual_solve_warm_batch(C, W, rho, llam, half_width,
-                                          n_local, n_golden)
-        ctx.save_for_backward(C, W, rho, lnew)
+        val, lnew, dc = dual_solve_warm_batch(C, W, rho, llam, half_width,
+                                              n_local, n_golden, grad=True)
+        ctx.save_for_backward(dc)
         ctx.mark_non_differentiable(lnew)
         return val, lnew
 
     @staticmethod
     def backward(ctx, g_val, g_lnew):
-        C, W, rho, lnew = ctx.saved_tensors
-        W = W.expand_as(C)
-        lam = torch.clamp(torch.exp(lnew), min=1e-12)
-        x = torch.log(W) + C / lam[:, None]
-        e = torch.exp(x - x.max(dim=-1, keepdim=True).values)
-        dc = torch.where((rho <= 0.0)[:, None], W, e / e.sum(-1, keepdim=True))
+        dc, = ctx.saved_tensors
         return g_val[:, None] * dc, None, None, None, None, None, None
 
 
@@ -96,6 +103,10 @@ def dual_solve_warm(C: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
                     llam: torch.Tensor, half_width: float = 0.8,
                     n_local: int = 3, n_golden: int = 6
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Differentiable (in C) lane-batched warm solve; the tuner's call."""
+    """Differentiable (in C) lane-batched warm solve; the tuner's call.
+    Without a gradient to take, the kernel writes no ``dc``."""
+    if not (torch.is_grad_enabled() and C.requires_grad):
+        return dual_solve_warm_batch(C, W, rho, llam, half_width, n_local,
+                                     n_golden)
     return DualSolveWarm.apply(C, W, rho, llam.detach(), half_width,
                                n_local, n_golden)

@@ -5,7 +5,9 @@ package's Pallas tile (``repro/kernels/dual_solve/kernel.py:41``) and its
 vmapped ``fused`` path: the hand-written logsumexp, the 3-point local scan
 with a first-index argmin, ``n_golden`` cached-point golden iterations (one
 new g-evaluation each), the clip to ``log(span) +- 16`` and the final
-re-evaluation.  It runs on any device; the port's wrapper (``ops.py``) uses
+re-evaluation; and, on request, the envelope gradient the kernel writes
+beside its values, by the ops the port's backward used before the kernel
+wrote it.  It runs on any device; the port's wrapper (``ops.py``) uses
 it only for CPU tensors, and ``chip_smoke.py`` holds the kernel against it
 on the card.
 """
@@ -41,15 +43,29 @@ def g_of_llam(C: torch.Tensor, logW: torch.Tensor, rho: torch.Tensor,
     return rho * lam + lam * s
 
 
+def envelope_grad(C: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
+                  lnew: torch.Tensor) -> torch.Tensor:
+    """d value / d C (L, n) at the solve's log lam* ``lnew``:
+    softmax(log w + c / lam) per lane, or w where rho <= 0 (the envelope
+    gradient of ``repro/core/robust.py:35-45``)."""
+    W = W.expand_as(C)
+    lam = torch.clamp(torch.exp(lnew), min=1e-12)
+    x = torch.log(W) + C / lam[:, None]
+    e = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+    return torch.where((rho <= 0.0)[:, None], W, e / e.sum(-1, keepdim=True))
+
+
 def dual_solve_warm_ref(C: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
                         llam: torch.Tensor, half_width: float = 0.8,
-                        n_local: int = 3, n_golden: int = 6
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(values, new log lam*) for C (L, n), W (L, n) or (n,), rho/llam (L,).
+                        n_local: int = 3, n_golden: int = 6,
+                        grad: bool = False) -> Tuple[torch.Tensor, ...]:
+    """(values, new log lam*) for C (L, n), W (L, n) or (n,), rho/llam (L,),
+    and with ``grad`` the envelope gradient (:func:`envelope_grad`), the
+    kernel's third output.
 
     Differentiable in ``C`` through the final g (log lam* is detached, as
     the reference's ``stop_gradient``), so autograd gives the envelope
-    gradient the kernel's ``torch.autograd.Function`` spells out."""
+    gradient the kernel writes."""
     W = W.expand_as(C)
     logW = torch.log(W)
     llam = llam.detach()
@@ -84,4 +100,85 @@ def dual_solve_warm_ref(C: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
                              lspan + 16.0)
     val = torch.where(rho <= 0.0, (W * C).sum(dim=-1),
                       g_of_llam(C, logW, rho, lnew))
+    if grad:
+        with torch.no_grad():
+            return val, lnew, envelope_grad(C.detach(), W, rho, lnew)
+    return val, lnew
+
+
+def _clip_mid(llo, lhi, lspan):
+    return torch.minimum(torch.maximum(0.5 * (llo + lhi), lspan - 16.0),
+                         lspan + 16.0)
+
+
+def _step(llo, lhi, a, b, smaller):
+    """One golden step by the compare ``smaller``: (lo, hi, a, b, the
+    point whose g the step needs)."""
+    lo = torch.where(smaller, llo, a)
+    hi = torch.where(smaller, b, lhi)
+    na = torch.where(smaller, hi - GR * (hi - lo), b)
+    nb = torch.where(smaller, a, lo + GR * (hi - lo))
+    return lo, hi, na, nb, torch.where(smaller, na, nb)
+
+
+def dual_solve_paired_ref(C: torch.Tensor, W: torch.Tensor,
+                          rho: torch.Tensor, llam: torch.Tensor,
+                          half_width: float = 0.8, n_local: int = 3,
+                          n_golden: int = 6
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dual_solve_warm_ref` in the kernel's order of evaluation
+    (``csrc/dual_solve.cu``): each golden step's point evaluated beside
+    the two points the next step may need, the compare that waits on it
+    choosing one; the last step's point never evaluated (its bracket is
+    fixed by its compare), the final g taken at each outcome's lambda
+    instead.  Every g is taken at the same point by the same ops, so the
+    result is the plain version's bit for bit; the tests hold the
+    kernel's control flow on the CPU through it."""
+    W = W.expand_as(C)
+    logW = torch.log(W)
+
+    def g(ll):
+        return g_of_llam(C, logW, rho, ll)
+
+    with torch.no_grad():
+        lls = torch.stack([llam + o for o in offsets(half_width, n_local)],
+                          1)
+        vals = torch.stack([g(lls[:, j]) for j in range(n_local)], 1)
+        i = torch.argmin(vals, dim=1, keepdim=True)
+        llo = lls.gather(1, torch.clamp(i - 1, min=0))[:, 0]
+        lhi = lls.gather(1, torch.clamp(i + 1, max=n_local - 1))[:, 0]
+        a = lhi - GR * (lhi - llo)
+        b = llo + GR * (lhi - llo)
+        fa, fb = g(a), g(b)
+        span = C.max(dim=-1).values - C.min(dim=-1).values
+        lspan = torch.log(torch.clamp(span, min=1e-9))
+        final, it = None, 0
+        while it < n_golden:
+            smaller = fa < fb
+            lo1, hi1, a1, b1, p1 = _step(llo, lhi, a, b, smaller)
+            it += 1
+            if it == n_golden:
+                llo, lhi = lo1, hi1
+                break
+            yes = _step(lo1, hi1, a1, b1, torch.ones_like(smaller))
+            no = _step(lo1, hi1, a1, b1, torch.zeros_like(smaller))
+            last = it + 1 == n_golden
+            f0 = g(p1)
+            f_yes = g(_clip_mid(yes[0], yes[1], lspan) if last else yes[4])
+            f_no = g(_clip_mid(no[0], no[1], lspan) if last else no[4])
+            nfa = torch.where(smaller, f0, fb)
+            nfb = torch.where(smaller, fa, f0)
+            smaller2 = nfa < nfb
+            it += 1
+            llo, lhi, a, b = (torch.where(smaller2, y, n)
+                              for y, n in zip(yes[:4], no[:4]))
+            fnew = torch.where(smaller2, f_yes, f_no)
+            if last:
+                final = fnew
+                break
+            fa, fb = (torch.where(smaller2, fnew, nfb),
+                      torch.where(smaller2, nfa, fnew))
+        lnew = _clip_mid(llo, lhi, lspan)
+        val = torch.where(rho <= 0.0, (W * C).sum(dim=-1),
+                          g(lnew) if final is None else final)
     return val, lnew

@@ -19,9 +19,11 @@ The levels below it are the run's ``sample``, read in the L2 as an
 implicit search tree whose node is 4 adjacent entries of a level (32
 bytes, one sector of the L2), each level padded to whole nodes with the
 largest int64, which no key is below.  A run of fewer entries takes at
-most 12 halvings, in the L2, and keeps the plain search.
-``ref.point_read_sampled_ref`` runs the kernel's algorithm on the CPU for
-the tests.
+most 12 halvings, in the L2, and keeps the plain search.  A run's levels
+are built once, as its chain (:func:`run_sample`), which the level store
+keeps beside the run's Bloom words; :func:`pack_samples` lays a level's
+chains out.  ``ref.point_read_sampled_ref`` runs the kernel's algorithm
+on the CPU for the tests.
 """
 
 from __future__ import annotations
@@ -54,48 +56,116 @@ KMAX_BOUND = 32
 _PAD = (1 << 63) - 1
 
 
+_PADS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _pad(like: torch.Tensor, fanout: int) -> torch.Tensor:
+    """``fanout`` copies of the largest int64 on ``like``'s device, made
+    once a device: a level's padding is a view of it, not a fill."""
+    key = (like.device, fanout)
+    if key not in _PADS:
+        _PADS[key] = like.new_full((fanout,), _PAD)
+    return _PADS[key]
+
+
+def run_sample(run: torch.Tensor, stride: int = SAMPLE_STRIDE,
+               fanout: int = SAMPLE_FANOUT,
+               top_cap: int = TOP_CAP) -> torch.Tensor:
+    """One run's sample chain: levels 1..g of ``level_sizes`` (level l
+    every ``stride * fanout**(l-1)``-th key of ``run``), each padded to
+    its size with the largest int64, back to back, where level g is the
+    first of at most ``top_cap`` entries (the most a top can hold).  One
+    concatenation of strided views of the run, on its device.
+    :func:`pack_samples` cuts it into a level's layout without reading
+    the run again."""
+    if stride < 2 or fanout < 2 or top_cap < 1:
+        raise ValueError("run_sample: stride and fanout >= 2, top_cap >= 1")
+    pad = _pad(run, fanout)
+    parts, every = [], stride
+    for size in level_sizes(run.shape[0], stride, fanout):
+        level = run[::every]
+        parts += [level, pad[:size - level.shape[0]]]
+        if level.shape[0] <= top_cap:
+            break
+        every *= fanout
+    return torch.cat(parts)
+
+
+def pack_samples(chains: Sequence[Optional[torch.Tensor]],
+                 lens: Sequence[int], like: torch.Tensor,
+                 stride: int = SAMPLE_STRIDE, fanout: int = SAMPLE_FANOUT,
+                 top_cap: int = TOP_CAP) -> Dict:
+    """The search's key sample of a level from its runs' chains
+    (:func:`run_sample` at this ``top_cap``; ``None`` for a run without a
+    sample) and lengths ``lens``.  Run r's top level f is the first of at
+    most its share of ``top_cap`` entries (the cap over the runs with a
+    chain); its levels 1..f-1, each padded to a multiple of ``fanout``
+    (``level_sizes``), lie back to back in ``sample`` (run r's from
+    ``sample_off[r]``); level f, unpadded, in ``top`` (at
+    ``top_off[r]:top_off[r+1]``); ``top_level[r]`` = f, 0 for a run
+    without a chain.  Levels past a chain's last (a run that shares its
+    level's cap) are strided views of that last level.  A level of one
+    chain takes views of it; otherwise new tensors on ``like``'s
+    device."""
+    share = max(1, top_cap // max(1, sum(c is not None for c in chains)))
+    samples, tops, top_level = [], [], []
+    sample_off, top_off = [0], [0]
+    for chain, n in zip(chains, lens):
+        at, f, m = 0, 0, 0
+        if chain is not None:
+            sizes = level_sizes(n, stride, fanout)
+            reals = [-(-n // stride)]
+            while len(reals) < len(sizes):
+                reals.append(-(-reals[-1] // fanout))
+            f = next(i for i, r in enumerate(reals, 1) if r <= share)
+            m = reals[f - 1]
+            at = sum(sizes[:f - 1])
+            g, held = 0, 0                  # the chain's levels, entries
+            while held < chain.shape[0]:
+                held += sizes[g]
+                g += 1
+            if f <= g:
+                samples.append(chain[:at])
+                tops.append(chain[at:at + m])
+            else:
+                last = chain[held - sizes[g - 1]:][:reals[g - 1]]
+                pad = _pad(like, fanout)
+                samples.append(chain)
+                for lvl in range(g + 1, f):
+                    level = last[::fanout ** (lvl - g)]
+                    samples += [level, pad[:sizes[lvl - 1] - level.shape[0]]]
+                tops.append(last[::fanout ** (f - g)])
+        sample_off.append(sample_off[-1] + at)
+        top_off.append(top_off[-1] + m)
+        top_level.append(f)
+
+    def flat(parts):
+        parts = [t for t in parts if t.shape[0]]
+        if len(parts) == 1 and parts[0].is_contiguous():
+            return parts[0]
+        return torch.cat(parts) if parts else like.new_zeros(0)
+
+    return {"sample": flat(samples), "sample_off": sample_off,
+            "top": flat(tops), "top_off": top_off, "top_level": top_level,
+            "stride": stride, "fanout": fanout}
+
+
 def sample_runs(keys: torch.Tensor, starts: Sequence[int],
                 stride: int = SAMPLE_STRIDE, fanout: int = SAMPLE_FANOUT,
                 min_run: int = SAMPLE_MIN_RUN, top_cap: int = TOP_CAP
                 ) -> Dict:
     """The search's key sample of the level whose runs lie at ``starts`` in
-    ``keys``.  For each run of at least ``min_run`` entries, its levels
-    1..f: level 1 keeps every ``stride``-th key, level l > 1 every
-    ``fanout``-th entry of level l-1, and f is the first level of at most
-    the run's share of ``top_cap`` entries.  Levels 1..f-1, each padded to
-    a multiple of ``fanout`` (``level_sizes``), lie back to back in
-    ``sample`` (run r's from ``sample_off[r]``); level f, unpadded, in
-    ``top`` (at ``top_off[r]:top_off[r+1]``); ``top_level[r]`` = f.  A
-    shorter run has none (f = 0).  Built on the keys' device, as strided
-    copies."""
+    ``keys``, from scratch: :func:`run_sample` of each run of at least
+    ``min_run`` entries (a shorter run has none), laid out by
+    :func:`pack_samples`."""
     if stride < 2 or fanout < 2 or min_run < 1 or top_cap < 1:
         raise ValueError("sample_runs: stride and fanout >= 2, min_run and "
                          "top_cap >= 1")
     lens = [starts[r + 1] - starts[r] for r in range(len(starts) - 1)]
-    share = max(1, top_cap // max(1, sum(n >= min_run for n in lens)))
-    samples, tops, top_level = [], [], []
-    sample_off, top_off = [0], [0]
-    for r, n in enumerate(lens):
-        sizes = level_sizes(n, stride, fanout) if n >= min_run else []
-        level, f = keys[starts[r]:starts[r + 1]], 0
-        for size in sizes:
-            level = level[::fanout if f else stride]
-            f += 1
-            if level.shape[0] <= share:
-                tops.append(level)
-                break
-            samples += [level, level.new_full((size - level.shape[0],),
-                                              _PAD)]
-        sample_off.append(sample_off[-1] + sum(sizes[:max(f - 1, 0)]))
-        top_off.append(top_off[-1] + (level.shape[0] if f else 0))
-        top_level.append(f)
-
-    def flat(parts):
-        return torch.cat(parts) if parts else keys.new_zeros(0)
-
-    return {"sample": flat(samples), "sample_off": sample_off,
-            "top": flat(tops), "top_off": top_off, "top_level": top_level,
-            "stride": stride, "fanout": fanout}
+    chains = [run_sample(keys[starts[r]:starts[r + 1]], stride, fanout,
+                         top_cap) if n >= min_run else None
+              for r, n in enumerate(lens)]
+    return pack_samples(chains, lens, keys, stride, fanout, top_cap)
 
 
 @dataclasses.dataclass

@@ -10,10 +10,12 @@ signed order is unsigned key order).
 The host keeps what the planner and the read path's layout need, so that
 neither has to wait for the device: run offsets (``starts``), fence keys
 (``min_keys``/``max_keys``, uint64), Bloom parameters (``n_bits``, ``ks``),
-flush lineage and tombstone ages.  Bloom words and the point read's key
-sample are built on the device on a level's first read and packed flat
-(``kernels/point_read.LevelLayout``); a change of the level's runs drops
-them (``_set_runs``).
+flush lineage and tombstone ages.  A run's Bloom words and, on the card,
+its key sample for the point read (``point_read.ops.run_sample``) are
+built on the device on the first read of its level and kept with the run;
+each layout of the level packs them flat (``kernels/point_read.LevelLayout``),
+and a change of the level's runs drops the layout (``_set_runs``), not
+what unchanged runs keep.
 
 Values are encoded int64s (:class:`ValueCodec`, host side): inline ints,
 interned objects, and the tombstone sentinel ``TOMB``.  The store only
@@ -110,9 +112,10 @@ class RunData:
 
     ``keys``/``vals`` live on the engine's device; ``min_key``/``max_key``
     are its unsigned fence keys, kept on the host.  The Bloom parameters
-    (n_bits, k) are fixed at build time; the words materialize lazily on
-    the level's first read.  ``tomb_seq`` is the flush sequence of the
-    oldest tombstone in the run (-1 when tombstone-free)."""
+    (n_bits, k) are fixed at build time; the words and the key sample
+    materialize lazily on the level's first read.  ``tomb_seq`` is the
+    flush sequence of the oldest tombstone in the run (-1 when
+    tombstone-free)."""
 
     keys: torch.Tensor        # ordered int64, sorted ascending, unique
     vals: torch.Tensor        # int64, encoded
@@ -123,6 +126,7 @@ class RunData:
     max_key: int = 0
     words: Optional[torch.Tensor] = None
     tomb_seq: int = -1
+    sample: Optional[torch.Tensor] = None
 
     @classmethod
     def build(cls, keys: torch.Tensor, vals: torch.Tensor,
@@ -137,12 +141,19 @@ class RunData:
         return self.keys.shape[0]
 
 
+def builds_samples(device: torch.device) -> bool:
+    """Whether a level on ``device`` builds the point read's key samples:
+    only the kernel reads them, and it runs only on the card (the plain
+    ``point_read_level_ref`` of CPU tensors never does)."""
+    return device.type == "cuda"
+
+
 class LevelStore:
     """All runs of one level as device arenas + host metadata."""
 
     __slots__ = ("device", "keys", "vals", "starts", "flushes", "n_bits",
-                 "ks", "words_list", "min_keys", "max_keys", "tomb_seqs",
-                 "_pack")
+                 "ks", "words_list", "samples_list", "min_keys",
+                 "max_keys", "tomb_seqs", "_pack")
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -153,6 +164,7 @@ class LevelStore:
         self.n_bits: List[int] = []
         self.ks: List[int] = []
         self.words_list: List[Optional[torch.Tensor]] = []
+        self.samples_list: List[Optional[torch.Tensor]] = []
         self.min_keys = np.empty(0, np.uint64)
         self.max_keys = np.empty(0, np.uint64)
         self.tomb_seqs: List[int] = []
@@ -180,24 +192,30 @@ class LevelStore:
 
     @property
     def pack(self) -> LevelLayout:
-        """The level's read layout; builds missing Bloom words first, then
-        the search's key sample (``point_read.ops.sample_runs``)."""
+        """The level's read layout; builds missing Bloom words first, then,
+        on the card, the missing key samples of runs of at least
+        ``SAMPLE_MIN_RUN`` entries (``point_read.ops.run_sample``)."""
         if self._pack is None:
+            sampled = builds_samples(self.device)
             for r in range(self.num_runs):
+                keys, _ = self.run_slice(r)
                 if self.words_list[r] is None:
-                    keys, _ = self.run_slice(r)
                     self.words_list[r] = build_words(keys, self.n_bits[r],
                                                      self.ks[r])
+                if sampled and self.samples_list[r] is None \
+                        and len(keys) >= read_ops.SAMPLE_MIN_RUN:
+                    self.samples_list[r] = read_ops.run_sample(keys)
             lens = [w.shape[0] for w in self.words_list]
             words = torch.cat(self.words_list) if self.words_list else \
                 torch.zeros(0, dtype=torch.int64, device=self.device)
-            starts = self.starts.tolist()
             self._pack = LevelLayout(
-                starts=starts, n_bits=list(self.n_bits), ks=list(self.ks),
+                starts=self.starts.tolist(), n_bits=list(self.n_bits),
+                ks=list(self.ks),
                 fence_lo=[int(k) - _HALF for k in self.min_keys],
                 fence_hi=[int(k) - _HALF for k in self.max_keys],
                 word_off=np.concatenate([[0], np.cumsum(lens)]).tolist(),
-                words=words, **read_ops.sample_runs(self.keys, starts))
+                words=words, **read_ops.pack_samples(
+                    self.samples_list, self.run_lens(), self.keys))
         return self._pack
 
     # -- mutation ----------------------------------------------------------
@@ -216,6 +234,7 @@ class LevelStore:
         self.n_bits = [r.n_bits for r in runs]
         self.ks = [r.k for r in runs]
         self.words_list = [r.words for r in runs]
+        self.samples_list = [r.sample for r in runs]
         self.tomb_seqs = [r.tomb_seq for r in runs]
         self.min_keys = np.array([r.min_key for r in runs], np.uint64)
         self.max_keys = np.array([r.max_key for r in runs], np.uint64)
@@ -227,7 +246,8 @@ class LevelStore:
                        n_bits=self.n_bits[r], k=self.ks[r],
                        min_key=int(self.min_keys[r]),
                        max_key=int(self.max_keys[r]),
-                       words=self.words_list[r], tomb_seq=self.tomb_seqs[r])
+                       words=self.words_list[r], tomb_seq=self.tomb_seqs[r],
+                       sample=self.samples_list[r])
 
     def runs(self) -> List[RunData]:
         return [self._as_rundata(r) for r in range(self.num_runs)]

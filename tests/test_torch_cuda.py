@@ -23,7 +23,8 @@ from repro_torch.kernels.bloom_probe.ref import (build_plane, mix32,
                                                  probe_ref)
 from repro_torch.kernels.dual_solve.ops import dual_solve_warm_batch
 from repro_torch.configs import get_config
-from repro_torch.kernels.dual_solve.ref import dual_solve_warm_ref
+from repro_torch.kernels.dual_solve.ref import (dual_solve_warm_ref,
+                                                envelope_grad)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.merge import ops as merge_ops
@@ -76,6 +77,50 @@ def test_dual_solve_kernel_matches_plain(dev, L, n):
     dl = (l1 - l2).abs()
     assert (dl <= 1e-5).float().mean().item() >= 0.99
     assert dl.max().item() <= 0.1
+
+
+@pytest.mark.parametrize("n", [1, 4, 5, 16])
+@pytest.mark.parametrize("L", [1, 127, 1237, 9600])
+def test_dual_solve_groups_and_dc_match_plain(dev, L, n):
+    """Both thread groups (4 threads for n <= 4, 16 above), lane counts
+    that leave a block's last groups past L, one lane in five with rho = 0,
+    and the envelope gradient ``dc``, against the plain version on the
+    card: values rel 1e-5, log lambda within 1e-5 (bit for bit) on 99% of
+    lanes, dc rel 1e-5 at the kernel's lambda (w itself where rho = 0)."""
+    rng = np.random.default_rng(L * 31 + n)
+    C = torch.tensor(rng.gamma(2.0, 2.0, (L, n)), dtype=torch.float32,
+                     device=dev)
+    W = torch.tensor(rng.dirichlet(np.ones(n), L), dtype=torch.float32,
+                     device=dev)
+    rho = torch.tensor(rng.uniform(0, 3, L), dtype=torch.float32,
+                       device=dev)
+    rho[::5] = 0.0
+    llam = torch.tensor(rng.normal(1.0, 1.5, L), dtype=torch.float32,
+                        device=dev)
+    before = _build.LAUNCHES["dual_solve"]
+    v1, l1, dc1 = dual_solve_warm_batch(C, W, rho, llam, grad=True)
+    v0, l0 = dual_solve_warm_batch(C, W, rho, llam)
+    assert _build.LAUNCHES["dual_solve"] == before + 2
+    assert torch.equal(v0, v1) and torch.equal(l0, l1)
+    v2, l2, dc2 = dual_solve_warm_ref(C, W, rho, llam, grad=True)
+    assert ((v1 - v2).abs() / v2.abs()).max().item() <= 1e-5
+    # a lane whose compare flips on a 1-ulp difference between the
+    # kernel's expf and torch.exp lands in a neighbouring bracket, at most
+    # two scan steps (2 * half_width) away: 0.127 on one lane of the
+    # 9,600 x 4 case, the one-thread kernel's lane too; its value agrees
+    dl = (l1 - l2).abs()
+    assert (dl <= 1e-5).float().mean().item() >= (0.99 if L > 100 else 1.0)
+    assert dl.max().item() <= 2 * 0.8
+    # dc is the envelope gradient at the kernel's own lambda: the plain
+    # formula there, and the plain version's dc wherever the two lambdas
+    # agree (a flipped lane's gradient is taken at another lambda)
+    assert dc1.shape == (L, n)
+    torch.testing.assert_close(dc1, envelope_grad(C, W, rho, l1),
+                               rtol=1e-5, atol=0)
+    same = l1 == l2
+    assert same.float().mean().item() >= (0.99 if L > 100 else 1.0)
+    torch.testing.assert_close(dc1[same], dc2[same], rtol=1e-5, atol=0)
+    assert torch.equal(dc1[rho == 0], W[rho == 0])
 
 
 @pytest.mark.parametrize("na,nb", [(50_000, 70_000), (1, 0), (0, 3),
@@ -472,6 +517,46 @@ def _bloom_check(dev, inserted, absent, n_in, num_blocks, k):
     assert torch.equal(got, want)
     assert bool((got[:n_in] == 1.0).all())
     return plane, q, got
+
+
+@pytest.mark.parametrize("mix", ["present", "absent", "mixed"])
+@pytest.mark.parametrize("k", [0, 1, 7, 16])
+@pytest.mark.parametrize("n", [1, 255, 1_000_000])
+def test_bloom_probe_stops_at_the_first_zero(dev, n, k, mix):
+    """N keys all inserted, all absent or half and half, against a plane of
+    10 bits a key in 512-bit blocks with k hashes: the launched design
+    equals the plain version bit for bit, misses no inserted key, and
+    counts the plane floats each key read as ``probe_loads_ref`` does."""
+    from repro_torch.kernels.bloom_probe.ops import DESIGN, bloom_probe_loads
+    from repro_torch.kernels.bloom_probe.ref import probe_loads_ref
+    keys = _bloom_keys(n + k, 3 * n)
+    n_in = {"present": n, "absent": 0, "mixed": (n + 1) // 2}[mix]
+    plane = build_plane(keys[:2 * n], -(-20 * n // 512), 512, k, device=dev)
+    q = torch.cat([keys[:n_in], keys[2 * n:3 * n - n_in]]).to(dev)
+    got, loads = bloom_probe_loads(q, plane, k)
+    assert torch.equal(got, probe_ref(q, plane, k))
+    assert torch.equal(got, bloom_probe_kernel(q, plane, num_hashes=k))
+    assert bool((got[:n_in] == 1.0).all())
+    assert torch.equal(loads, probe_loads_ref(q, plane, k, DESIGN.first,
+                                              DESIGN.step))
+
+
+def test_bloom_probe_every_design_matches_plain(dev):
+    """Each compiled design (keys a thread, load rounds, L2 policy), on
+    100,003 keys half inserted at k = 7 and k = 16: bit for bit the plain
+    version, and its loads as ``probe_loads_ref`` counts them."""
+    from repro_torch.kernels.bloom_probe.ops import DESIGNS, bloom_probe_loads
+    from repro_torch.kernels.bloom_probe.ref import probe_loads_ref
+    keys = _bloom_keys(5, 300_000)
+    for k in (7, 16):
+        plane = build_plane(keys[:200_000], 7813, 512, k, device=dev)
+        q = torch.cat([keys[:50_002], keys[200_000:250_001]]).to(dev)
+        want = probe_ref(q, plane, k)
+        for design in DESIGNS:
+            got, loads = bloom_probe_loads(q, plane, k, design)
+            assert torch.equal(got, want), design
+            assert torch.equal(loads, probe_loads_ref(
+                q, plane, k, design.first, design.step)), design
 
 
 @pytest.mark.parametrize("n", [1, 1000, 1_000_000])

@@ -39,7 +39,8 @@ from repro.lsm.read_path import point_read_level_numpy
 from repro.lsm.store import TOMB, LevelStore, RunData
 from repro_torch.kernels.dual_solve.ops import (dual_solve_warm,
                                                 dual_solve_warm_batch)
-from repro_torch.kernels.dual_solve.ref import dual_solve_warm_ref
+from repro_torch.kernels.dual_solve.ref import (dual_solve_paired_ref,
+                                                dual_solve_warm_ref)
 from repro_torch.kernels.merge.ops import merge_runs, two_way_merge
 from repro_torch.kernels.point_read.ops import point_read_level
 from repro_torch.lsm import bloom as tbloom
@@ -117,6 +118,93 @@ def test_dual_solve_backward_matches_jax_grad():
         g = c.grad.numpy()
         np.testing.assert_allclose(g, g_ref, rtol=1e-5, atol=1e-7,
                                    err_msg=fn.__name__)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 6])
+def test_dual_solve_dc_matches_jax_grad(n):
+    """The plain version's envelope gradient ``dc`` (the kernel's third
+    output) == ``jax.grad`` of the JAX package's vmapped fused solve, on
+    257 lanes, one in five with rho = 0 (dc = w there), at rel 1e-5; and
+    the wrapper's CPU path returns the same ``dc``."""
+    C, W, rho, llam = _dual_inputs(257, n, seed=40 + n)
+    assert (rho == 0).sum() > 50
+    if n == 1:              # a span of 0: log lambda from no span at all
+        llam = np.random.default_rng(n).normal(0, 1.5, 257).astype(
+            np.float32)
+
+    def jax_total(c):
+        v, _ = jax.vmap(dual_solve_warm_fused)(c, jnp.asarray(W),
+                                                jnp.asarray(rho),
+                                                jnp.asarray(llam))
+        return jnp.sum(v)
+
+    want = np.asarray(jax.grad(jax_total)(jnp.asarray(C)))
+    args = [torch.from_numpy(a) for a in (C, W, rho, llam)]
+    val, lnew, dc = dual_solve_warm_ref(*args, grad=True)
+    assert dc.shape == (257, n) and dc.dtype == torch.float32
+    np.testing.assert_allclose(dc.numpy(), want, rtol=1e-5, atol=1e-7)
+    np.testing.assert_array_equal(dc.numpy()[rho == 0], W[rho == 0])
+    got = dual_solve_warm_batch(*args, grad=True)
+    for a, b in zip(got, (val, lnew, dc)):
+        assert torch.equal(a, b)
+
+
+def _plain_backward(C, W, rho, lnew, g_val):
+    """The port's backward before the forward wrote ``dc``: the softmax
+    recomputed from the saved inputs at the returned log lambda."""
+    W = W.expand_as(C)
+    lam = torch.clamp(torch.exp(lnew), min=1e-12)
+    x = torch.log(W) + C / lam[:, None]
+    e = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+    dc = torch.where((rho <= 0.0)[:, None], W, e / e.sum(-1, keepdim=True))
+    return g_val[:, None] * dc
+
+
+@pytest.mark.parametrize("n,shared_w", [(4, False), (4, True), (6, False)])
+def test_dual_solve_autograd_uses_the_saved_dc(n, shared_w):
+    """``DualSolveWarm``'s gradient, the saved ``dc`` times the incoming
+    gradient, equals the plain backward it replaced on the same inputs."""
+    C, W, rho, llam = _dual_inputs(257, n, seed=7 + n, shared_w=shared_w)
+    c = torch.from_numpy(C).requires_grad_(True)
+    Wt, rt, lt = (torch.from_numpy(a) for a in (W, rho, llam))
+    v, lnew = dual_solve_warm(c, Wt, rt, lt)
+    g_val = torch.linspace(-2.0, 3.0, 257)
+    (v * g_val).sum().backward()
+    want = _plain_backward(torch.from_numpy(C), Wt, rt, lnew, g_val)
+    np.testing.assert_allclose(c.grad.numpy(), want.numpy(), rtol=1e-6,
+                               atol=0)
+
+
+@pytest.mark.parametrize("n_local", [1, 2, 3, 4])
+@pytest.mark.parametrize("n_golden", [0, 1, 2, 3, 5, 6, 7])
+def test_dual_solve_paired_order_bit_equal_to_plain(n_golden, n_local):
+    """The kernel's order of evaluation (golden steps in pairs beside the
+    next step's two candidates, the last step's point skipped and the
+    final g taken with it), run on the CPU by ``dual_solve_paired_ref``:
+    the plain version's values and log lambda bit for bit, for any number
+    of scan points and golden steps."""
+    C, W, rho, llam = (torch.from_numpy(a) for a in
+                       _dual_inputs(301, 4, seed=n_golden * 10 + n_local))
+    want = dual_solve_warm_ref(C, W, rho, llam, 0.8, n_local, n_golden)
+    got = dual_solve_paired_ref(C, W, rho, llam, 0.8, n_local, n_golden)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_dual_solve_group_sizes_match_the_wrapper():
+    """The kernel's thread groups, as its constants and its comment state
+    them, take the cost vectors the wrapper lets through: the large group
+    is ``N_MAX`` threads (one component each), the small one 4."""
+    import re
+    from repro_torch.kernels.dual_solve import ops as dual_ops
+    src = (REPO / "src/repro_torch/csrc/dual_solve.cu").read_text()
+    small = int(re.search(r"kGroupSmall = (\d+);", src).group(1))
+    large = int(re.search(r"kGroupLarge = (\d+);", src).group(1))
+    assert (small, large) == (4, dual_ops.N_MAX)
+    text = " ".join(" ".join(ln.strip().lstrip("/") for ln in
+                             src.splitlines()).split())
+    assert f"kGroupSmall = {small} threads for n <= {small}" in text
+    assert f"kGroupLarge = {large} for n <= {dual_ops.N_MAX}" in text
+    assert 32 % large == 0 and large % small == 0
 
 
 def test_dual_solve_wrapper_checks_inputs():

@@ -296,9 +296,21 @@ def test_sample_layout_of_a_level(top_cap):
         assert at == s1
 
 
-def test_sample_is_rebuilt_when_the_level_changes():
+def _count_builds(monkeypatch):
+    """Make CPU levels build their samples, as levels on the card do, and
+    keep each run whose sample ``run_sample`` builds."""
+    built = []
+    inner = read_ops.run_sample
+    monkeypatch.setattr(tstore, "builds_samples", lambda device: True)
+    monkeypatch.setattr(read_ops, "run_sample",
+                        lambda run, *a: built.append(run) or inner(run, *a))
+    return built
+
+
+def test_sample_is_rebuilt_when_the_level_changes(monkeypatch):
     rng = np.random.default_rng(4)
     keys = _u64_keys(rng, 12_000)
+    _count_builds(monkeypatch)
     lv = tstore.LevelStore("cpu")
 
     def runs(*slices):
@@ -320,6 +332,92 @@ def test_sample_is_rebuilt_when_the_level_changes():
     assert torch.equal(second.top, want["top"])
     assert second.top_level == want["top_level"]
     assert second.table().shape == (10, 3)
+
+
+def test_cpu_store_builds_no_sample(monkeypatch):
+    """A level on the CPU builds no sample (the plain read never reads
+    one): its layout's sample fields are well formed and empty, and its
+    reads are the plain version's."""
+    rng = np.random.default_rng(9)
+    keys = _u64_keys(rng, 20_000)
+    built = []
+    monkeypatch.setattr(read_ops, "run_sample",
+                        lambda *a: built.append(a) or 1 / 0)
+    lv = tstore.LevelStore("cpu")
+    lv._set_runs([tstore.RunData.build(
+        u64.to_device_keys(k, "cpu"), torch.arange(len(k)), 5.0, flushes=1)
+        for k in (keys[::2], keys[1::4], keys[3::40])])
+    p = lv.pack
+    assert built == [] and lv.samples_list == [None] * 3
+    assert p.sample.numel() == p.top.numel() == 0
+    assert p.sample.dtype == p.top.dtype == torch.int64
+    assert p.sample_off == p.top_off == [0] * 4
+    assert p.top_level == [0] * 3
+    assert p.table().shape == (10, 4)
+    q = u64.to_device_keys(rng.choice(keys, 300), "cpu")
+    got = read_ops.point_read_level(q, lv.keys, lv.vals, p)
+    monkeypatch.undo()
+    want = point_read_sampled_ref(q, lv.keys, lv.vals, _sampled_layout(
+        lv, read_ops.SAMPLE_STRIDE, read_ops.SAMPLE_FANOUT,
+        read_ops.SAMPLE_MIN_RUN, read_ops.TOP_CAP))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_packed_sample_after_flushes_and_compactions(monkeypatch):
+    """A tree whose levels build their samples on the CPU's tensors (as on
+    the card), through flushes, compactions and read batches: each level's
+    packed sample is bit for bit ``sample_runs`` from scratch over the
+    same arena."""
+    import repro_torch.lsm as P
+    built = _count_builds(monkeypatch)
+    cfg = P.EngineConfig(T=3, K=(3, 2, 1, 1), buf_entries=4500,
+                         expected_entries=60_000, mfilt_bits_per_entry=6.0)
+    tree = P.LSMTree(cfg, device="cpu")
+    keys = P.populate(tree, 60_000, seed=2)
+    for s in range(3):
+        P.run_session(tree, keys, np.array([0.2, 0.2, 0.1, 0.5]),
+                      n_queries=20_000, seed=s)
+    checked = 0
+    for lv in tree.store.levels:
+        if not lv.num_runs:
+            continue
+        p = lv.pack
+        want = read_ops.sample_runs(lv.keys, lv.starts.tolist())
+        for name in ("sample", "top"):
+            assert torch.equal(getattr(p, name), want[name]), name
+        for name in ("sample_off", "top_off", "top_level"):
+            assert getattr(p, name) == want[name], name
+        checked += any(p.top_level)
+    assert checked >= 2 and len(built) >= 4
+
+
+def test_unchanged_run_builds_its_sample_once(monkeypatch):
+    """A run that stays in its level through later changes (a newer run
+    placed in front, an older one dropped) keeps its sample: one build a
+    run, and each layout is ``sample_runs`` from scratch."""
+    rng = np.random.default_rng(10)
+    keys = _u64_keys(rng, 40_000)
+    built = _count_builds(monkeypatch)
+    lv = tstore.LevelStore("cpu")
+
+    def run(k):
+        return tstore.RunData.build(u64.to_device_keys(k, "cpu"),
+                                    torch.arange(len(k)), 5.0, flushes=1)
+
+    a, b, c = keys[::3], keys[1::5], keys[2::7]
+    lv._set_runs([run(a)])
+    lv.pack
+    lv._set_runs([run(b)] + lv.runs())
+    lv.pack
+    lv._set_runs([run(c)] + lv.runs()[:1] + [run(keys[:100])])
+    p = lv.pack
+    assert [len(r) for r in built] == [len(a), len(b), len(c)]
+    want = read_ops.sample_runs(lv.keys, lv.starts.tolist())
+    assert torch.equal(p.sample, want["sample"])
+    assert torch.equal(p.top, want["top"])
+    assert (p.sample_off, p.top_off, p.top_level) == (
+        want["sample_off"], want["top_off"], want["top_level"])
+    assert p.top_level[2] == 0 and p.top_level[0] > 0
 
 
 def test_kernel_constants_match_the_wrapper():
@@ -386,7 +484,8 @@ def _cuda_recorders(monkeypatch, log, rc=0):
 
 def _cuda_level(lv):
     """``lv``'s arenas and layout as tensors that report a CUDA device."""
-    p = lv.pack
+    p = _sampled_layout(lv, read_ops.SAMPLE_STRIDE, read_ops.SAMPLE_FANOUT,
+                        read_ops.SAMPLE_MIN_RUN, read_ops.TOP_CAP)
     cuda = {n: getattr(p, n).as_subclass(_OnCuda)
             for n in ("words", "sample", "top")}
     table = p.table().as_subclass(_OnCuda)
