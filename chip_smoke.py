@@ -101,10 +101,10 @@ under ``DIR``, one JSON line, then the card's name and power limit.
 time only the dual solve (the tuner's 9,600 lanes, the share of lanes
 bit-equal to the plain version, the launch floor, a robust Adam step's
 kernels and device ms, the robust sweep's wall time) or only the Bloom
-probe (the bloom phase's plane and 1 M keys; where the tree has them,
-every compiled design's device ms and loads a key, and whether an L2
-miss fetches 32 or 64 bytes), on the ``repro_torch`` under ``DIR``: one
-JSON line, then the card's name and power limit.
+probe (the bloom phase's plane and 1 M keys; where the tree counts
+them, the loads a key), on the ``repro_torch`` under ``DIR``: one JSON
+line, then the card's name and power limit.  The probe's other designs
+are timed by ``python -m repro_torch.tools.bloom_designs``.
 
 Each phase prints one JSON line; then the kernel table as one JSON line,
 the ``nvidia-smi`` name and power limit, and last the result line.  Any
@@ -1535,7 +1535,7 @@ def kernel_bloom_probe(torch, ops, ref, plane, q, inserted):
     # each float read, priced at the float32 rate: a loose lower figure (a
     # 32-bit `%` by a runtime divisor takes tens of instructions, and the
     # INT32 rate is about half the float32 one) which never binds here.
-    needed = int(ref.probe_loads_ref(q, plane, k, 1, 1).sum())
+    needed = int(ref.probe_loads_ref(q, plane, k).sum())
     return {"name": "bloom_probe", "route": "cuda",
             "source": "src/repro_torch/csrc/bloom_probe.cu",
             "replaces": "src/repro/kernels/bloom_probe/kernel.py:63",
@@ -1553,8 +1553,7 @@ def kernel_bloom_probe(torch, ops, ref, plane, q, inserted):
 
 
 def bloom_loads(torch, ops, ref, plane, q, inserted, k) -> dict:
-    """The plane floats the launched design reads a key, as the kernel
-    counts them (``ops.bloom_probe_loads``), for the inserted and the
+    """The plane floats the kernel reads a key, as it counts them (``ops.bloom_probe_loads``), for the inserted and the
     absent keys; the count must be ``ref.probe_loads_ref``'s and the
     membership the plain version's.  Nothing for a tree without it."""
     if not hasattr(ops, "bloom_probe_loads"):
@@ -1562,56 +1561,20 @@ def bloom_loads(torch, ops, ref, plane, q, inserted, k) -> dict:
     member, loads = ops.bloom_probe_loads(q, plane, k)
     check(torch.equal(member, ref.probe_ref(q, plane, k)),
           "bloom_probe_loads: kernel != plain")
-    design = ops.DESIGN
-    check(torch.equal(loads, ref.probe_loads_ref(q, plane, k, design.first,
-                                                 design.step)),
+    check(torch.equal(loads, ref.probe_loads_ref(q, plane, k)),
           "bloom_probe_loads: the kernel's count != probe_loads_ref's")
     absent = loads[~inserted].float()
-    return {"design": design._asdict(),
-            "loads_per_present_key": loads[inserted].float().mean().item(),
+    return {"loads_per_present_key": loads[inserted].float().mean().item(),
             "loads_per_absent_key": absent.mean().item(),
             "loads_per_key": loads.float().mean().item(),
             "loads_total": int(loads.sum())}
 
 
-def sector_probe(torch, plane, n=2 ** 22, chunk=2048) -> dict:
-    """What one random 4-byte read of the plane costs in HBM traffic,
-    from three gathers (``index_select``) of ``n`` random 64-byte segments
-    of the plane: ``one``, a float of each segment's first 32-byte sector
-    (n reads); ``pair``, that float and one of the segment's second sector,
-    read ``chunk`` outputs apart (2n reads in separate requests, the
-    second soon after the first, while the segment is still in the L2);
-    ``apart``, that float and one of another random segment (2n).  If an
-    L2 miss fetches 64 bytes from HBM, ``pair`` costs about what ``one``
-    does; if it fetches 32, about what ``apart`` does.  Device ms each."""
-    flat = plane.view(-1)
-    dev = plane.device
-    g = torch.Generator(device=dev).manual_seed(8)
-    segs = flat.numel() // 16
-    a = torch.randint(0, segs, (n,), generator=g, device=dev) * 16
-    b = torch.randint(0, segs, (n,), generator=g, device=dev) * 16
-
-    def split(x, y):
-        """x and y in alternating runs of ``chunk``."""
-        return torch.stack([x.view(-1, chunk), y.view(-1, chunk)],
-                           1).reshape(-1)
-
-    idx = {"one": a, "pair": split(a, a + 8), "apart": split(a, b)}
-    out = {f"{name}_ms": device_ms(torch, lambda i=i: flat.index_select(0, i),
-                                   10, "")
-           for name, i in idx.items()}
-    out["segments"] = n
-    out["pair_over_one"] = out["pair_ms"] / out["one_ms"]
-    out["apart_over_one"] = out["apart_ms"] / out["one_ms"]
-    return out
-
-
 def bloom_main(torch, np) -> int:
     """``--bloom``: the bloom phase's plane and 1 M probe keys on the
-    ``repro_torch`` under ``--src``; the launched design's device ms and
-    loads a key, then, where the tree has them, every compiled design's
-    device ms and loads (``ops.DESIGNS``), and ``sector_probe``; one JSON
-    line, then the card's name and power limit."""
+    ``repro_torch`` under ``--src``: the kernel's device ms and, where the
+    tree counts them, its loads a key; one JSON line, then the card's name
+    and power limit."""
     from repro_torch.kernels import _build as build
     from repro_torch.kernels.bloom_probe import ops, ref
     src = str(Path(ops.__file__).parents[3])
@@ -1625,27 +1588,43 @@ def bloom_main(torch, np) -> int:
            "false_positive_rate": phase["false_positive_rate"],
            "ms": time_ms(torch, call, 50),
            "device_ms": device_ms(torch, call, 20, name)}
-    if hasattr(ops, "DESIGNS"):
-        out.update(bloom_loads(torch, ops, ref, plane, q, inserted, k))
-        designs = []
-        for d in ops.DESIGNS:
-            member, loads = ops.bloom_probe_loads(q, plane, k, d)
-            check(torch.equal(member, ref.probe_ref(q, plane, k)),
-                  f"bloom_probe {d}: kernel != plain")
-            designs.append({**d._asdict(), "device_ms": device_ms(
-                torch, lambda d=d: ops.bloom_probe_kernel(q, plane, k, d),
-                20, name), "loads_per_key": loads.float().mean().item()})
-        out["designs"] = designs
-        out["sector_probe"] = sector_probe(torch, plane)
+    out.update(bloom_loads(torch, ops, ref, plane, q, inserted, k))
     emit(out)
     print(gpu_line(), flush=True)
     return 0
 
 
+def dual_test_cases(torch, np, ops, ref) -> dict:
+    """``tests/test_torch_cuda.py::test_dual_solve_groups_and_dc_match_plain``'s
+    inputs (L in 1, 127, 1237, 9600; n in 1, 4, 5, 16; seed L * 31 + n), so
+    that any tree's kernel can be read on them: per case the largest
+    |log lambda - the plain version's| and the share of lanes within
+    1e-5."""
+    out = {}
+    for L in (1, 127, 1237, 9600):
+        for n in (1, 4, 5, 16):
+            rng = np.random.default_rng(L * 31 + n)
+            C = torch.tensor(rng.gamma(2.0, 2.0, (L, n)),
+                             dtype=torch.float32, device=DEVICE)
+            W = torch.tensor(rng.dirichlet(np.ones(n), L),
+                             dtype=torch.float32, device=DEVICE)
+            rho = torch.tensor(rng.uniform(0, 3, L), dtype=torch.float32,
+                               device=DEVICE)
+            rho[::5] = 0.0
+            llam = torch.tensor(rng.normal(1.0, 1.5, L),
+                                dtype=torch.float32, device=DEVICE)
+            dl = (ops.dual_solve_warm_batch(C, W, rho, llam)[1]
+                  - ref.dual_solve_warm_ref(C, W, rho, llam)[1]).abs()
+            out[f"L{L}_n{n}"] = {
+                "llam_max_abs": dl.max().item(),
+                "llam_frac_within_1e-5": (dl <= 1e-5).float().mean().item()}
+    return out
+
+
 def dual_solve_main(torch, np) -> int:
     """``--dual-solve``: the dual solve on the ``repro_torch`` under
     ``--src``: ``dual_times`` on the tuner's 9,600 lanes, the card's
-    launch floor, a robust Adam step (``adam_step_profile``) and the
+    launch floor, the card test's cases (``dual_test_cases``), a robust Adam step (``adam_step_profile``) and the
     robust sweep's steady wall time; one JSON line, then the card's name
     and power limit."""
     import repro_torch.core as core
@@ -1673,6 +1652,7 @@ def dual_solve_main(torch, np) -> int:
     emit({"phase": "dual_solve", "src": src,
           **dual_times(torch, ops, ref, *args), "chain_device_ms": chain,
           "launch_floor_ms": launch_floor_ms(torch),
+          "test_cases": dual_test_cases(torch, np, ops, ref),
           "adam_step": adam_step_profile(torch, core),
           "robust_sweep_first_s": sweeps[0], "robust_sweep_s": sweeps[1]})
     print(gpu_line(), flush=True)
@@ -1693,8 +1673,7 @@ def main(argv=None) -> int:
                     "and exit")
     ap.add_argument("--bloom", action="store_true",
                     help="time only the Bloom probe on the bloom phase's "
-                    "plane (every compiled design, where the tree has "
-                    "them), and exit")
+                    "plane, and exit")
     ap.add_argument("--src", default=str(SRC),
                     help="with --merge, --point-read, --dual-solve or "
                     "--bloom: the src directory whose repro_torch to time "

@@ -31,18 +31,14 @@
 // (On a plane of other values it would not be: the product would skip the
 // factors after a zero.)  At the deployment's fill of ~0.5 an absent key
 // reads ~2 floats, not k = 7.  Stopping makes a key's loads wait on each
-// other.  The kernel compiles designs that differ in how it waits: KPT
-// keys a thread (coalesced: key t of a thread is base + t * kThreads),
-// whose loads of a round issue together; FIRST floats a key in the first
-// round and up to STEP in each later one; an evict-first L2 policy on the
-// plane's loads or none.  Keys go through the read-only path and results
-// are streaming stores.  chip_smoke.py --bloom times them against each
-// other, and kernels/bloom_probe/ops.py::DESIGN names the one the wrapper
-// launches: on the H100, one key a thread and one float a round, with no
-// L2 policy (a 1 M-key batch holds enough threads to overlap the waits;
-// more keys a thread, wider rounds and the policy each measured slower;
-// PERF.md).  With `loads`, each key's count of plane floats read is
-// written too.
+// other; one key a thread, one float at a time, is what the H100 ran
+// fastest, since a 1 M-key batch holds enough threads to overlap the
+// waits.  Several keys a thread, wider rounds of loads and an evict-first
+// L2 policy on the plane each measured slower (tools/bloom_designs.py
+// builds and times them; PERF.md).  Keys go through the read-only path
+// and results are streaming stores.  With `loads`, each key's count of
+// plane floats read is written too, so that a run can show the kernel
+// stopped where ref.probe_loads_ref says it should.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,160 +54,37 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x, uint32_t seed) {
   return x ^ (x >> 16);
 }
 
-template <bool EVICT_FIRST>
-__device__ __forceinline__ float load_plane(const float* p, uint64_t pol) {
-  if (!EVICT_FIRST) return __ldg(p);
-  float v;
-  asm volatile("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
-               : "=f"(v) : "l"(p), "l"(pol));
-  return v;
-}
-
-// One round of loads: up to G floats of each live key from bit j on,
-// issued together, then multiplied in j order.
-template <int KPT, int G, bool EVICT_FIRST>
-__device__ __forceinline__ void round_of(const uint32_t (&key)[KPT],
-                                         const float* const (&row)[KPT],
-                                         float (&m)[KPT], int (&cnt)[KPT],
-                                         int j, int k, uint32_t block_bits,
-                                         uint64_t pol) {
-  float v[KPT][G];
-#pragma unroll
-  for (int t = 0; t < KPT; ++t) {
-    const bool live = m[t] != 0.0f;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      v[t][g] = 1.0f;
-      if (live && j + g < k) {
-        v[t][g] = load_plane<EVICT_FIRST>(
-            row[t] + mix32(key[t], (uint32_t)(j + g + 2)) % block_bits, pol);
-        ++cnt[t];
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < KPT; ++t) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) m[t] *= v[t][g];
-  }
-}
-
-template <int KPT, int FIRST, int STEP, bool EVICT_FIRST>
 __global__ void __launch_bounds__(kThreads) bloom_probe_kernel(
     const long long* __restrict__ keys, long long n,
     const float* __restrict__ plane, uint32_t num_blocks,
     uint32_t block_bits, int k, float* __restrict__ out,
     int* __restrict__ loads) {
-  const long long base =
-      (long long)blockIdx.x * (kThreads * KPT) + threadIdx.x;
-  uint64_t pol = 0;
-  if (EVICT_FIRST)
-    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
-  uint32_t key[KPT];
-  const float* row[KPT];
-  float m[KPT];
-  int cnt[KPT];
-#pragma unroll
-  for (int t = 0; t < KPT; ++t) {
-    const long long i = base + (long long)t * kThreads;
-    key[t] = i < n ? (uint32_t)__ldg(keys + i) : 0u;
-    row[t] = plane + (uint64_t)(mix32(key[t], 1u) % num_blocks) * block_bits;
-    m[t] = i < n ? 1.0f : 0.0f;
-    cnt[t] = 0;
-  }
-  round_of<KPT, FIRST, EVICT_FIRST>(key, row, m, cnt, 0, k, block_bits, pol);
-  for (int j = FIRST; j < k; j += STEP) {
-    bool live = false;
-#pragma unroll
-    for (int t = 0; t < KPT; ++t) live |= m[t] != 0.0f;
-    if (!live) break;
-    round_of<KPT, STEP, EVICT_FIRST>(key, row, m, cnt, j, k, block_bits,
-                                     pol);
-  }
-#pragma unroll
-  for (int t = 0; t < KPT; ++t) {
-    const long long i = base + (long long)t * kThreads;
-    if (i < n) {
-      __stcs(out + i, m[t]);
-      if (loads != nullptr) loads[i] = cnt[t];
-    }
-  }
-}
-
-template <int KPT, int FIRST, int STEP, bool EVICT_FIRST>
-void launch(const long long* keys, long long n, const float* plane,
-            uint32_t num_blocks, uint32_t block_bits, int k, float* out,
-            int* loads, cudaStream_t stream) {
-  const long long per_block = (long long)kThreads * KPT;
-  const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
-  bloom_probe_kernel<KPT, FIRST, STEP, EVICT_FIRST>
-      <<<blocks, kThreads, 0, stream>>>(keys, n, plane, num_blocks,
-                                        block_bits, k, out, loads);
-}
-
-template <int KPT, bool EVICT_FIRST>
-bool launch_rounds(int first, int step, const long long* keys, long long n,
-                   const float* plane, uint32_t num_blocks,
-                   uint32_t block_bits, int k, float* out, int* loads,
-                   cudaStream_t stream) {
-#define BLOOM_ROUNDS(F, S)                                                  \
-  if (first == F && step == S) {                                            \
-    launch<KPT, F, S, EVICT_FIRST>(keys, n, plane, num_blocks, block_bits, \
-                                   k, out, loads, stream);                  \
-    return true;                                                            \
-  }
-  BLOOM_ROUNDS(1, 1)   // one float at a time
-  BLOOM_ROUNDS(1, 8)   // 1, then the rest (k <= 9) together
-  BLOOM_ROUNDS(2, 8)   // 2, then the rest together
-  BLOOM_ROUNDS(8, 8)   // all of k <= 8 together: no stop at k = 7
-#undef BLOOM_ROUNDS
-  return false;
-}
-
-template <bool EVICT_FIRST>
-bool launch_keys(int kpt, int first, int step, const long long* keys,
-                 long long n, const float* plane, uint32_t num_blocks,
-                 uint32_t block_bits, int k, float* out, int* loads,
-                 cudaStream_t stream) {
-  switch (kpt) {
-    case 1:
-      return launch_rounds<1, EVICT_FIRST>(first, step, keys, n, plane,
-                                           num_blocks, block_bits, k, out,
-                                           loads, stream);
-    case 2:
-      return launch_rounds<2, EVICT_FIRST>(first, step, keys, n, plane,
-                                           num_blocks, block_bits, k, out,
-                                           loads, stream);
-    case 4:
-      return launch_rounds<4, EVICT_FIRST>(first, step, keys, n, plane,
-                                           num_blocks, block_bits, k, out,
-                                           loads, stream);
-    default:
-      return false;
-  }
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t key = (uint32_t)__ldg(keys + i);
+  const float* row =
+      plane + (uint64_t)(mix32(key, 1u) % num_blocks) * block_bits;
+  float m = 1.0f;
+  int j = 0;
+  for (; j < k && m != 0.0f; ++j)
+    m *= __ldg(row + mix32(key, (uint32_t)(j + 2)) % block_bits);
+  __stcs(out + i, m);
+  if (loads != nullptr) loads[i] = j;
 }
 
 }  // namespace
 
 // num_blocks and block_bits lie in [1, 2^32): the wrapper checks.  loads
-// may be null.  (keys_per_thread, first, step, evict_first) names one of
-// the compiled designs; any other returns cudaErrorInvalidValue.
+// may be null.
 extern "C" int bloom_probe_launch(const long long* keys, long long n,
                                   const float* plane, long long num_blocks,
                                   long long block_bits, int k, float* out,
-                                  int* loads, int keys_per_thread, int first,
-                                  int step, int evict_first,
-                                  cudaStream_t stream) {
+                                  int* loads, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const bool ok =
-      evict_first
-          ? launch_keys<true>(keys_per_thread, first, step, keys, n, plane,
-                              (uint32_t)num_blocks, (uint32_t)block_bits, k,
-                              out, loads, stream)
-          : launch_keys<false>(keys_per_thread, first, step, keys, n, plane,
-                               (uint32_t)num_blocks, (uint32_t)block_bits, k,
-                               out, loads, stream);
-  if (!ok) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  bloom_probe_kernel<<<blocks, kThreads, 0, stream>>>(
+      keys, n, plane, (uint32_t)num_blocks, (uint32_t)block_bits, k, out,
+      loads);
   return (int)cudaGetLastError();
 }
 

@@ -10,10 +10,9 @@
   the stop at the first zero bit cut a key's loads.
 
 The kernel stops a key at its first zero bit, exact on the 0/1 plane of
-the contract.  :data:`DESIGN` is the (keys a thread, loads of a key's
-first round, of each later round, evict-first L2 policy on the plane)
-that the wrappers launch; :data:`DESIGNS` lists every one the kernel
-compiles, which ``chip_smoke.py --bloom`` times against each other.
+the contract.  Its own count of the floats it read is what shows that it
+stops: ``ref.probe_loads_ref`` says where a key should stop, not that the
+launched kernel did.
 
 Keys are 1-D int64 tensors holding uint32 values (``ref.py`` says why not
 ``torch.uint32``); the plane is the (num_blocks, block_bits) f32 0/1
@@ -25,7 +24,7 @@ take: nothing falls back.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,31 +32,10 @@ from .. import _build
 from .._build import I32, I64, P
 from .ref import probe_loads_ref, probe_ref
 
-_LAUNCH_ARGS = (P, I64, P, I64, I64, I32, P, P, I32, I32, I32, I32, P)
+_LAUNCH_ARGS = (P, I64, P, I64, I64, I32, P, P, P)
 
 
-class Design(NamedTuple):
-    """One compiled design of ``csrc/bloom_probe.cu``."""
-    keys_per_thread: int
-    first: int          # plane floats a key reads in its first round
-    step: int           # ... in each later round, at most
-    evict_first: bool   # the plane's loads carry an evict-first L2 policy
-
-
-#: every design the kernel compiles: 1, 2 or 4 keys a thread; one float
-#: at a time, 1 then the rest, 2 then the rest, or 8 at once (no stop at
-#: k <= 8); with or without the L2 policy
-DESIGNS = tuple(Design(kpt, first, step, hint)
-                for kpt in (1, 2, 4)
-                for first, step in ((1, 1), (1, 8), (2, 8), (8, 8))
-                for hint in (True, False))
-#: the design the wrappers launch: the fastest in ``chip_smoke.py
-#: --bloom``'s turns on the H100 (PERF.md)
-DESIGN = Design(1, 1, 1, False)
-
-
-def _check(keys: torch.Tensor, plane: torch.Tensor, num_hashes: int,
-           design: Design) -> None:
+def _check(keys: torch.Tensor, plane: torch.Tensor, num_hashes: int) -> None:
     if keys.dtype != torch.int64 or keys.dim() != 1:
         raise TypeError("bloom_probe takes 1-D int64 keys")
     if plane.dtype != torch.float32 or plane.dim() != 2:
@@ -68,8 +46,6 @@ def _check(keys: torch.Tensor, plane: torch.Tensor, num_hashes: int,
                          f"both sides must lie in [1, 2**32)")
     if num_hashes < 0:
         raise ValueError(f"bloom_probe: num_hashes {num_hashes} < 0")
-    if design not in DESIGNS:
-        raise ValueError(f"bloom_probe: {design} is not a compiled design")
     if plane.device != keys.device:
         raise ValueError("bloom_probe: tensors on different devices")
     if keys.device.type not in ("cpu", "cuda"):
@@ -77,7 +53,7 @@ def _check(keys: torch.Tensor, plane: torch.Tensor, num_hashes: int,
 
 
 def _launch(keys: torch.Tensor, plane: torch.Tensor, num_hashes: int,
-            design: Design, loads: Optional[torch.Tensor]) -> torch.Tensor:
+            loads: Optional[torch.Tensor]) -> torch.Tensor:
     """The kernel on CUDA tensors; writes ``loads`` when given."""
     keys, plane = keys.contiguous(), plane.contiguous()
     N = keys.shape[0]
@@ -89,34 +65,31 @@ def _launch(keys: torch.Tensor, plane: torch.Tensor, num_hashes: int,
     _build.launch("bloom_probe", fn, keys.data_ptr(), N, plane.data_ptr(),
                   num_blocks, block_bits, num_hashes, out.data_ptr(),
                   None if loads is None else loads.data_ptr(),
-                  design.keys_per_thread, design.first, design.step,
-                  int(design.evict_first), device=keys.device)
+                  device=keys.device)
     return out
 
 
 def bloom_probe_kernel(keys: torch.Tensor, plane: torch.Tensor,
-                       num_hashes: int = 4,
-                       design: Design = DESIGN) -> torch.Tensor:
+                       num_hashes: int = 4) -> torch.Tensor:
     """keys: (N,) int64 (uint32 values); plane: (num_blocks, block_bits)
     f32 0/1.  Returns (N,) f32 membership (1.0 = maybe present)."""
-    _check(keys, plane, num_hashes, design)
+    _check(keys, plane, num_hashes)
     if keys.device.type == "cpu":
         return probe_ref(keys, plane, num_hashes)
-    return _launch(keys, plane, num_hashes, design, None)
+    return _launch(keys, plane, num_hashes, None)
 
 
 def bloom_probe_loads(keys: torch.Tensor, plane: torch.Tensor,
-                      num_hashes: int = 4, design: Design = DESIGN
+                      num_hashes: int = 4
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(membership (N,) f32, plane floats read a key (N,) int32), the
     latter as the kernel counts them in its own launch."""
-    _check(keys, plane, num_hashes, design)
+    _check(keys, plane, num_hashes)
     if keys.device.type == "cpu":
         return (probe_ref(keys, plane, num_hashes),
-                probe_loads_ref(keys, plane, num_hashes, design.first,
-                                design.step))
+                probe_loads_ref(keys, plane, num_hashes))
     loads = torch.empty(keys.shape[0], dtype=torch.int32, device=keys.device)
-    return _launch(keys, plane, num_hashes, design, loads), loads
+    return _launch(keys, plane, num_hashes, loads), loads
 
 
 def bloom_probe(keys: torch.Tensor, plane: torch.Tensor,

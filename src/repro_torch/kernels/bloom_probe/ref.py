@@ -72,20 +72,15 @@ def probe_ref(keys: torch.Tensor, plane: torch.Tensor,
     return member
 
 
-def probe_loads_ref(keys: torch.Tensor, plane: torch.Tensor, num_hashes: int,
-                    first: int, step: int) -> torch.Tensor:
-    """(N,) int32: the plane floats the kernel reads for each key when it
-    reads ``first`` of a key's k floats in its first round and up to
-    ``step`` in each later one, and stops after the round in which the
-    key's product became 0: all k for a key whose floats are all nonzero,
-    else the end of the round that holds its first 0, at most k."""
+def probe_loads_ref(keys: torch.Tensor, plane: torch.Tensor,
+                    num_hashes: int) -> torch.Tensor:
+    """(N,) int32: the plane floats the kernel reads for each key, one at a
+    time up to and including its first 0: all k for a key whose floats
+    are all nonzero."""
     k = num_hashes
     num_blocks, block_bits = plane.shape
     block, bits = _hashes(keys, num_blocks, block_bits, k)
-    zero = torch.full(keys.shape, k, dtype=torch.int64, device=keys.device)
+    reads = torch.full(keys.shape, k, dtype=torch.int64, device=keys.device)
     for j in reversed(range(k)):
-        zero = torch.where(plane[block, bits[j]] == 0, j, zero)
-    later = torch.clamp(zero - first, min=0)
-    end = torch.where(zero < first, first,
-                      first + (later // step + 1) * step)
-    return torch.minimum(end, torch.full_like(end, k)).to(torch.int32)
+        reads = torch.where(plane[block, bits[j]] == 0, j + 1, reads)
+    return reads.to(torch.int32)

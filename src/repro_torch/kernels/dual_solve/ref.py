@@ -104,81 +104,3 @@ def dual_solve_warm_ref(C: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
         with torch.no_grad():
             return val, lnew, envelope_grad(C.detach(), W, rho, lnew)
     return val, lnew
-
-
-def _clip_mid(llo, lhi, lspan):
-    return torch.minimum(torch.maximum(0.5 * (llo + lhi), lspan - 16.0),
-                         lspan + 16.0)
-
-
-def _step(llo, lhi, a, b, smaller):
-    """One golden step by the compare ``smaller``: (lo, hi, a, b, the
-    point whose g the step needs)."""
-    lo = torch.where(smaller, llo, a)
-    hi = torch.where(smaller, b, lhi)
-    na = torch.where(smaller, hi - GR * (hi - lo), b)
-    nb = torch.where(smaller, a, lo + GR * (hi - lo))
-    return lo, hi, na, nb, torch.where(smaller, na, nb)
-
-
-def dual_solve_paired_ref(C: torch.Tensor, W: torch.Tensor,
-                          rho: torch.Tensor, llam: torch.Tensor,
-                          half_width: float = 0.8, n_local: int = 3,
-                          n_golden: int = 6
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`dual_solve_warm_ref` in the kernel's order of evaluation
-    (``csrc/dual_solve.cu``): each golden step's point evaluated beside
-    the two points the next step may need, the compare that waits on it
-    choosing one; the last step's point never evaluated (its bracket is
-    fixed by its compare), the final g taken at each outcome's lambda
-    instead.  Every g is taken at the same point by the same ops, so the
-    result is the plain version's bit for bit; the tests hold the
-    kernel's control flow on the CPU through it."""
-    W = W.expand_as(C)
-    logW = torch.log(W)
-
-    def g(ll):
-        return g_of_llam(C, logW, rho, ll)
-
-    with torch.no_grad():
-        lls = torch.stack([llam + o for o in offsets(half_width, n_local)],
-                          1)
-        vals = torch.stack([g(lls[:, j]) for j in range(n_local)], 1)
-        i = torch.argmin(vals, dim=1, keepdim=True)
-        llo = lls.gather(1, torch.clamp(i - 1, min=0))[:, 0]
-        lhi = lls.gather(1, torch.clamp(i + 1, max=n_local - 1))[:, 0]
-        a = lhi - GR * (lhi - llo)
-        b = llo + GR * (lhi - llo)
-        fa, fb = g(a), g(b)
-        span = C.max(dim=-1).values - C.min(dim=-1).values
-        lspan = torch.log(torch.clamp(span, min=1e-9))
-        final, it = None, 0
-        while it < n_golden:
-            smaller = fa < fb
-            lo1, hi1, a1, b1, p1 = _step(llo, lhi, a, b, smaller)
-            it += 1
-            if it == n_golden:
-                llo, lhi = lo1, hi1
-                break
-            yes = _step(lo1, hi1, a1, b1, torch.ones_like(smaller))
-            no = _step(lo1, hi1, a1, b1, torch.zeros_like(smaller))
-            last = it + 1 == n_golden
-            f0 = g(p1)
-            f_yes = g(_clip_mid(yes[0], yes[1], lspan) if last else yes[4])
-            f_no = g(_clip_mid(no[0], no[1], lspan) if last else no[4])
-            nfa = torch.where(smaller, f0, fb)
-            nfb = torch.where(smaller, fa, f0)
-            smaller2 = nfa < nfb
-            it += 1
-            llo, lhi, a, b = (torch.where(smaller2, y, n)
-                              for y, n in zip(yes[:4], no[:4]))
-            fnew = torch.where(smaller2, f_yes, f_no)
-            if last:
-                final = fnew
-                break
-            fa, fb = (torch.where(smaller2, fnew, nfb),
-                      torch.where(smaller2, nfa, fnew))
-        lnew = _clip_mid(llo, lhi, lspan)
-        val = torch.where(rho <= 0.0, (W * C).sum(dim=-1),
-                          g(lnew) if final is None else final)
-    return val, lnew

@@ -18,8 +18,7 @@ import torch
 from repro.kernels.bloom_probe import kernel as jkernel
 from repro.kernels.bloom_probe import ops as jops
 from repro.kernels.bloom_probe import ref as jref
-from repro_torch.kernels.bloom_probe.ops import (DESIGN, DESIGNS, Design,
-                                                 bloom_probe,
+from repro_torch.kernels.bloom_probe.ops import (bloom_probe,
                                                  bloom_probe_kernel,
                                                  bloom_probe_loads)
 from repro_torch.kernels.bloom_probe.ref import (build_plane, mix32,
@@ -142,23 +141,18 @@ def test_wrappers_refuse_bad_inputs(monkeypatch):
         build_plane(keys, 8, 64, 4)
 
 
-# (first round's loads, each later round's) of every compiled design
-ROUNDS = sorted({(d.first, d.step) for d in DESIGNS})
-
-
-@pytest.mark.parametrize("first,step", ROUNDS)
 @pytest.mark.parametrize("num_hashes", [0, 1, 7, 16])
-def test_loads_stop_at_the_first_zero_bit(first, step, num_hashes):
+def test_loads_stop_at_the_first_zero_bit(num_hashes):
     """``probe_loads_ref`` (the count the kernel writes): a key whose k
-    floats are all 1 reads k; any other reads up to the end of the round
-    that holds its first 0, read one float at a time from the plane here;
-    and the product of the floats read is the full product, bit for bit,
-    on the contract's 0/1 plane."""
-    keys = _keys(first * 100 + step + num_hashes, 3000)
+    floats are all 1 reads k; any other reads up to and including its
+    first 0, read one float at a time from the plane here; and the
+    product of the floats read is the full product, bit for bit, on the
+    contract's 0/1 plane."""
+    keys = _keys(101 + num_hashes, 3000)
     plane = build_plane(_t(keys[:600]), 64, 512, max(num_hashes, 1),
                         device="cpu")
     q = _t(keys[300:2300])
-    got = probe_loads_ref(q, plane, num_hashes, first, step)
+    got = probe_loads_ref(q, plane, num_hashes)
     assert got.dtype == torch.int32
     block = (mix32(q, 1) % 64).tolist()
     full = probe_ref(q, plane, num_hashes)
@@ -166,36 +160,23 @@ def test_loads_stop_at_the_first_zero_bit(first, step, num_hashes):
         floats = [float(plane[block[i], int(mix32(torch.tensor([key]),
                                                   j + 2)) % 512])
                   for j in range(num_hashes)]
-        zero = floats.index(0.0) if 0.0 in floats else num_hashes
-        if zero == num_hashes:
-            want = num_hashes
-        else:
-            end = first
-            while end <= zero:
-                end += step
-            want = min(end, num_hashes)
+        want = floats.index(0.0) + 1 if 0.0 in floats else num_hashes
         assert int(got[i]) == want, (i, floats)
         prod = 1.0
         for f in floats[:want]:
             prod *= f
         assert prod == float(full[i])
     if num_hashes == 7:
-        assert {int(x) for x in got} >= {min(first, 7), 7}
-        absent = float(got[full == 0].float().mean())
-        assert absent < 7 if first < 7 else absent == 7
+        assert {int(x) for x in got} >= {1, 7}
+        assert float(got[full == 0].float().mean()) < 7
 
 
-def test_loads_wrapper_on_cpu_and_design_checks():
+def test_loads_wrapper_on_cpu():
     """On the CPU ``bloom_probe_loads`` is the plain membership with the
-    plain count; a design the kernel does not compile raises."""
+    plain count."""
     keys = _keys(11, 1000)
     plane = build_plane(_t(keys[:500]), 32, 512, 7, device="cpu")
     member, loads = bloom_probe_loads(_t(keys), plane, 7)
     assert torch.equal(member, probe_ref(_t(keys), plane, 7))
-    assert torch.equal(loads, probe_loads_ref(_t(keys), plane, 7,
-                                              DESIGN.first, DESIGN.step))
+    assert torch.equal(loads, probe_loads_ref(_t(keys), plane, 7))
     assert bool((loads[:500] == 7).all())
-    assert DESIGN in DESIGNS
-    with pytest.raises(ValueError, match="compiled"):
-        bloom_probe_kernel(_t(keys), plane, 7,
-                           design=Design(3, 1, 8, True))

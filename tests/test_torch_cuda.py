@@ -105,12 +105,13 @@ def test_dual_solve_groups_and_dc_match_plain(dev, L, n):
     v2, l2, dc2 = dual_solve_warm_ref(C, W, rho, llam, grad=True)
     assert ((v1 - v2).abs() / v2.abs()).max().item() <= 1e-5
     # a lane whose compare flips on a 1-ulp difference between the
-    # kernel's expf and torch.exp lands in a neighbouring bracket, at most
-    # two scan steps (2 * half_width) away: 0.127 on one lane of the
-    # 9,600 x 4 case, the one-thread kernel's lane too; its value agrees
+    # kernel's expf and torch.exp lands in a neighbouring bracket: the
+    # largest such move on these inputs is 0.12724 (L 9,600, n 4), the
+    # same for the one-thread kernel this one replaced (chip_smoke.py
+    # --dual-solve, ``test_cases``, on an H100); its value agrees
     dl = (l1 - l2).abs()
     assert (dl <= 1e-5).float().mean().item() >= (0.99 if L > 100 else 1.0)
-    assert dl.max().item() <= 2 * 0.8
+    assert dl.max().item() <= 0.13
     # dc is the envelope gradient at the kernel's own lambda: the plain
     # formula there, and the plain version's dc wherever the two lambdas
     # agree (a flipped lane's gradient is taken at another lambda)
@@ -524,10 +525,10 @@ def _bloom_check(dev, inserted, absent, n_in, num_blocks, k):
 @pytest.mark.parametrize("n", [1, 255, 1_000_000])
 def test_bloom_probe_stops_at_the_first_zero(dev, n, k, mix):
     """N keys all inserted, all absent or half and half, against a plane of
-    10 bits a key in 512-bit blocks with k hashes: the launched design
-    equals the plain version bit for bit, misses no inserted key, and
-    counts the plane floats each key read as ``probe_loads_ref`` does."""
-    from repro_torch.kernels.bloom_probe.ops import DESIGN, bloom_probe_loads
+    10 bits a key in 512-bit blocks with k hashes: the kernel equals the
+    plain version bit for bit, misses no inserted key, and counts the
+    plane floats each key read as ``probe_loads_ref`` does."""
+    from repro_torch.kernels.bloom_probe.ops import bloom_probe_loads
     from repro_torch.kernels.bloom_probe.ref import probe_loads_ref
     keys = _bloom_keys(n + k, 3 * n)
     n_in = {"present": n, "absent": 0, "mixed": (n + 1) // 2}[mix]
@@ -537,26 +538,7 @@ def test_bloom_probe_stops_at_the_first_zero(dev, n, k, mix):
     assert torch.equal(got, probe_ref(q, plane, k))
     assert torch.equal(got, bloom_probe_kernel(q, plane, num_hashes=k))
     assert bool((got[:n_in] == 1.0).all())
-    assert torch.equal(loads, probe_loads_ref(q, plane, k, DESIGN.first,
-                                              DESIGN.step))
-
-
-def test_bloom_probe_every_design_matches_plain(dev):
-    """Each compiled design (keys a thread, load rounds, L2 policy), on
-    100,003 keys half inserted at k = 7 and k = 16: bit for bit the plain
-    version, and its loads as ``probe_loads_ref`` counts them."""
-    from repro_torch.kernels.bloom_probe.ops import DESIGNS, bloom_probe_loads
-    from repro_torch.kernels.bloom_probe.ref import probe_loads_ref
-    keys = _bloom_keys(5, 300_000)
-    for k in (7, 16):
-        plane = build_plane(keys[:200_000], 7813, 512, k, device=dev)
-        q = torch.cat([keys[:50_002], keys[200_000:250_001]]).to(dev)
-        want = probe_ref(q, plane, k)
-        for design in DESIGNS:
-            got, loads = bloom_probe_loads(q, plane, k, design)
-            assert torch.equal(got, want), design
-            assert torch.equal(loads, probe_loads_ref(
-                q, plane, k, design.first, design.step)), design
+    assert torch.equal(loads, probe_loads_ref(q, plane, k))
 
 
 @pytest.mark.parametrize("n", [1, 1000, 1_000_000])

@@ -39,8 +39,7 @@ from repro.lsm.read_path import point_read_level_numpy
 from repro.lsm.store import TOMB, LevelStore, RunData
 from repro_torch.kernels.dual_solve.ops import (dual_solve_warm,
                                                 dual_solve_warm_batch)
-from repro_torch.kernels.dual_solve.ref import (dual_solve_paired_ref,
-                                                dual_solve_warm_ref)
+from repro_torch.kernels.dual_solve.ref import dual_solve_warm_ref
 from repro_torch.kernels.merge.ops import merge_runs, two_way_merge
 from repro_torch.kernels.point_read.ops import point_read_level
 from repro_torch.lsm import bloom as tbloom
@@ -173,21 +172,6 @@ def test_dual_solve_autograd_uses_the_saved_dc(n, shared_w):
     want = _plain_backward(torch.from_numpy(C), Wt, rt, lnew, g_val)
     np.testing.assert_allclose(c.grad.numpy(), want.numpy(), rtol=1e-6,
                                atol=0)
-
-
-@pytest.mark.parametrize("n_local", [1, 2, 3, 4])
-@pytest.mark.parametrize("n_golden", [0, 1, 2, 3, 5, 6, 7])
-def test_dual_solve_paired_order_bit_equal_to_plain(n_golden, n_local):
-    """The kernel's order of evaluation (golden steps in pairs beside the
-    next step's two candidates, the last step's point skipped and the
-    final g taken with it), run on the CPU by ``dual_solve_paired_ref``:
-    the plain version's values and log lambda bit for bit, for any number
-    of scan points and golden steps."""
-    C, W, rho, llam = (torch.from_numpy(a) for a in
-                       _dual_inputs(301, 4, seed=n_golden * 10 + n_local))
-    want = dual_solve_warm_ref(C, W, rho, llam, 0.8, n_local, n_golden)
-    got = dual_solve_paired_ref(C, W, rho, llam, 0.8, n_local, n_golden)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_dual_solve_group_sizes_match_the_wrapper():
