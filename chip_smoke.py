@@ -21,7 +21,11 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    populate in a profiler trace (its busy share, its top kernels and its
    fold steps' device time, two ``merge`` kernels a step); and a
    200,000-entry, 20,000-query run on the CPU plain path and on the card,
-   whose ``IOStats`` and answers must be bit-identical.
+   whose ``IOStats`` and answers must be bit-identical; and
+   ``run_policy_fleet`` with both tunings x {klsm, lazy_leveling} x the
+   expected mix and the burst at the same size, every ``IOStats``
+   bit-identical on the CPU and the card (counting the card's ``merge``
+   and ``point_read`` launches).
 3. ``serve`` — the LM server, once per architecture of ``SERVE``: the
    dense ``qwen3-14b`` (40 layers, d_model 5120, 14.8 B parameters) and
    the attention-free ``rwkv6-3b`` (32 layers, d_model 2560, 3.1 B), each
@@ -74,8 +78,28 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    they built; and ``launch_floor_ms``, a one-element add's device
    time.
 
+6. ``suites`` — the paper suites ``fig4`` and ``fig10`` through
+   ``repro_torch.bench.run`` at their committed sizes, every tuning
+   started from the starts the committed ``BENCH_<suite>.json`` were made
+   from (``bench/jax_starts.npz``), so every held field must match the
+   committed file within the runner's tolerance; one JSON line per suite
+   (wall time, each row's derived values, held fields matched and
+   missed, the card's time
+   fields, the start-dependent spreads, each kernel's launches, which for
+   ``dual_solve`` must be one per robust Adam step plus one per tuning);
+   and the ``dual_solve`` launches a profiler trace records over one
+   fig10 robust call, which must be its steps + 1.  The ``tuner`` suite
+   runs only under ``--suites`` (below): its seed-style row alone takes
+   about 1,000 s on the H100.
+
 The build's ``ptxas`` report (registers and spills) for the bf16
 ``rwkv6`` kernel is printed on a line of its own.
+
+    python3 chip_smoke.py --suites [--src DIR]
+
+runs only the suites phase, over ``fig4``, ``fig10`` and ``tuner``, on
+the ``repro_torch`` under ``DIR``: one JSON line per suite, then the
+card's name and power limit.
 
     python3 chip_smoke.py --merge [--src DIR] [--sizes FILE]
 
@@ -133,6 +157,12 @@ N_STARTS, STEPS = 64, 250
 N_ENTRIES, N_QUERIES = 10_000_000, 1_000_000
 DEVICE = "cuda"
 SMALL_ENTRIES, SMALL_QUERIES = 200_000, 20_000
+# the fleet check: compaction policies, beside the 200K run
+FLEET_POLICIES = ("klsm", "lazy_leveling")
+# the paper suites of repro_torch.bench, at their committed sizes: the
+# default run holds fig4 and fig10; the tuner suite (1,110 s on the H100,
+# most of it its seed-style row) runs under --suites, with the other two
+SUITES, ALL_SUITES = ("fig4", "fig10"), ("fig4", "fig10", "tuner")
 MERGE_N, READ_BATCH = 5_000_000, 1_000_000
 # (arch, the kernel its prefill runs once per layer)
 SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"))
@@ -642,8 +672,40 @@ def phase_engine(torch, np, core, lsm, quickstart, build, merge_ops,
               for a, b in zip(small["cpu"][2], small[DEVICE][2])),
           "arenas: cpu != cuda")
     out["cpu_vs_cuda_200k"] = {"identical": True, "io": small[DEVICE][0]}
+    out["fleet_200k"] = fleet_check(np, core, lsm, quickstart, build, phis)
     return (trees["nominal"], keys_of["nominal"], merges, reads, builds,
             out)
+
+
+def fleet_check(np, core, lsm, quickstart, build, phis) -> dict:
+    """``run_policy_fleet``: quickstart's nominal and robust tunings x
+    ``FLEET_POLICIES`` x the expected mix and the burst, at
+    ``SMALL_ENTRIES`` and ``SMALL_QUERIES``, on the CPU plain path and on
+    the card (launch counts set to 0 just before it): every ``IOStats``
+    must be bit-identical, and the card's run must launch ``merge`` and
+    ``point_read``."""
+    mixes = np.stack([quickstart.EXPECTED, quickstart.BURST])
+    args = ([phis["nominal"], phis["robust"]], core.LSMSystem(),
+            FLEET_POLICIES, mixes)
+    io, wall = {}, {}
+    for dev in ("cpu", DEVICE):
+        log(f"engine: 200K fleet on {dev}")
+        build.reset_launches()
+        t0 = time.time()
+        _, res = lsm.run_policy_fleet(*args, n_keys=SMALL_ENTRIES,
+                                      n_queries=SMALL_QUERIES, device=dev)
+        wall[dev] = time.time() - t0
+        io[dev] = [[[r.io.as_dict() for r in sess] for sess in pol]
+                   for pol in res]
+        avg = [[[r.avg_io_per_query for r in sess] for sess in pol]
+               for pol in res]
+    launches = {k: build.LAUNCHES[k] for k in ("merge", "point_read")}
+    check(io["cpu"] == io[DEVICE], "fleet IOStats: cpu != cuda")
+    check(all(launches.values()), f"the card's fleet launched {launches}")
+    return {"identical": True, "tunings": ["nominal", "robust"],
+            "policies": list(FLEET_POLICIES), "sessions": len(mixes),
+            "avg_io_per_query": avg, "cpu_s": wall["cpu"],
+            "cuda_s": wall[DEVICE], "launches": launches}
 
 
 # -- phase 3: LM serving -------------------------------------------------------
@@ -1659,6 +1721,97 @@ def dual_solve_main(torch, np) -> int:
     return 0
 
 
+# -- phase 6: the paper suites ----------------------------------------------
+
+def expected_dual_launches(suite: str, fig10, tuner) -> int:
+    """``dual_solve`` launches a suite makes: one per robust Adam step plus
+    one for the final iterate, per robust tuning.  fig10: one tuning per
+    entry size; tuner: the Fig. 6 grid's warm-up pair, its batched call
+    and one call per cell (the seed style solves its dual in torch ops)."""
+    if suite == "fig10":
+        return len(fig10.ENTRY_BITS) * (fig10.STEPS + 1)
+    if suite == "tuner":
+        return (len(tuner.GRID_WORKLOADS) * len(tuner.GRID_RHOS) + 3) \
+            * (tuner.GRID_STEPS + 1)
+    return 0
+
+
+def fig10_profiled_launches(torch, core, build, fig10, starts) -> dict:
+    """One fig10 robust call (both workloads at the smallest entry size)
+    in a profiler trace: the ``dual_solve`` kernels the trace records and
+    the wrapper's count, each of which must be its steps + 1.  A trace
+    that records fewer than the wrapper counted (late in this script a
+    trace can drop a launch) is taken again, up to three times."""
+    sys_e = core.LSMSystem(entry_bits=float(fig10.ENTRY_BITS[0]))
+    fig10.robust_tunings(sys_e, DEVICE, starts)          # warm
+    name = CUDA_NAMES["dual_solve"]
+    for attempt in range(3):
+        build.reset_launches()
+        _, events = cuda_events(torch, lambda: fig10.robust_tunings(
+            sys_e, DEVICE, starts), tries=1)
+        wrapper = build.LAUNCHES["dual_solve"]
+        traced = sum(name in n for n, _ in events)
+        if traced == wrapper:
+            break
+        log(f"suites: fig10 trace {attempt + 1} holds {traced} of "
+            f"{wrapper} dual_solve launches")
+    check(wrapper == traced == fig10.STEPS + 1, f"one fig10 robust call: "
+          f"{wrapper} dual_solve launches counted, {traced} traced, "
+          f"expected {fig10.STEPS + 1}")
+    return {"steps": fig10.STEPS, "wrapper": wrapper, "profiled": traced}
+
+
+def phase_suites(torch, core, build, suites=SUITES) -> list:
+    """Each of ``suites`` through ``repro_torch.bench.run.run_suite`` on
+    the card, from the committed files' starts, with the launch counts set
+    to 0 just before it; returns one JSON line per suite.  A missed held
+    field, a missing row or key, or a ``dual_solve`` count other than
+    :func:`expected_dual_launches` fails the phase."""
+    from repro_torch.bench import fig10, run, tuner
+    from repro_torch.bench.common import committed_starts
+    lines = []
+    for suite in suites:
+        log(f"suites: {suite}")
+        build.reset_launches()
+        res = run.run_suite(suite, device=DEVICE, baseline_dir=ROOT,
+                            starts=committed_starts)
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        cmp = res["comparison"]
+        line = {"phase": "suites", "suite": suite, "starts": "committed",
+                "wall_s": res["wall_s"],
+                "rows": {r.name: r.derived for r in res["rows"]},
+                "held_matched": len(cmp["held"]),
+                "held_missed": [list(m) for m in cmp["missed"]],
+                "time_fields": {f: v for f, v, _ in cmp["time"]},
+                "spreads": {f: [v, w] for f, v, w in cmp["spread"]},
+                "launches": launches}
+        if suite == "fig10":
+            line["fig10_robust_call"] = fig10_profiled_launches(
+                torch, core, build, fig10, committed_starts)
+        lines.append(line)
+        emit(line)
+        check(not cmp["missed"], f"suite {suite}: held fields missed "
+              f"{cmp['missed']}")
+        want = expected_dual_launches(suite, fig10, tuner)
+        check(launches.get("dual_solve", 0) == want, f"suite {suite}: "
+              f"{launches.get('dual_solve', 0)} dual_solve launches, "
+              f"expected {want}")
+    return lines
+
+
+def suites_main(torch) -> int:
+    """``--suites``: the suites phase over ``ALL_SUITES`` on the
+    ``repro_torch`` under ``--src``: one JSON line per suite, then the
+    card's name and power limit."""
+    import repro_torch.core as core
+    from repro_torch.kernels import _build as build
+    log(f"suites only, {Path(core.__file__).parents[1]}")
+    build.build(["dual_solve", "merge", "point_read"])
+    phase_suites(torch, core, build, ALL_SUITES)
+    print(gpu_line(), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--merge", action="store_true",
@@ -1674,10 +1827,14 @@ def main(argv=None) -> int:
     ap.add_argument("--bloom", action="store_true",
                     help="time only the Bloom probe on the bloom phase's "
                     "plane, and exit")
+    ap.add_argument("--suites", action="store_true",
+                    help="run only the paper suites, the tuner suite "
+                    "included, and exit")
     ap.add_argument("--src", default=str(SRC),
-                    help="with --merge, --point-read, --dual-solve or "
-                    "--bloom: the src directory whose repro_torch to time "
-                    "(another tree's, to compare two in one run)")
+                    help="with --merge, --point-read, --dual-solve, "
+                    "--bloom or --suites: the src directory whose "
+                    "repro_torch to run (another tree's, to compare two "
+                    "in one run)")
     ap.add_argument("--sizes", help="with --merge: also replay the engine "
                     "path's merges at the sizes this file holds (a JSON "
                     "list of (na, nb), or a whole run's output)")
@@ -1702,6 +1859,8 @@ def main(argv=None) -> int:
         return dual_solve_main(torch, np)
     if args.bloom:
         return bloom_main(torch, np)
+    if args.suites:
+        return suites_main(torch)
     import repro_torch.core as core
     import repro_torch.lsm as lsm
     from repro_torch import quickstart
@@ -1784,6 +1943,7 @@ def main(argv=None) -> int:
         k["launches"] = launches[k["name"]]
     emit({"phase": "kernels", "launch_floor_ms": launch_floor_ms(torch),
           "kernels": kernels})
+    phase_suites(torch, core, build)
     keyset = ("name", "route", "source", "replaces", "launches",
               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")

@@ -127,6 +127,43 @@ def to_phi_policy(theta: torch.Tensor, policy: torch.Tensor, sys: LSMSystem,
     return Phi(T=T, mfilt_bits=mfilt, K=K)
 
 
+#: engine-side compaction policies (``repro_torch.lsm.planner.POLICIES``)
+#: the cost model knows how to predict for
+ENGINE_POLICIES = ("klsm", "lazy_leveling", "partial", "tombstone_ttl")
+
+#: Calibrated steady-state fill of lazy leveling's upper levels, as a
+#: fraction of the tiering headroom ``T - 2`` above the 1-run floor:
+#: ``K_upper = 1 + LAZY_LEVELING_FILL * (T - 2)``.  The measured engine runs
+#: far below the K = T-1 tiering ceiling (read-triggered squeezes drain the
+#: deepest level, capacity spills empty upper levels wholesale); 0.125 is
+#: the JAX package's calibration against its compaction suite (250k keys x
+#: 10k queries, T=6: ~1-1.6 live runs per upper level).
+LAZY_LEVELING_FILL = 0.125
+
+
+def policy_effective_phi(phi: Phi, sys: LSMSystem, policy: str,
+                         params: tuple = ()) -> Phi:
+    """The Phi whose cost vector predicts ``phi`` deployed under an engine
+    compaction policy: ``klsm``, ``partial`` and ``tombstone_ttl`` keep the
+    tuning's own K profile; ``lazy_leveling`` gets ``K_i = 1 + fill * (T-2)``
+    above the last level and ``K_L = 1``, with ``fill`` from ``params``
+    ((name, value) pairs, the policy's engine kwargs) or
+    :data:`LAZY_LEVELING_FILL`."""
+    if policy not in ENGINE_POLICIES:
+        raise ValueError(f"unknown engine policy {policy!r}; "
+                         f"known: {ENGINE_POLICIES}")
+    if policy != "lazy_leveling":
+        return phi
+    fill = float(dict(params).get("fill", LAZY_LEVELING_FILL))
+    idx = torch.arange(1, sys.max_levels + 1, dtype=phi.K.dtype,
+                       device=phi.K.device)
+    L = num_levels(phi.T, mbuf_bits(phi, sys), sys, smooth=False)
+    K_up = 1.0 + fill * torch.clamp(phi.T - 2.0, min=0.0)
+    K = torch.where(idx == L[..., None], torch.ones_like(phi.K),
+                    K_up[..., None].expand_as(phi.K))
+    return Phi(T=phi.T, mfilt_bits=phi.mfilt_bits, K=K)
+
+
 def describe(phi: Phi, sys: LSMSystem) -> str:
     """Human-readable tuning summary: (T, m_filt bits/entry, K-profile)."""
     T = float(phi.T)

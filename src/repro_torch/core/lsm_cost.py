@@ -94,10 +94,96 @@ def num_levels(T: torch.Tensor, mbuf: torch.Tensor, sys: LSMSystem,
     return torch.clamp(torch.ceil(lf), min=1.0)
 
 
+def _levels(sys: LSMSystem, like: torch.Tensor) -> torch.Tensor:
+    """The level ladder i = 1..max_levels."""
+    return torch.arange(1, sys.max_levels + 1, dtype=like.dtype,
+                        device=like.device)
+
+
+def level_fprs(phi: Phi, sys: LSMSystem, smooth: bool = False
+               ) -> torch.Tensor:
+    """Eq. 3 (Monkey allocation): per-level false positive rates, shape
+    ``(..., max_levels)``, clipped to [1e-30, 1]; callers mask levels
+    beyond L."""
+    T = torch.clamp(phi.T, min=1.0 + 1e-6)
+    L = num_levels(T, mbuf_bits(phi, sys), sys, smooth=smooth)[..., None]
+    i = _levels(sys, phi.T)
+    log_T = torch.log(T)[..., None]
+    Tb = T[..., None]
+    log_f = (Tb / (Tb - 1.0)) * log_T - (L + 1.0 - i) * log_T \
+        - (phi.mfilt_bits[..., None] / sys.N) * LN2_SQ
+    return torch.clamp(torch.exp(torch.clamp(log_f, max=0.0)), 1e-30, 1.0)
+
+
+def level_mask(phi: Phi, sys: LSMSystem, smooth: bool = False
+               ) -> torch.Tensor:
+    """1.0 for levels 1..L, 0.0 beyond. With ``smooth`` the last level gets a
+    fractional weight so that d(mask)/dT exists through L."""
+    L = num_levels(phi.T, mbuf_bits(phi, sys), sys, smooth=smooth)[..., None]
+    i = _levels(sys, phi.T)
+    if smooth:
+        return torch.clamp(L - i + 1.0, 0.0, 1.0)
+    return (i <= L).to(phi.T.dtype)
+
+
 def _clamped_K(phi: Phi) -> torch.Tensor:
     """K_i in [1, T-1] (a leveling run cap floor of 1; tiering cap of T-1)."""
     return torch.minimum(torch.clamp(phi.K, min=1.0),
                          torch.clamp(phi.T - 1.0, min=1.0)[..., None])
+
+
+# The four cost terms one by one, as the JAX package writes them: each
+# recomputes L, the FPRs and the mask.  ``cost_vector`` below fuses them;
+# the tuner suite's seed-style baseline measures this unfused pattern.
+
+def empty_read_cost(phi: Phi, sys: LSMSystem, smooth: bool = False
+                    ) -> torch.Tensor:
+    """Eq. 4: Z0 = sum_i K_i * f_i."""
+    f = level_fprs(phi, sys, smooth=smooth)
+    m = level_mask(phi, sys, smooth=smooth)
+    return (m * _clamped_K(phi) * f).sum(dim=-1)
+
+
+def nonempty_read_cost(phi: Phi, sys: LSMSystem, smooth: bool = False
+                       ) -> torch.Tensor:
+    """Eq. 6: expectation over the level holding the entry of
+    1 (the hit) + false-positive I/Os above + half the runs within the
+    level."""
+    T = torch.clamp(phi.T, min=1.0 + 1e-6)
+    f = level_fprs(phi, sys, smooth=smooth)
+    m = level_mask(phi, sys, smooth=smooth)
+    K = _clamped_K(phi)
+    mbuf = torch.clamp(mbuf_bits(phi, sys), min=sys.min_buf_bits)
+    i = _levels(sys, phi.T)
+    # level capacity (entries), (T-1) T^{i-1} m_buf / E (Eq. 5 summand),
+    # masked in log-space as in cost_vector
+    log_cap = torch.log(T - 1.0)[..., None] + (i - 1.0) \
+        * torch.log(T)[..., None] + torch.log(mbuf / sys.entry_bits)[..., None]
+    cap = torch.exp(torch.where(m > 0, log_cap,
+                                torch.full_like(log_cap, -torch.inf))) * m
+    Nf = cap.sum(dim=-1, keepdim=True)        # Eq. 5
+    p_level = cap / torch.clamp(Nf, min=1.0)
+    kf = m * K * f
+    above = torch.cumsum(kf, dim=-1) - kf     # false positives above level i
+    per_level = 1.0 + above + 0.5 * (K - 1.0) * f
+    return (p_level * per_level).sum(dim=-1)
+
+
+def range_cost(phi: Phi, sys: LSMSystem, smooth: bool = False
+               ) -> torch.Tensor:
+    """Eq. 7: Q = f_seq * S_RQ * N/B + sum_i K_i."""
+    m = level_mask(phi, sys, smooth=smooth)
+    return sys.f_seq * sys.s_rq * sys.N / sys.B \
+        + (m * _clamped_K(phi)).sum(dim=-1)
+
+
+def write_cost(phi: Phi, sys: LSMSystem, smooth: bool = False
+               ) -> torch.Tensor:
+    """Eq. 9: W = f_seq * (1+f_a)/B * sum_i (T - 1 + K_i) / (2 K_i)."""
+    m = level_mask(phi, sys, smooth=smooth)
+    K = _clamped_K(phi)
+    per_level = (phi.T[..., None] - 1.0 + K) / (2.0 * K)
+    return sys.f_seq * (1.0 + sys.f_a) / sys.B * (m * per_level).sum(dim=-1)
 
 
 def cost_vector(phi: Phi, sys: LSMSystem, smooth: bool = False,
@@ -160,6 +246,22 @@ def expected_cost(w: torch.Tensor, phi: Phi, sys: LSMSystem,
 def throughput(w: torch.Tensor, phi: Phi, sys: LSMSystem) -> torch.Tensor:
     """Paper Section 8.1: throughput := 1 / C(w, Phi)."""
     return 1.0 / expected_cost(w, phi, sys)
+
+
+def cost_across_memory(phi: Phi, sys: LSMSystem, budgets_bpe,
+                       smooth: bool = False) -> torch.Tensor:
+    """``(G, 4)`` cost vectors of one tuning ``phi`` re-deployed at each
+    per-entry memory budget in ``budgets_bpe`` (bits/entry), holding its
+    filter/buffer split fraction fixed while the total scales: the
+    marginal-benefit curve of the fleet memory arbiter.  One batched
+    ``cost_vector`` over the budget axis, with the budget passed through
+    ``m_total_bits``."""
+    b = torch.as_tensor(budgets_bpe, dtype=torch.float32,
+                        device=phi.T.device)
+    scale = b / sys.bits_per_entry
+    phi_b = Phi(T=phi.T.expand(b.shape), mfilt_bits=phi.mfilt_bits * scale,
+                K=phi.K.expand(b.shape + phi.K.shape[-1:]))
+    return cost_vector(phi_b, sys, smooth=smooth, m_total_bits=b * sys.N)
 
 
 def make_phi(T: float, mfilt_bits: float, K, sys: LSMSystem,

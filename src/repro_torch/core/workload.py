@@ -86,3 +86,14 @@ def rho_from_history(workloads) -> float:
 def rho_from_pair(expected, off_period) -> float:
     """DBA heuristic: KL between an expected and an off-period workload."""
     return float(kl_divergence(np.asarray(off_period), np.asarray(expected)))
+
+
+def rho_from_ranges(lo, hi, n_samples: int = 4096, seed: int = 0) -> float:
+    """DBA heuristic: sample workloads within per-class ranges (the JAX
+    package's numpy draw), apply Algorithm 1."""
+    rng = np.random.default_rng(seed)
+    lo = np.asarray(lo, np.float64)
+    hi = np.asarray(hi, np.float64)
+    samples = rng.uniform(lo, hi, size=(n_samples, DIM))
+    samples = samples / samples.sum(axis=1, keepdims=True)
+    return rho_from_history(samples)

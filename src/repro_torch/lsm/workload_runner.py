@@ -14,12 +14,17 @@ kernel launch per level), its range queries one ``range_query_batch``, its
 writes one ``put_batch`` whose last insertion flushes (merge kernel
 launches).  Window boundaries fall only at flushes, so every query sees the
 tree state it would see in per-query execution and ``IOStats`` are exact.
+
+:func:`run_fleet` runs a whole (tree x session) grid, materializing each
+distinct session plan once and replaying it against every tree that shares
+its key set; :func:`run_policy_fleet` builds that grid from tunings and
+compaction policies.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -67,6 +72,14 @@ class SessionPlan:
     @property
     def n_queries(self) -> int:
         return len(self.kinds)
+
+    @property
+    def insert_keys(self) -> np.ndarray:
+        """Fresh-key inserts only (delete targets excluded): the keys a
+        caller appends to its live-key population after the session."""
+        if self.write_tombs is None:
+            return self.write_keys
+        return self.write_keys[~self.write_tombs]
 
 
 def draw_keys(n: int, seed: int = 7, key_space: int = 2 ** 48) -> np.ndarray:
@@ -304,3 +317,105 @@ def run_session(tree: LSMTree, existing_keys: np.ndarray, w: np.ndarray,
                                seed=seed, key_space=key_space,
                                range_fraction=range_fraction, zipf_a=zipf_a)
     return execute_session(tree, plan, f_a=f_a, f_seq=f_seq)
+
+
+def run_fleet(trees: Sequence[LSMTree], sessions, existing_keys,
+              n_queries: int = 2000, seeds=None, key_space: int = 2 ** 48,
+              range_fraction: float = 2e-5, f_a: float = 1.0,
+              f_seq: float = 1.0, zipf_a: Optional[float] = None
+              ) -> List[List[SessionResult]]:
+    """Run the full (tree x session) grid; returns ``results[tree][sess]``.
+
+    ``sessions`` is an (S, 4) array of workload mixes.  ``existing_keys``
+    is one key array shared by every tree or a per-tree list; ``seeds`` is
+    the per-(tree, session) seed matrix (an (S,) vector is broadcast to all
+    trees).  Trees that share a key array and a seed row share one
+    materialized :class:`SessionPlan` per session."""
+    sessions = np.atleast_2d(np.asarray(sessions, np.float64))
+    n_trees, n_sess = len(trees), sessions.shape[0]
+    if isinstance(existing_keys, np.ndarray):
+        keys_list = [existing_keys] * n_trees
+    else:
+        keys_list = list(existing_keys)
+        if len(keys_list) != n_trees:
+            raise ValueError(f"{len(keys_list)} key arrays for "
+                             f"{n_trees} trees")
+    seeds = np.arange(n_sess) if seeds is None else np.asarray(seeds)
+    if seeds.ndim == 1:
+        seeds = np.broadcast_to(seeds, (n_trees, n_sess))
+    plans: dict = {}
+    out: List[List[SessionResult]] = []
+    for t, tree in enumerate(trees):
+        row: List[SessionResult] = []
+        for s in range(n_sess):
+            cache_key = (id(keys_list[t]), int(seeds[t, s]), s)
+            plan = plans.get(cache_key)
+            if plan is None:
+                plan = materialize_session(
+                    keys_list[t], sessions[s], n_queries=n_queries,
+                    seed=int(seeds[t, s]), key_space=key_space,
+                    range_fraction=range_fraction, zipf_a=zipf_a)
+                plans[cache_key] = plan
+            row.append(execute_session(tree, plan, f_a=f_a, f_seq=f_seq))
+        out.append(row)
+    return out
+
+
+def run_policy_fleet(phis, sys, policies, sessions, n_keys: int,
+                     n_queries: int = 2000, seed: int = 7,
+                     key_space: int = 2 ** 48, range_fraction: float = 2e-5,
+                     policy_params=None, entry_bytes: int = 64,
+                     f_a: float = 1.0, f_seq: float = 1.0, seeds=None,
+                     zipf_a: Optional[float] = None, device=None):
+    """The (tuning x compaction-policy x session) grid in one fleet call.
+
+    Builds one tree per (phi, policy) cell on ``device`` (the card unless
+    ``device="cpu"``) — ``phis`` are tuner outputs, ``policies`` names from
+    :data:`repro_torch.lsm.planner.POLICIES`, ``policy_params`` an optional
+    per-policy dict of constructor kwargs — populates every tree from ONE
+    shared key draw, and runs every session against every tree via
+    :func:`run_fleet`.  Returns ``(trees, results)``, both indexed
+    ``[phi][policy]``; ``results[p][j][s]`` is tuning ``p`` under policy
+    ``policies[j]`` on session ``s``."""
+    try:
+        phis = list(phis)
+    except TypeError:
+        phis = [phis]
+    policy_params = policy_params or {}
+    keys = draw_keys(n_keys, seed=seed, key_space=key_space)
+    trees: List[List[LSMTree]] = []
+    for phi in phis:
+        row = []
+        for pol in policies:
+            params = tuple(sorted(policy_params.get(pol, {}).items()))
+            tree = LSMTree.from_phi(phi, sys, expected_entries=n_keys,
+                                    entry_bytes=entry_bytes, policy=pol,
+                                    policy_params=params, device=device)
+            populate(tree, n_keys, key_space=key_space, keys=keys)
+            row.append(tree)
+        trees.append(row)
+    flat = [t for row in trees for t in row]
+    results_flat = run_fleet(flat, sessions, keys, n_queries=n_queries,
+                             seeds=seeds, key_space=key_space,
+                             range_fraction=range_fraction, f_a=f_a,
+                             f_seq=f_seq, zipf_a=zipf_a)
+    n_pol = len(policies)
+    results = [results_flat[i * n_pol:(i + 1) * n_pol]
+               for i in range(len(phis))]
+    return trees, results
+
+
+def measured_cost_vector(tree_factory, n_keys: int, n_queries: int = 2000,
+                         seed: int = 0) -> np.ndarray:
+    """Measure per-class I/O costs (z0, z1, q, w) with pure sessions, one
+    fresh tree from ``tree_factory`` each (its device is the factory's), to
+    validate the analytic cost vector c(Phi) component-wise."""
+    out = []
+    pure = np.eye(4) * 0.97 + 0.01
+    for i in range(4):
+        tree = tree_factory()
+        keys = populate(tree, n_keys, seed=seed)
+        res = run_session(tree, keys, pure[i], n_queries=n_queries,
+                          seed=seed + i)
+        out.append(res.avg_io_per_query)
+    return np.asarray(out)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch.core as core
 import repro_torch.lsm as P
 from repro_torch.kernels import _build
 from repro_torch.kernels.bloom_probe.ops import bloom_probe_kernel
@@ -296,6 +297,61 @@ def test_point_read_sampled_kernel_matches_plain(dev, case):
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert int(want[0].sum()) > 0
+
+
+def test_policy_fleet_on_card_matches_cpu_plain_path(dev):
+    """``run_policy_fleet``: two tunings x {klsm, lazy_leveling} x two
+    sessions, every ``IOStats`` bit-identical on the card and the CPU."""
+    sys_t = core.LSMSystem()
+    phis = [core.make_phi(6.0, 5.0 * sys_t.N, 1.0, sys_t),
+            core.make_phi(5.0, 3.0 * sys_t.N, 4.0, sys_t)]
+    mixes = np.array([[0.33, 0.33, 0.33, 0.01], [0.05, 0.10, 0.05, 0.80]])
+    before = dict(_build.LAUNCHES)
+    out = {d: P.run_policy_fleet(phis, sys_t, ("klsm", "lazy_leveling"),
+                                 mixes, n_keys=20_000, n_queries=2000,
+                                 device=d)[1] for d in ("cpu", "cuda")}
+    for k in ("merge", "point_read"):
+        assert _build.LAUNCHES[k] > before[k]
+    for a_row, b_row in zip(out["cpu"], out["cuda"]):
+        for a_pol, b_pol in zip(a_row, b_row):
+            for a, b in zip(a_pol, b_pol):
+                assert a.io.as_dict() == b.io.as_dict()
+                assert a.avg_io_per_query == b.avg_io_per_query
+
+
+@pytest.mark.parametrize("robust", [False, True])
+def test_slsqp_on_card_matches_cpu(dev, robust):
+    """The SLSQP tuners with values and gradients on the card against the
+    same tuners on the CPU (the same numpy starts): the same design, cost
+    to rel 1e-3 (a 1-ulp difference of the card's exp/log can move an
+    SLSQP step on the flat float32 objective)."""
+    w = np.array([0.33, 0.33, 0.33, 0.01])
+    sys_t = core.LSMSystem()
+    if robust:
+        got = {d: core.tune_robust_slsqp(w, 1.0, sys_t, n_starts=2, device=d)
+               for d in ("cpu", "cuda")}
+    else:
+        got = {d: core.tune_nominal_slsqp(w, sys_t, n_starts=2, device=d)
+               for d in ("cpu", "cuda")}
+    assert got["cuda"].solver == got["cpu"].solver == "slsqp"
+    assert got["cuda"].design is got["cpu"].design
+    assert got["cuda"].cost == pytest.approx(got["cpu"].cost, rel=1e-3)
+
+
+def test_fig10_suite_launches_dual_solve(dev, monkeypatch):
+    """The runner's fig10 suite (cut to 2 starts and 3 steps) launches the
+    ``dual_solve`` kernel once per robust Adam step plus once for the final
+    iterate, at each of its five entry sizes, and its rows hold the
+    committed keys."""
+    from repro_torch.bench import fig10, run
+    monkeypatch.setattr(fig10, "N_STARTS", 2)
+    monkeypatch.setattr(fig10, "STEPS", 3)
+    before = _build.LAUNCHES["dual_solve"]
+    result = run.run_suite("fig10", device="cuda")
+    assert _build.LAUNCHES["dual_solve"] - before \
+        == len(fig10.ENTRY_BITS) * (3 + 1)
+    cmp = result["comparison"]
+    assert all(got is not None for _, got, _ in cmp["missed"])
 
 
 def test_engine_on_card_matches_cpu_plain_path(dev):
