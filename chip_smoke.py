@@ -78,28 +78,38 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    they built; and ``launch_floor_ms``, a one-element add's device
    time.
 
-6. ``suites`` — the paper suites ``fig4`` and ``fig10`` through
-   ``repro_torch.bench.run`` at their committed sizes, every tuning
-   started from the starts the committed ``BENCH_<suite>.json`` were made
-   from (``bench/jax_starts.npz``), so every held field must match the
-   committed file within the runner's tolerance; one JSON line per suite
-   (wall time, each row's derived values, held fields matched and
-   missed, the card's time
-   fields, the start-dependent spreads, each kernel's launches, which for
-   ``dual_solve`` must be one per robust Adam step plus one per tuning);
-   and the ``dual_solve`` launches a profiler trace records over one
-   fig10 robust call, which must be its steps + 1.  The ``tuner`` suite
-   runs only under ``--suites`` (below): its seed-style row alone takes
-   about 1,000 s on the H100.
+6. ``suites`` — the paper suites ``fig4``, ``fig10`` and the three that
+   run through the experiment API (``fig7_8``, ``fig9``, ``fig19``:
+   ``repro_torch.api.run_experiment``) through ``repro_torch.bench.run``
+   at their committed sizes, every tuning started from the starts the
+   committed ``BENCH_<suite>.json`` were made from
+   (``bench/jax_starts.npz``), so every held field must match the
+   committed file within the runner's tolerance (none missed, and as many
+   held as the file has: ``SUITE_HELD``); one JSON line per suite (wall
+   time, each row's derived values, held fields matched and missed, the
+   card's time fields, the start-dependent spreads, each kernel's
+   launches, which for ``dual_solve`` must be one per robust Adam step
+   plus one per tuning: 251 for each API suite's robust grid); and the
+   ``dual_solve`` launches a profiler trace records over one fig10 robust
+   call, which must be its steps + 1.  The ``tuner`` suite runs only under
+   ``--suites`` (below): its seed-style row alone takes about 1,000 s on
+   the H100.
+7. ``api`` — ``run_experiment`` on the card for the spec of the JAX
+   package's API smoke suite (``API_SPEC``: two workloads, nominal and
+   rho 1, the K-LSM and lazy-leveling policy arms, 8 trees of 40,000 keys
+   and two sessions), counting its kernels' launches; then its
+   ``TrialPlan`` through ``execute_trial`` on the card and on the CPU:
+   every tree's ``IOStats``, I/O per query and ``TreeProbe`` bit-identical,
+   with the card trial's ``merge`` and ``point_read`` launches.
 
 The build's ``ptxas`` report (registers and spills) for the bf16
 ``rwkv6`` kernel is printed on a line of its own.
 
     python3 chip_smoke.py --suites [--src DIR]
 
-runs only the suites phase, over ``fig4``, ``fig10`` and ``tuner``, on
-the ``repro_torch`` under ``DIR``: one JSON line per suite, then the
-card's name and power limit.
+runs only the suites phase, over ``fig4``, ``fig10``, ``tuner``,
+``fig7_8``, ``fig9`` and ``fig19``, on the ``repro_torch`` under
+``DIR``: one JSON line per suite, then the card's name and power limit.
 
     python3 chip_smoke.py --merge [--src DIR] [--sizes FILE]
 
@@ -160,9 +170,35 @@ SMALL_ENTRIES, SMALL_QUERIES = 200_000, 20_000
 # the fleet check: compaction policies, beside the 200K run
 FLEET_POLICIES = ("klsm", "lazy_leveling")
 # the paper suites of repro_torch.bench, at their committed sizes: the
-# default run holds fig4 and fig10; the tuner suite (1,110 s on the H100,
-# most of it its seed-style row) runs under --suites, with the other two
-SUITES, ALL_SUITES = ("fig4", "fig10"), ("fig4", "fig10", "tuner")
+# default run holds fig4, fig10 and the API suites; the tuner suite (1,110 s
+# on the H100, most of it its seed-style row) runs under --suites, with the
+# others
+SUITES = ("fig4", "fig10", "fig7_8", "fig9", "fig19")
+ALL_SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19")
+# the held fields of each committed BENCH_<suite>.json
+SUITE_HELD = {"fig4": 18, "fig10": 12, "tuner": 11, "fig7_8": 27, "fig9": 4,
+              "fig19": 16}
+# the suites that run through the experiment API, each with one robust grid
+API_SUITES = ("fig7_8", "fig9", "fig19")
+# the API trial check: the spec of the JAX package's API smoke suite
+# (benchmarks/bench_api.py), as ExperimentSpec.from_dict takes it
+API_SPEC = {
+    "name": "api",
+    "workload": {"indices": (4, 11), "rhos": (1.0,), "nominal": True},
+    "design": {"n_starts": 16, "steps": 120, "seed": 0,
+               "policies": ("klsm", "lazy_leveling"),
+               "policy_params": (("lazy_leveling",
+                                  (("read_trigger", 512),)),)},
+    "trial": {"n_keys": 40_000, "n_queries": 2000,
+              "sessions": ((0.05, 0.85, 0.05, 0.05),
+                           (0.05, 0.05, 0.05, 0.85)),
+              "key_space": 2 ** 24, "range_fraction": 1e-3,
+              "per_workload_keys": True, "key_seed": 100},
+    "system": (("N", 40_000.0), ("entry_bits", 64.0 * 8),
+               ("page_bits", 4096.0 * 8), ("bits_per_entry", 6.0),
+               ("min_buf_bits", 64.0 * 8 * 64), ("s_rq", 1e-3),
+               ("max_T", 20.0)),
+}
 MERGE_N, READ_BATCH = 5_000_000, 1_000_000
 # (arch, the kernel its prefill runs once per layer)
 SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"))
@@ -1727,12 +1763,17 @@ def expected_dual_launches(suite: str, fig10, tuner) -> int:
     """``dual_solve`` launches a suite makes: one per robust Adam step plus
     one for the final iterate, per robust tuning.  fig10: one tuning per
     entry size; tuner: the Fig. 6 grid's warm-up pair, its batched call
-    and one call per cell (the seed style solves its dual in torch ops)."""
+    and one call per cell (the seed style solves its dual in torch ops);
+    the API suites: their one robust grid."""
     if suite == "fig10":
         return len(fig10.ENTRY_BITS) * (fig10.STEPS + 1)
     if suite == "tuner":
         return (len(tuner.GRID_WORKLOADS) * len(tuner.GRID_RHOS) + 3) \
             * (tuner.GRID_STEPS + 1)
+    if suite in API_SUITES:
+        import importlib
+        return importlib.import_module(f"repro_torch.bench.{suite}").STEPS \
+            + 1
     return 0
 
 
@@ -1792,11 +1833,78 @@ def phase_suites(torch, core, build, suites=SUITES) -> list:
         emit(line)
         check(not cmp["missed"], f"suite {suite}: held fields missed "
               f"{cmp['missed']}")
+        check(len(cmp["held"]) == SUITE_HELD[suite], f"suite {suite}: "
+              f"{len(cmp['held'])} held fields, expected {SUITE_HELD[suite]}")
         want = expected_dual_launches(suite, fig10, tuner)
         check(launches.get("dual_solve", 0) == want, f"suite {suite}: "
               f"{launches.get('dual_solve', 0)} dual_solve launches, "
               f"expected {want}")
     return lines
+
+
+def phase_api(torch, build) -> dict:
+    """The experiment API on the card: ``run_experiment`` for
+    ``API_SPEC`` (its tunings and its trial on the card, the launch counts
+    set to 0 just before it), then that spec's ``TrialPlan`` through
+    ``execute_trial`` on the card and on the CPU plain path.  Every tree's
+    ``IOStats``, I/O per query and ``TreeProbe`` must be bit-identical on
+    both and equal the report's own trial; the card's trial must launch
+    ``merge`` and ``point_read``, and the tunings one ``dual_solve`` per
+    robust Adam step plus one, for each of the spec's two robust grids."""
+    import dataclasses
+
+    import repro_torch.api as api
+    spec = api.ExperimentSpec.from_dict(API_SPEC)
+    log("api: run_experiment on the card")
+    build.reset_launches()
+    t0 = time.time()
+    report = api.run_experiment(spec, device=DEVICE)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    run_launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    want = len(api.compile_spec(spec).tuning_plans()) \
+        * (spec.design.steps + 1)
+    check(run_launches.get("dual_solve", 0) == want, f"api run_experiment: "
+          f"{run_launches.get('dual_solve', 0)} dual_solve launches, "
+          f"expected {want}")
+    plan = api.compile_spec(spec).build_trial(report)
+    trial = {}
+    for dev in (DEVICE, "cpu"):
+        log(f"api: execute_trial on {dev}")
+        build.reset_launches()
+        t0 = time.time()
+        results, probes, populate_s, fleet_s = api.execute_trial(
+            plan, device=dev)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        trial[dev] = {
+            "wall_s": time.time() - t0, "populate_s": populate_s,
+            "fleet_s": fleet_s,
+            "launches": {k: build.LAUNCHES[k]
+                         for k in ("merge", "point_read")},
+            "io": [[r.io.as_dict() for r in row] for row in results],
+            "avg_io_per_query": [[r.avg_io_per_query for r in row]
+                                 for row in results],
+            "probes": [dataclasses.asdict(p) for p in probes]}
+    card, cpu = trial[DEVICE], trial["cpu"]
+    for key in ("io", "avg_io_per_query", "probes"):
+        check(card[key] == cpu[key], f"api trial {key}: cpu != cuda")
+    check(card["io"] == [[r.io.as_dict()
+                          for r in report.fleet[(b.cell, b.policy)]]
+                         for b in plan.trees],
+          "api trial IOStats: execute_trial != run_experiment's trial")
+    check(all(card["launches"].values()), f"the card's api trial launched "
+          f"{card['launches']}")
+    check(not any(cpu["launches"].values()), f"the CPU plain path launched "
+          f"{cpu['launches']}")
+    return {"phase": "api", "spec": spec.name, "trees": len(plan.trees),
+            "sessions": len(plan.sessions), "n_keys": plan.n_keys,
+            "identical": True, "run_experiment_s": run_s,
+            "walls": report.walls, "run_launches": run_launches,
+            "chosen": {f"w{i}" + ("" if rho is None else f"_rho{rho:g}"):
+                       pol for (i, rho), pol in report.chosen.items()},
+            "trial": {dev: {k: v for k, v in t.items() if k != "io"}
+                      for dev, t in trial.items()}}
 
 
 def suites_main(torch) -> int:
@@ -1944,6 +2052,7 @@ def main(argv=None) -> int:
     emit({"phase": "kernels", "launch_floor_ms": launch_floor_ms(torch),
           "kernels": kernels})
     phase_suites(torch, core, build)
+    emit(phase_api(torch, build))
     keyset = ("name", "route", "source", "replaces", "launches",
               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")

@@ -2,6 +2,7 @@
 ``BENCH_<suite>.json``.
 
     PYTHONPATH=src python -m repro_torch.bench.run fig4 fig10 tuner
+    PYTHONPATH=src python -m repro_torch.bench.run fig7_8 fig9 fig19
     PYTHONPATH=src python -m repro_torch.bench.run fig4 --device cpu
     PYTHONPATH=src python -m repro_torch.bench.run tuner --json out/ \\
         --baseline .
@@ -22,13 +23,14 @@ kinds (:func:`field_kind`):
   ``max_rel_cost_diff_vs_*``;
 * **held** — every other field: a bool or string must equal the
   committed value (the ``claim_*`` flags, ``klsm_best``, ``batch``,
-  ``paper_reports``), an integer too (``cells``), and a float must lie
-  within ``ABS_TOL + REL_TOL * |committed|`` of it.
+  ``paper_reports``), an integer too (``cells``), a float must lie
+  within ``ABS_TOL + REL_TOL * |committed|`` of it, and a dict (fig19's
+  ``degradation``) must have the committed keys, each value held so.
 
 A held field that misses, or a committed row or key the port lacks, is
 printed by name with both values, and the runner exits 1.  ``--json DIR``
 writes ``BENCH_torch_<suite>.json`` in the committed schema, stamped with
-its checksum.  The suites run on the card unless ``--device cpu``.
+its checksum, atomically.  The suites run on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -42,11 +44,12 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 from ..api.report import Row, jsonable
-from ..faults import checksum_ok, stamp_checksum
+from ..faults import atomic_write_json, checksum_ok, stamp_checksum
 from .common import committed_starts, own_starts
 
-#: suite key -> module of this package
-SUITES = ("fig4", "fig10", "tuner")
+#: suite key -> module of this package; fig7_8, fig9 and fig19 run
+#: through the experiment API (``repro_torch.api.run_experiment``)
+SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19")
 #: a held float lies within ABS_TOL + REL_TOL * |committed| of the
 #: committed value: tuned costs move with the starts
 ABS_TOL, REL_TOL = 0.01, 0.01
@@ -85,6 +88,10 @@ def load_baseline(suite: str, baseline_dir) -> dict:
 
 
 def _holds(got, want) -> bool:
+    if isinstance(want, dict) or isinstance(got, dict):
+        return isinstance(got, dict) and isinstance(want, dict) \
+            and set(got) == set(want) \
+            and all(_holds(got[k], want[k]) for k in want)
     if want is None or got is None \
             or isinstance(want, (bool, str)) or isinstance(got, (bool, str)):
         return type(got) is type(want) and got == want
@@ -152,9 +159,7 @@ def run_suite(suite: str, device=None, baseline_dir=REPO_ROOT,
     if json_dir is not None:
         os.makedirs(json_dir, exist_ok=True)
         path = os.path.join(json_dir, f"BENCH_torch_{suite}.json")
-        with open(path, "w") as f:
-            json.dump(payload(suite, rows, wall), f, indent=1,
-                      sort_keys=True)
+        atomic_write_json(path, payload(suite, rows, wall))
         result["json"] = path
     return result
 

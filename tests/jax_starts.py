@@ -1,5 +1,6 @@
 """Write ``src/repro_torch/bench/jax_starts.npz``: the multi-starts the
-committed ``BENCH_{fig4,fig10,tuner}.json`` were made from.
+committed ``BENCH_{fig4,fig10,tuner,fig7_8,fig9,fig19}.json`` were made
+from.
 
 The JAX suites draw their Adam starts with
 ``repro.core.designs.random_inits(jax.random.PRNGKey(seed), n, design)``.
@@ -20,11 +21,14 @@ import numpy as np
 OUT = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
     "bench" / "jax_starts.npz"
 
-#: (n_params, n_starts, seed) of every Adam tuning the three suites run:
-#: fig4's 2-, 3-, 4- and 26-parameter designs; CLASSIC at 64 starts (fig4's
+#: (n_params, n_starts, seed) of every Adam tuning the suites run: fig4's
+#: 2-, 3-, 4- and 26-parameter designs; CLASSIC at 64 starts (fig4's
 #: 2-parameter designs, fig10, the tuner's classic row) and K-LSM's seeds
 #: 0-3 (the tuner's stability row); seed 1 for the tuner's throughput row
-#: and its Fig. 6 grid (32 starts, the seed-style cells too)
+#: and its Fig. 6 grid (32 starts, the seed-style cells too).  The API
+#: suites need no other: fig7_8 and fig9 tune CLASSIC at 64 starts, fig19
+#: CLASSIC, lazy leveling (2 parameters), Dostoevsky (3) and Fluid (4) at
+#: 64 and K-LSM (26) at 192, all from seed 0
 DRAWS = [(2, 64, 0), (3, 64, 0), (4, 64, 0), (26, 192, 0),
          (26, 128, 0), (26, 128, 1), (26, 128, 2), (26, 128, 3),
          (2, 64, 1), (2, 32, 1)]

@@ -319,6 +319,78 @@ def test_policy_fleet_on_card_matches_cpu_plain_path(dev):
                 assert a.avg_io_per_query == b.avg_io_per_query
 
 
+def test_api_trial_on_card_matches_cpu_plain_path(dev):
+    """``run_experiment`` on the card (two workloads, nominal and rho 1,
+    the K-LSM and lazy-leveling arms), then its ``TrialPlan`` through
+    ``execute_trial`` on the card and on the CPU: every tree's
+    ``IOStats``, I/O per query and ``TreeProbe`` bit-identical, tombstones
+    included, and the card's trial launches ``merge`` and ``point_read``.
+    The sharded backend on the card gives the inline tunings bit for
+    bit."""
+    import dataclasses
+
+    import repro_torch.api as api
+    spec = api.ExperimentSpec(
+        name="api_card",
+        workload=api.WorkloadSpec(indices=(4, 11), rhos=(1.0,)),
+        design=api.DesignSpec(n_starts=16, steps=30, seed=0,
+                              policies=("klsm", "lazy_leveling")),
+        trial=api.TrialSpec(n_keys=20_000, n_queries=1000,
+                            sessions=((0.05, 0.85, 0.05, 0.05),
+                                      (0.05, 0.05, 0.05, 0.85)),
+                            key_space=2 ** 24, range_fraction=1e-3,
+                            per_workload_keys=True, key_seed=100,
+                            delete_fraction=0.02),
+        system=(("N", 20_000.0), ("entry_bits", 512.0),
+                ("bits_per_entry", 6.0), ("min_buf_bits", 512.0 * 64),
+                ("max_T", 20.0)))
+    report = api.run_experiment(spec, device="cuda")
+    sharded = api.run_experiment(spec, api.ShardedBackend(), device="cuda")
+    assert sharded.walls["tuning_devices"] == torch.cuda.device_count()
+    for cell in report.cells:
+        for pol in spec.design.policies:
+            a, b = report.tuning(cell, pol), sharded.tuning(cell, pol)
+            assert torch.equal(a.phi.T, b.phi.T) and a.cost == b.cost
+            assert torch.equal(a.phi.K, b.phi.K)
+    plan = api.compile_spec(spec).build_trial(report)
+    out = {}
+    for d in ("cpu", "cuda"):
+        before = dict(_build.LAUNCHES)
+        results, probes, _, _ = api.execute_trial(plan, device=d)
+        launches = {k: _build.LAUNCHES[k] - before[k]
+                    for k in ("merge", "point_read")}
+        out[d] = ([[r.io.as_dict() for r in row] for row in results],
+                  [[r.avg_io_per_query for r in row] for row in results],
+                  [dataclasses.asdict(p) for p in probes], launches)
+    assert out["cuda"][:3] == out["cpu"][:3]
+    assert all(out["cuda"][3].values()) and not any(out["cpu"][3].values())
+    assert any(p["tomb_ages"] for p in out["cuda"][2])
+    assert out["cuda"][0] == [[r.io.as_dict()
+                               for r in report.fleet[(b.cell, b.policy)]]
+                              for b in plan.trees]
+
+
+@pytest.mark.parametrize("suite", ["fig7_8", "fig9", "fig19"])
+def test_api_suites_launch_dual_solve(dev, monkeypatch, suite):
+    """Each API suite (cut to 2 starts and 3 steps) tunes one robust grid
+    through ``run_experiment``: one ``dual_solve`` launch per Adam step
+    plus one for the final iterate, and its rows hold the committed
+    keys."""
+    import importlib
+
+    from repro_torch.bench import run
+    mod = importlib.import_module(f"repro_torch.bench.{suite}")
+    for name in ("N_STARTS", "KLSM_STARTS"):
+        if hasattr(mod, name):
+            monkeypatch.setattr(mod, name, 2)
+    monkeypatch.setattr(mod, "STEPS", 3)
+    before = _build.LAUNCHES["dual_solve"]
+    result = run.run_suite(suite, device="cuda")
+    assert _build.LAUNCHES["dual_solve"] - before == 3 + 1
+    cmp = result["comparison"]
+    assert all(got is not None for _, got, _ in cmp["missed"])
+
+
 @pytest.mark.parametrize("robust", [False, True])
 def test_slsqp_on_card_matches_cpu(dev, robust):
     """The SLSQP tuners with values and gradients on the card against the

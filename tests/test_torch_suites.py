@@ -11,7 +11,8 @@ shares with the JAX package, on the CPU.
   ones.
 * fig4 runs at its committed size from the starts the committed file was
   made from (the JAX package's, ``bench/jax_starts.npz``) and reproduces
-  it at its printed precision.
+  it at its printed precision; so do the API suites fig7_8, fig9 and
+  fig19, every held field within the runner's tolerance.
 """
 
 import json
@@ -27,11 +28,29 @@ from repro.api import report as jreport
 from repro.faults import artifacts as jartifacts
 import repro_torch.core as T
 from repro_torch.api import report as treport
-from repro_torch.bench import common, fig4, fig10, run, tuner
+from repro_torch.api import compile_spec
+from repro_torch.bench import common, fig4, fig7_8, fig9, fig10, fig19, \
+    run, tuner
 from repro_torch.faults import artifacts as tartifacts
 
 REPO = Path(__file__).resolve().parents[1]
-SUITES = ("fig4", "fig10", "tuner")
+SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19")
+#: the suites that run through the experiment API, with the specs their
+#: run_experiment calls take, and the held fields of their committed files
+API_SUITES = {"fig7_8": ((fig7_8.make_spec,), 27),
+              "fig9": ((fig9.make_spec,), 4),
+              "fig19": ((fig19.axis_spec, fig19.robust_spec), 16)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suites' lane batches are small: torch's intra-op threads gain
+    nothing on them and, beside other busy test processes, spin-wait a
+    suite 30x longer."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _committed(suite):
@@ -99,6 +118,10 @@ SHRINK = {
                           GRID_STARTS=2, GRID_STEPS=2, NOMINAL_STARTS=2,
                           NOMINAL_STEPS=3, SLSQP_STARTS=1, KLSM_SEEDS=2,
                           KLSM_STARTS=2, KLSM_SLSQP_STARTS=1)),
+    # the API suites run at their committed sizes (a few seconds each)
+    "fig7_8": (fig7_8, {}),
+    "fig9": (fig9, {}),
+    "fig19": (fig19, {}),
 }
 #: what the runner does not compare: (time-derived, start-dependent)
 UNCOMPARED = {
@@ -123,6 +146,12 @@ UNCOMPARED = {
                "perf_tuner_klsm_stability.slsqp_spread",
                "perf_tuner_fig6_grid.max_rel_cost_diff_vs_sequential",
                "perf_tuner_fig6_grid.max_rel_cost_diff_vs_seed_style"}),
+    "fig7_8": ({"wall_time_s"} | {f"fig7_delta_vs_kl_rho{rho}.us_per_call"
+                                  for rho in fig7_8.RHOS}
+               | {"fig8_theta_shrinks.us_per_call"}, set()),
+    "fig9": ({"wall_time_s", "fig9_rho_choice.us_per_call"}, set()),
+    "fig19": ({"wall_time_s", "fig19_flex_vs_robust_w7.us_per_call",
+               "fig19_flex_vs_robust_w11.us_per_call"}, set()),
 }
 
 
@@ -199,6 +228,13 @@ def test_field_kinds_and_tolerance():
     assert not run._holds(1.476 + 0.0248, 1.476)
     assert not run._holds(1, True) and not run._holds(76, 75)
     assert run._holds("15 workloads, one jit", "15 workloads, one jit")
+    # fig19's degradation: the committed keys, each value held
+    want = {"klsm": 5.44, "fluid": 5.45}
+    assert run._holds({"fluid": 5.44 + 0.0644, "klsm": 5.44}, want)
+    assert not run._holds({"fluid": 5.45 + 0.0646, "klsm": 5.44}, want)
+    assert not run._holds({"klsm": 5.44}, want)
+    assert not run._holds({"klsm": 5.44, "fluid": 5.45, "x": 1.0}, want)
+    assert not run._holds(5.44, want) and not run._holds(want, 5.44)
 
 
 def test_committed_starts_file_holds_the_jax_draws():
@@ -217,6 +253,14 @@ def test_committed_starts_file_holds_the_jax_draws():
                                       R.DesignSpace.KLSM, R.LSMSystem()))
     np.testing.assert_array_equal(
         common.committed_starts(T.DesignSpace.KLSM, 128, 3)[0].numpy(), ref)
+    # every tuning plan of the API suites finds its draw there
+    with np.load(common.STARTS_FILE) as f:
+        for specs, _ in API_SUITES.values():
+            for make in specs:
+                for design, n_starts in compile_spec(make()).tuning_plans():
+                    assert common.starts_key(
+                        common.n_params(design, common.SYS), n_starts, 0) \
+                        in f.files, (make.__name__, design, n_starts)
 
 
 def test_fig4_from_the_committed_starts_reproduces_the_committed_file():
@@ -237,3 +281,17 @@ def test_fig4_from_the_committed_starts_reproduces_the_committed_file():
                 assert abs(got - want) <= 0.001 + 1e-9, (row.name, key)
     cmp = run.compare(rows, 0.0, run.load_baseline("fig4", REPO))
     assert cmp["missed"] == [] and len(cmp["held"]) == 18
+
+
+def test_api_suites_from_the_committed_starts_reproduce_the_committed_files():
+    """fig7_8, fig9 and fig19 at their committed sizes, through
+    ``run_experiment`` on the CPU from the committed files' starts: every
+    held field matches the committed file (27, 4 and 16 fields), none is
+    missed, and nothing but the time fields goes uncompared."""
+    for suite, (_, n_held) in API_SUITES.items():
+        result = run.run_suite(suite, device="cpu",
+                               starts=common.committed_starts)
+        cmp = result["comparison"]
+        assert cmp["missed"] == [], suite
+        assert len(cmp["held"]) == n_held, suite
+        assert cmp["spread"] == []
