@@ -91,16 +91,36 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    launches, which for ``dual_solve`` must be one per robust Adam step
    plus one per tuning: 251 for each API suite's robust grid); and the
    ``dual_solve`` launches a profiler trace records over one fig10 robust
-   call, which must be its steps + 1.  The ``tuner`` suite runs only under
+   call, which must be its steps + 1.  Then ``fig6``, ``tab5``, ``api``
+   and ``online`` (``CPU_HELD_SUITES``), whose committed files the JAX
+   package itself no longer reproduces from those starts: each on the
+   card, one JSON line with its held fields and its misses against the
+   committed file by name (printed, not a failure), its launches
+   (``dual_solve`` one per robust Adam step plus one per robust grid and
+   per robust re-tune storm; ``merge`` and ``point_read`` for the engine
+   suites), and the card held against the port's CPU run: fig6's rows
+   within the runner's band of the CPU's; tab5's and api's ``TrialPlan``
+   through the CPU trial, every ``IOStats`` and I/O per query
+   bit-identical; online's three drifts replayed on the CPU from the
+   card's tunings and re-tune storms, every segment record and
+   ``LSMTree.retune`` call identical.  The ``tuner`` suite runs only under
    ``--suites`` (below): its seed-style row alone takes about 1,000 s on
    the H100.
-7. ``api`` — ``run_experiment`` on the card for the spec of the JAX
-   package's API smoke suite (``API_SPEC``: two workloads, nominal and
-   rho 1, the K-LSM and lazy-leveling policy arms, 8 trees of 40,000 keys
-   and two sessions), counting its kernels' launches; then its
+7. ``api`` — ``run_experiment`` on the card for the spec of the API
+   smoke suite (``repro_torch.bench.api.SPEC``: two workloads, nominal
+   and rho 1, the K-LSM and lazy-leveling policy arms, 8 trees of 40,000
+   keys and two sessions), counting its kernels' launches; then its
    ``TrialPlan`` through ``execute_trial`` on the card and on the CPU:
    every tree's ``IOStats``, I/O per query and ``TreeProbe`` bit-identical,
    with the card trial's ``merge`` and ``point_read`` launches.
+8. ``drift`` — the online drift loop: the online suite's flip scenario
+   (w4, 250,000 keys, 10 segments of 1,000 queries, the stale-nominal,
+   static-robust, online and oracle arms) on the card from the committed
+   starts, then the same plan on the CPU with every re-tune storm
+   answered by the card's: the same segment records and the same
+   ``LSMTree.retune`` calls; it prints each storm (requests, robust ones,
+   the padded lane batches, wall, launches), the re-tunes and each arm's
+   throughput.
 
 The build's ``ptxas`` report (registers and spills) for the bf16
 ``rwkv6`` kernel is printed on a line of its own.
@@ -108,8 +128,9 @@ The build's ``ptxas`` report (registers and spills) for the bf16
     python3 chip_smoke.py --suites [--src DIR]
 
 runs only the suites phase, over ``fig4``, ``fig10``, ``tuner``,
-``fig7_8``, ``fig9`` and ``fig19``, on the ``repro_torch`` under
-``DIR``: one JSON line per suite, then the card's name and power limit.
+``fig7_8``, ``fig9``, ``fig19`` and the four held against the CPU, on the
+``repro_torch`` under ``DIR``: one JSON line per suite, then the card's
+name and power limit.
 
     python3 chip_smoke.py --merge [--src DIR] [--sizes FILE]
 
@@ -149,6 +170,7 @@ without a result when CUDA is not available or the package is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -180,25 +202,13 @@ SUITE_HELD = {"fig4": 18, "fig10": 12, "tuner": 11, "fig7_8": 27, "fig9": 4,
               "fig19": 16}
 # the suites that run through the experiment API, each with one robust grid
 API_SUITES = ("fig7_8", "fig9", "fig19")
-# the API trial check: the spec of the JAX package's API smoke suite
-# (benchmarks/bench_api.py), as ExperimentSpec.from_dict takes it
-API_SPEC = {
-    "name": "api",
-    "workload": {"indices": (4, 11), "rhos": (1.0,), "nominal": True},
-    "design": {"n_starts": 16, "steps": 120, "seed": 0,
-               "policies": ("klsm", "lazy_leveling"),
-               "policy_params": (("lazy_leveling",
-                                  (("read_trigger", 512),)),)},
-    "trial": {"n_keys": 40_000, "n_queries": 2000,
-              "sessions": ((0.05, 0.85, 0.05, 0.05),
-                           (0.05, 0.05, 0.05, 0.85)),
-              "key_space": 2 ** 24, "range_fraction": 1e-3,
-              "per_workload_keys": True, "key_seed": 100},
-    "system": (("N", 40_000.0), ("entry_bits", 64.0 * 8),
-               ("page_bits", 4096.0 * 8), ("bits_per_entry", 6.0),
-               ("min_buf_bits", 64.0 * 8 * 64), ("s_rq", 1e-3),
-               ("max_T", 20.0)),
-}
+# the suites whose committed file the JAX package itself no longer
+# reproduces from the committed starts (ROADMAP.md section 3): the card is
+# held against the port's CPU run, and its misses against the committed
+# file are printed by name
+CPU_HELD_SUITES = ("fig6", "tab5", "api", "online")
+# the drift phase's experiment: the online suite's flip scenario
+DRIFT_SCENARIO = "flip"
 MERGE_N, READ_BATCH = 5_000_000, 1_000_000
 # (arch, the kernel its prefill runs once per layer)
 SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"))
@@ -1843,8 +1853,9 @@ def phase_suites(torch, core, build, suites=SUITES) -> list:
 
 
 def phase_api(torch, build) -> dict:
-    """The experiment API on the card: ``run_experiment`` for
-    ``API_SPEC`` (its tunings and its trial on the card, the launch counts
+    """The experiment API on the card: ``run_experiment`` for the API
+    smoke suite's spec (``repro_torch.bench.api.SPEC``: its tunings and its
+    trial on the card, the launch counts
     set to 0 just before it), then that spec's ``TrialPlan`` through
     ``execute_trial`` on the card and on the CPU plain path.  Every tree's
     ``IOStats``, I/O per query and ``TreeProbe`` must be bit-identical on
@@ -1854,7 +1865,8 @@ def phase_api(torch, build) -> dict:
     import dataclasses
 
     import repro_torch.api as api
-    spec = api.ExperimentSpec.from_dict(API_SPEC)
+    from repro_torch.bench import api as api_suite
+    spec = api_suite.SPEC
     log("api: run_experiment on the card")
     build.reset_launches()
     t0 = time.time()
@@ -1907,15 +1919,278 @@ def phase_api(torch, build) -> dict:
                       for dev, t in trial.items()}}
 
 
+# -- the suites held against the port's CPU run, and the drift phase ---------
+
+@contextlib.contextmanager
+def _retune_calls():
+    """Record every ``LSMTree.retune`` call while the context is open: a
+    list of (tree label, T, K, buffer entries) after each call, noop or
+    not."""
+    from repro_torch.lsm import LSMTree
+    calls = []
+    real = LSMTree.retune
+
+    def retune(tree, phi, sys):
+        real(tree, phi, sys)
+        calls.append((tree.obs_label, tree.cfg.T, list(tree.cfg.K),
+                      tree.cfg.buf_entries))
+
+    LSMTree.retune = retune
+    try:
+        yield calls
+    finally:
+        LSMTree.retune = real
+
+
+@contextlib.contextmanager
+def _storms(torch, build, replay=None):
+    """While open, record every re-tune storm of the drift loop (requests,
+    results, wall, each kernel's launches), or with ``replay`` (a recorded
+    list) answer the loop's storms from it in order, holding each storm's
+    requests to the recorded ones bit for bit."""
+    import numpy as np
+
+    from repro_torch.online import session
+    storms = []
+    real = session.retune_fleet
+
+    def record(requests, sys, **kw):
+        before = dict(build.LAUNCHES)
+        t0 = time.time()
+        out = real(requests, sys, **kw)
+        torch.cuda.synchronize()
+        storms.append({
+            "requests": list(requests), "results": list(out),
+            "wall_s": time.time() - t0,
+            "launches": {k: v - before.get(k, 0)
+                         for k, v in build.LAUNCHES.items()
+                         if v - before.get(k, 0)}})
+        return out
+
+    def answer(requests, sys, **kw):
+        want = replay[len(storms)]["requests"]
+        check(len(requests) == len(want) and all(
+            np.array_equal(np.asarray(a.w), np.asarray(b.w))
+            and float(a.rho) == float(b.rho) and a.reason == b.reason
+            for a, b in zip(requests, want)),
+            f"drift replay: storm {len(storms)} asked for other re-tunes "
+            "than the card's")
+        storms.append({"requests": list(requests)})
+        return replay[len(storms) - 1]["results"]
+
+    session.retune_fleet = record if replay is None else answer
+    try:
+        yield storms
+    finally:
+        session.retune_fleet = real
+    if replay is not None:
+        check(len(storms) == len(replay), f"drift replay: {len(storms)} "
+              f"storms, the card ran {len(replay)}")
+
+
+def _records(results) -> dict:
+    """A drift run's segment records as plain values."""
+    import dataclasses
+
+    import numpy as np
+    return {f"w{w}_{arm}": [
+        {k: (np.asarray(v).tolist() if isinstance(v, np.ndarray) else v)
+         for k, v in dataclasses.asdict(r).items()} for r in res.records]
+        for (w, arm), res in results.items()}
+
+
+def drift_on_cpu(torch, build, report, storms) -> dict:
+    """Replay a card drift run on the CPU plain path: the same plan (the
+    card's first tunings), every storm answered with the card's results.
+    Returns the CPU run's records and ``LSMTree.retune`` calls."""
+    from repro_torch.api import compile_spec
+    from repro_torch.online import execute_drift
+    plan = compile_spec(report.spec).build_drift(report)
+    with _storms(torch, build, replay=storms), _retune_calls() as calls:
+        results, _ = execute_drift(plan, device="cpu")
+    return {"records": _records(results), "retune_calls": calls}
+
+
+def _storm_summary(storms) -> list:
+    """Each storm's size (requests, robust ones, the lane batch after
+    power-of-two padding), wall and kernel launches."""
+    def padded(k):
+        return 1 << (k - 1).bit_length() if k > 1 else k
+
+    out = []
+    for st in storms:
+        n = len(st["requests"])
+        robust = sum(float(r.rho) > 0 for r in st["requests"])
+        out.append({"requests": n, "robust": robust,
+                    "padded": [padded(n - robust), padded(robust)],
+                    "reasons": sorted({r.reason for r in st["requests"]}),
+                    "wall_s": st["wall_s"], "launches": st["launches"]})
+    return out
+
+
+def suite_against_cpu(torch, build, suite) -> dict:
+    """One of ``CPU_HELD_SUITES`` on the card from the committed starts:
+    its rows, its held fields against the committed file (misses printed
+    by name, not a failure: the JAX package misses some too), and the card
+    held against the port's CPU run.  fig6: the CPU's own run, every held
+    field within the runner's band.  tab5 and api: the card's ``TrialPlan``
+    through the CPU trial, every tree's ``IOStats`` and I/O per query
+    bit-identical.  online: each scenario's drift replayed on the CPU from
+    the card's tunings and storms, every segment record and
+    ``LSMTree.retune`` call identical.  ``dual_solve`` launches must be
+    one per robust Adam step plus one per robust grid and storm."""
+    import importlib
+
+    import repro_torch.api as api
+    from repro_torch.bench import run
+    from repro_torch.bench.common import committed_starts
+    mod = importlib.import_module(f"repro_torch.bench.{suite}")
+    base = run.load_baseline(suite, ROOT)
+    log(f"suites: {suite} on the card")
+    build.reset_launches()
+    t0 = time.time()
+    reports, storms = [], []
+    if suite == "online":
+        for kind, widx, target in mod.SCENARIOS:
+            with _storms(torch, build) as st, _retune_calls() as calls:
+                report = api.run_experiment(
+                    mod.make_spec(kind, widx, target), device=DEVICE,
+                    starts=committed_starts)
+            reports.append((kind, report))
+            storms.append((st, calls))
+        rows = mod.rows_of(reports)
+    else:
+        spec = mod.make_spec() if suite == "tab5" else mod.SPEC
+        report = api.run_experiment(spec, device=DEVICE,
+                                    starts=committed_starts)
+        rows = mod.rows_of(report, 0.0) if suite == "fig6" \
+            else mod.rows_of(report)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    cmp = run.compare(rows, wall, base)
+    line = {"phase": "suites", "suite": suite, "starts": "committed",
+            "wall_s": wall, "rows": {r.name: r.derived for r in rows},
+            "held_matched": len(cmp["held"]),
+            "held_missed": [list(m) for m in cmp["missed"]],
+            "launches": launches}
+
+    log(f"suites: {suite} against the CPU")
+    t0 = time.time()
+    if suite == "fig6":
+        cpu = api.run_experiment(spec, device="cpu", starts=committed_starts)
+        cpu_rows = mod.rows_of(cpu, 0.0)
+        against = run.compare(rows, 0.0, {"rows": [
+            {"name": r.name, "derived": r.derived} for r in cpu_rows]})
+        check(not against["missed"], f"fig6: the card's rows miss the "
+              f"CPU's: {against['missed']}")
+        line["card_vs_cpu"] = {"held_matched": len(against["held"]),
+                               "missed": 0}
+        want_dual = spec.design.steps + 1
+    elif suite in ("tab5", "api"):
+        plan = api.compile_spec(spec).build_trial(report)
+        results, _, _, _ = api.execute_trial(plan, device="cpu")
+        for b, res in zip(plan.trees, results):
+            card = report.fleet[(b.cell, b.policy)]
+            check([r.io.as_dict() for r in res]
+                  == [r.io.as_dict() for r in card]
+                  and [r.avg_io_per_query for r in res]
+                  == [r.avg_io_per_query for r in card],
+                  f"{suite}: tree {b.cell}/{b.policy} on the CPU != card")
+        line["card_vs_cpu"] = {"trees": len(plan.trees), "identical": True}
+        want_dual = len(api.compile_spec(spec).tuning_plans()) \
+            * (spec.design.steps + 1)
+    else:
+        want_dual = 0
+        detail = {}
+        for (kind, report), (st, calls) in zip(reports, storms):
+            cpu = drift_on_cpu(torch, build, report, st)
+            check(cpu["records"] == _records(report.drift),
+                  f"online {kind}: segment records on the CPU != card")
+            check(cpu["retune_calls"] == calls, f"online {kind}: "
+                  "LSMTree.retune calls on the CPU != card")
+            robust = sum(any(float(r.rho) > 0 for r in s["requests"])
+                         for s in st)
+            want_dual += report.spec.design.steps + 1 \
+                + robust * (report.spec.drift.retune_steps + 1)
+            detail[kind] = {"storms": len(st), "robust_storms": robust,
+                            "retune_calls": len(calls)}
+        line["card_vs_cpu"] = {"identical": True, "scenarios": detail}
+    line["card_vs_cpu"]["cpu_s"] = time.time() - t0
+    check(launches.get("dual_solve", 0) == want_dual, f"suite {suite}: "
+          f"{launches.get('dual_solve', 0)} dual_solve launches, expected "
+          f"{want_dual}")
+    engine = ("merge", "point_read")
+    if suite == "fig6":
+        check(not any(launches.get(k, 0) for k in engine),
+              f"fig6 ran the engine: {launches}")
+    else:
+        check(all(launches.get(k, 0) for k in engine),
+              f"suite {suite}: the card's engine launched {launches}")
+    return line
+
+
+def phase_drift(torch, build) -> dict:
+    """The online drift loop on the card: the online suite's flip scenario
+    (w4, 250,000 keys, 10 segments of 1,000 queries, four arms) from the
+    committed starts, with the launch counts set to 0 just before it; then
+    the same plan on the CPU plain path from the card's tunings, every
+    storm answered with the card's results.  Both must give the same
+    segment records and the same ``LSMTree.retune`` calls.  Prints the
+    storms (sizes, walls, launches), the re-tunes and each arm's
+    throughput."""
+    import repro_torch.api as api
+    from repro_torch.bench import online
+    from repro_torch.bench.common import committed_starts
+    kind, widx, target = next(sc for sc in online.SCENARIOS
+                              if sc[0] == DRIFT_SCENARIO)
+    spec = online.make_spec(kind, widx, target)
+    log(f"drift: {kind} on the card")
+    build.reset_launches()
+    t0 = time.time()
+    with _storms(torch, build) as storms, _retune_calls() as calls:
+        report = api.run_experiment(spec, device=DEVICE,
+                                    starts=committed_starts)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    log("drift: the same plan on the CPU")
+    t0 = time.time()
+    cpu = drift_on_cpu(torch, build, report, storms)
+    cpu_s = time.time() - t0
+    check(cpu["records"] == _records(report.drift),
+          "drift: segment records on the CPU != card")
+    check(cpu["retune_calls"] == calls,
+          "drift: LSMTree.retune calls on the CPU != card")
+    check(all(launches.get(k, 0) for k in ("dual_solve", "merge",
+                                           "point_read")),
+          f"drift: the card's run launched {launches}")
+    check(report.drift[(0, "online")].retunes >= 1,
+          "drift: the online arm never re-tuned")
+    return {"phase": "drift", "scenario": kind, "widx": widx,
+            "n_keys": spec.drift.n_keys, "segments": spec.drift.segments,
+            "seg_queries": spec.drift.n_queries, "identical": True,
+            "card_s": card_s, "cpu_s": cpu_s, "walls": report.walls,
+            "launches": launches, "storms": _storm_summary(storms),
+            "retune_calls": len(calls),
+            "arms": {arm: {"throughput": res.throughput,
+                           "retunes": res.retunes,
+                           "segment_io": [r.avg_io_per_query
+                                          for r in res.records]}
+                     for (_, arm), res in report.drift.items()}}
+
+
 def suites_main(torch) -> int:
-    """``--suites``: the suites phase over ``ALL_SUITES`` on the
-    ``repro_torch`` under ``--src``: one JSON line per suite, then the
-    card's name and power limit."""
+    """``--suites``: the suites phase over ``ALL_SUITES`` and
+    ``CPU_HELD_SUITES`` on the ``repro_torch`` under ``--src``: one JSON
+    line per suite, then the card's name and power limit."""
     import repro_torch.core as core
     from repro_torch.kernels import _build as build
     log(f"suites only, {Path(core.__file__).parents[1]}")
     build.build(["dual_solve", "merge", "point_read"])
     phase_suites(torch, core, build, ALL_SUITES)
+    for suite in CPU_HELD_SUITES:
+        emit(suite_against_cpu(torch, build, suite))
     print(gpu_line(), flush=True)
     return 0
 
@@ -2052,7 +2327,10 @@ def main(argv=None) -> int:
     emit({"phase": "kernels", "launch_floor_ms": launch_floor_ms(torch),
           "kernels": kernels})
     phase_suites(torch, core, build)
+    for suite in CPU_HELD_SUITES:
+        emit(suite_against_cpu(torch, build, suite))
     emit(phase_api(torch, build))
+    emit(phase_drift(torch, build))
     keyset = ("name", "route", "source", "replaces", "launches",
               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")

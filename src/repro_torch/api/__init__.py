@@ -19,9 +19,9 @@ and the fleet executor, runs it on the spec's execution backend
 ``BENCH_<suite>.json`` schema.  Specs round-trip through JSON with the
 JAX package's text.
 
-Not ported yet, and refused with ``NotImplementedError``: the drift and
-memory axes (ROADMAP.md queue 3), scenario drift kinds (queue 4), and the
-subprocess and remote backends (queue 5).
+Not ported yet, and refused with ``NotImplementedError``: the memory axis
+(ROADMAP.md queue 3b), scenario drift kinds (queue 4), and the subprocess
+and remote backends (queue 5).
 """
 
 from __future__ import annotations
@@ -58,15 +58,16 @@ def run_experiment(spec: ExperimentSpec, backend=None, *, device=None,
 
     ``backend`` overrides the spec's backend instance; by default the
     spec's ``backend`` / ``backend_params`` fields select it.  ``device``
-    is where the tunings and the trial run (``None`` is the card).
-    ``starts(design, n_starts, seed)`` gives each tuning plan's starts
+    is where the tunings, the trial and the drift loop run (``None`` is
+    the card).  ``starts(design, n_starts, seed)`` gives each tuning
+    plan's starts and every re-tune storm's
     (``repro_torch.bench.common``); with ``None`` the tuners draw their
     own from ``seed``.  ``spec.faults`` compiles into a
     :class:`~repro_torch.faults.FaultPlan` handed to the trial executor."""
-    if spec.drift is not None or spec.memory is not None:
+    if spec.memory is not None:
         raise NotImplementedError(
-            "the drift and memory axes are not ported yet (ROADMAP.md "
-            "queue 3: retuning and online)")
+            "the memory axis is not ported yet (ROADMAP.md queue 3b: "
+            "memory arbitration)")
     cx = compile_spec(spec)
     if backend is None:
         backend = get_backend(spec.backend, spec.backend_params)
@@ -89,4 +90,7 @@ def run_experiment(spec: ExperimentSpec, backend=None, *, device=None,
     trial = cx.build_trial(report)
     if trial is not None:
         backend.run_trial(trial, report, faults=faults, device=device)
+    drift = cx.build_drift(report)
+    if drift is not None:
+        backend.run_drift(drift, report, device=device, starts=starts)
     return report

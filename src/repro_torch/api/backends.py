@@ -1,8 +1,11 @@
 """Pluggable execution backends: the *where/how* axis of an experiment.
 
 The port of ``repro/api/backends.py``.  A backend executes a compiled
-experiment's two heavy phases — the batched tuning grid and the engine
-fleet trial — without changing their semantics:
+experiment's heavy phases — the batched tuning grid, the engine fleet
+trial and the drift loop — without changing their semantics.
+
+The drift loop (:meth:`ExecutionBackend.run_drift`) is one driver that
+every backend shares.
 
 * :class:`InlineBackend` (``"inline"``, default) — one
   ``tune_nominal_many`` / ``tune_robust_many`` lane batch per plan on the
@@ -159,6 +162,23 @@ class ExecutionBackend:
     def run_trial(self, plan: TrialPlan, report: Report, faults=None,
                   device=None) -> None:
         raise NotImplementedError
+
+    def run_drift(self, plan, report: Report, device=None,
+                  starts=None) -> None:
+        """Run a compiled drift experiment
+        (``repro_torch.api.compile.DriftPlan``) on ``device``.
+
+        One shared implementation: the online loop is a feedback system —
+        segment s+1's tunings depend on what segment s observed — so it is
+        inherently sequential per deployment and every backend runs the
+        same inline driver (re-tune storms inside it are still one batched
+        dispatch across the whole fleet).  ``starts`` is the provider of
+        the storms' starts (``run_experiment``'s)."""
+        from ..online import execute_drift
+        t0 = time.time()
+        results, _ = execute_drift(plan, device=device, starts=starts)
+        report.drift.update(results)
+        report.walls["drift_s"] = time.time() - t0
 
     def annotate(self, report: Report) -> None:
         """Record what the backend did beside the report's walls."""

@@ -19,10 +19,11 @@ tuners and the fleet executor: the port of ``repro/api/compile.py``.
   shared session plans), executed by the spec's backend.
 
 A plan carries plain numbers (workload matrix, design, ``n_starts``,
-``seed``), so the caller's starts provider can answer for it.  The drift
-and memory plans are lowered by the JAX package's ``online`` loop, which the
-port does not have yet: :meth:`CompiledExperiment.build_drift` and
-:meth:`CompiledExperiment.build_memory` refuse (ROADMAP.md queue 3).
+``seed``), so the caller's starts provider can answer for it.
+:meth:`CompiledExperiment.build_drift` lowers a drift spec onto the
+per-arm deployments :func:`repro_torch.online.execute_drift` runs; memory
+arbitration is not ported yet, and
+:meth:`CompiledExperiment.build_memory` refuses (ROADMAP.md queue 3b).
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ ARM_DESIGNS = {"lazy_leveling": "lazy_leveling"}
 #: constructor sees them.
 MODEL_ONLY_PARAMS = frozenset({"fill"})
 
-_ONLINE = ("the online drift loop and memory arbitration are not ported "
-           "yet (ROADMAP.md queue 3: retuning and online)")
+_MEMORY = ("fleet memory arbitration is not ported yet (ROADMAP.md queue "
+           "3b: memory arbitration)")
 
 
 @dataclasses.dataclass
@@ -381,17 +382,48 @@ class CompiledExperiment:
     # -- drift / memory ------------------------------------------------------
 
     def build_drift(self, report: Report) -> Optional[DriftPlan]:
-        """None without a drift spec; the drift loop is not ported yet."""
-        if self.spec.drift is None:
+        """Lower the spec's drift schedule onto per-arm deployments.
+
+        ``stale_nominal`` starts from the cell (i, None); ``static_robust``
+        and ``online`` from (i, rho*) with rho* the LAST resolved rho —
+        under ``rho_source="from_history"`` that is the history-measured
+        budget; ``oracle`` is tuned per segment by the executor.  Trees
+        deploy the chosen policy arm of their source cell."""
+        dr = self.spec.drift
+        if dr is None:
             return None
-        raise NotImplementedError(_ONLINE)
+        rho0 = self.rhos[-1] if self.rhos else 0.0
+        arms: List[DriftArmInit] = []
+        for i in range(len(self.W)):
+            for arm in dr.arms:
+                if arm == "oracle":
+                    cell, rho = None, 0.0
+                elif arm == "stale_nominal":
+                    cell, rho = (i, None), 0.0
+                else:                            # static_robust | online
+                    cell, rho = (i, rho0), rho0
+                tuning, pol = None, self.spec.design.policies[0]
+                if cell is not None:
+                    pol = report.chosen[cell]
+                    tuning = report.tunings[cell][pol]
+                engine_params = tuple(
+                    (k, v) for k, v in self.spec.design.params_for(pol)
+                    if k not in MODEL_ONLY_PARAMS)
+                arms.append(DriftArmInit(widx=i, arm=arm, tuning=tuning,
+                                         rho=rho, policy=pol,
+                                         policy_params=engine_params))
+        schedules = np.stack([drift_schedule(self.W[i], dr)
+                              for i in range(len(self.W))])
+        return DriftPlan(arms=arms, expected=np.asarray(self.W, np.float64),
+                         schedules=schedules, drift=dr, sys=self.sys,
+                         design=self.primary_design)
 
     def build_memory(self, report: Report) -> Optional[MemoryPlan]:
         """None without a memory spec; memory arbitration is not ported
         yet."""
         if self.spec.memory is None:
             return None
-        raise NotImplementedError(_ONLINE)
+        raise NotImplementedError(_MEMORY)
 
 
 def compile_spec(spec: ExperimentSpec) -> CompiledExperiment:

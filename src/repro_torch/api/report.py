@@ -15,8 +15,8 @@ checksum included.  The row layer the paper suites share (:class:`Row`,
 strict-JSON coercion, benchmark-set cost evaluation, Delta-throughput)
 lives here too; ``repro_torch.bench.run`` prints rows as CSV.
 
-The drift, memory and subprocess-shard parts of the reference's report are
-not ported yet (ROADMAP.md queues 3 and 5).
+The memory, adversary-regret and subprocess-shard parts of the reference's
+report are not ported yet (ROADMAP.md queues 3b, 4 and 5).
 """
 
 from __future__ import annotations
@@ -154,6 +154,10 @@ class Report:
         default_factory=dict)
     design_bench_costs: Dict[str, Dict[Cell, np.ndarray]] = \
         dataclasses.field(default_factory=dict)
+    #: the drift experiment (ExperimentSpec.drift): (workload index, arm)
+    #: -> repro_torch.online.DriftArmResult
+    drift: Dict[Tuple[int, str], Any] = dataclasses.field(
+        default_factory=dict)
     walls: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     # -- accessors ----------------------------------------------------------
@@ -187,7 +191,7 @@ class Report:
         ported yet."""
         raise NotImplementedError(
             "the memory-arbitration axis is not ported yet (ROADMAP.md "
-            "queue 3: retuning and online)")
+            "queue 3b: memory arbitration)")
 
     @property
     def wall_time_s(self) -> float:
@@ -227,6 +231,19 @@ class Report:
                         float(measured.mean() / model.mean()), 3),
                 )
             out.append(Row(f"{name}_{tag}", 0.0, **derived))
+        for (widx, arm), res in self.drift.items():
+            last = res.records[-1]
+            out.append(Row(
+                f"{name}_drift_w{widx}_{arm}", 0.0,
+                avg_io=round(res.avg_io_per_query, 4),
+                throughput=round(res.throughput, 4),
+                retunes=res.retunes,
+                segments=len(res.records),
+                final_kl=round(float(last.kl_est), 4),
+                final_rho=round(float(last.rho_live), 4),
+                segment_io=[round(r.avg_io_per_query, 3)
+                            for r in res.records],
+            ))
         out.append(Row(f"{name}_walls", self.wall_time_s * 1e6,
                        **{k: round(v, 3) for k, v in self.walls.items()},
                        cells=len(self.cells),

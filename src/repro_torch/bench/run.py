@@ -3,6 +3,7 @@
 
     PYTHONPATH=src python -m repro_torch.bench.run fig4 fig10 tuner
     PYTHONPATH=src python -m repro_torch.bench.run fig7_8 fig9 fig19
+    PYTHONPATH=src python -m repro_torch.bench.run fig6 tab5 api online
     PYTHONPATH=src python -m repro_torch.bench.run fig4 --device cpu
     PYTHONPATH=src python -m repro_torch.bench.run tuner --json out/ \\
         --baseline .
@@ -24,8 +25,10 @@ kinds (:func:`field_kind`):
 * **held** — every other field: a bool or string must equal the
   committed value (the ``claim_*`` flags, ``klsm_best``, ``batch``,
   ``paper_reports``), an integer too (``cells``), a float must lie
-  within ``ABS_TOL + REL_TOL * |committed|`` of it, and a dict (fig19's
-  ``degradation``) must have the committed keys, each value held so.
+  within ``ABS_TOL + REL_TOL * |committed|`` of it, a dict (fig19's
+  ``degradation``) must have the committed keys and a list (the api
+  suite's ``measured_io``, online's ``segment_io_*``) the committed
+  length, each value or element held so.
 
 A held field that misses, or a committed row or key the port lacks, is
 printed by name with both values, and the runner exits 1.  ``--json DIR``
@@ -47,9 +50,11 @@ from ..api.report import Row, jsonable
 from ..faults import atomic_write_json, checksum_ok, stamp_checksum
 from .common import committed_starts, own_starts
 
-#: suite key -> module of this package; fig7_8, fig9 and fig19 run
-#: through the experiment API (``repro_torch.api.run_experiment``)
-SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19")
+#: suite key -> module of this package; all but fig4, fig10 and tuner run
+#: through the experiment API (``repro_torch.api.run_experiment``), online
+#: through its drift axis
+SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19", "fig6", "tab5",
+          "api", "online")
 #: a held float lies within ABS_TOL + REL_TOL * |committed| of the
 #: committed value: tuned costs move with the starts
 ABS_TOL, REL_TOL = 0.01, 0.01
@@ -92,6 +97,10 @@ def _holds(got, want) -> bool:
         return isinstance(got, dict) and isinstance(want, dict) \
             and set(got) == set(want) \
             and all(_holds(got[k], want[k]) for k in want)
+    if isinstance(want, list) or isinstance(got, list):
+        return isinstance(got, list) and isinstance(want, list) \
+            and len(got) == len(want) \
+            and all(_holds(g, w) for g, w in zip(got, want))
     if want is None or got is None \
             or isinstance(want, (bool, str)) or isinstance(got, (bool, str)):
         return type(got) is type(want) and got == want

@@ -10,7 +10,8 @@ the robust tuner threads its warm-started log lambda through the carry,
 which is never differentiated.  Each step evaluates the objective once;
 the final iterate gets one more evaluation, so the visited set is
 theta_0..theta_N, as in the JAX package.  Scalars of the schedule and the
-bias corrections are float32, as there.
+bias corrections take theta's dtype (float32 on the tuners' path), as
+there.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from typing import Callable, Tuple
 import torch
 
 
-def _f32(x) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32)
+def _scalar(x, dtype) -> torch.Tensor:
+    return torch.tensor(x, dtype=dtype)
 
 
 def minimize_adam_carry(obj: Callable, theta0: torch.Tensor, carry0,
@@ -39,8 +40,9 @@ def minimize_adam_carry(obj: Callable, theta0: torch.Tensor, carry0,
                         device=theta.device)
     carry = carry0
     denom = float(max(steps - 1, 1))
+    dt = theta.dtype
     for i in range(steps):
-        frac = _f32(i) / denom
+        frac = _scalar(i, dt) / denom
         lr_i = float(lr * (lr_decay + (1 - lr_decay) * 0.5
                            * (1 + torch.cos(math.pi * frac))))
         th = theta.clone().requires_grad_(True)
@@ -51,11 +53,11 @@ def minimize_adam_carry(obj: Callable, theta0: torch.Tensor, carry0,
         better = torch.isfinite(v) & (v < best_v)
         best_t = torch.where(better[..., None], theta, best_t)
         best_v = torch.where(better, v, best_v)
-        step = _f32(i + 1)
+        step = _scalar(i + 1, dt)
         mu = b1 * mu + (1 - b1) * grad
         nu = b2 * nu + (1 - b2) * grad * grad
-        mu_hat = mu / float(1 - _f32(b1) ** step)
-        nu_hat = nu / float(1 - _f32(b2) ** step)
+        mu_hat = mu / float(1 - _scalar(b1, dt) ** step)
+        nu_hat = nu / float(1 - _scalar(b2, dt) ** step)
         theta = theta - lr_i * mu_hat / (torch.sqrt(nu_hat) + eps)
     with torch.no_grad():
         v, carry = obj(theta, carry)

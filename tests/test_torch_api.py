@@ -5,8 +5,8 @@
   build (the suites', the API checklist's, one with faults, one with a
   classic drift), and ``from_json`` of the reference's text gives an equal
   spec; every spec the reference rejects, the port rejects.
-* Refusals: what the port has not ported (scenario drifts, the drift and
-  memory axes, the subprocess and remote backends) raises
+* Refusals: what the port has not ported (scenario drifts, the memory
+  axis, the subprocess and remote backends) raises
   ``NotImplementedError`` naming its ROADMAP.md queue.
 * ``FaultPlan``: the same firings over a grid of shards, attempts and
   basenames.
@@ -20,9 +20,7 @@
 """
 
 import dataclasses
-import importlib.util
 import json
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -36,7 +34,8 @@ import repro_torch.api as T
 import repro_torch.core as TC
 import repro_torch.faults as TF
 from benchmarks import (bench_api, bench_flexible_robustness,
-                        bench_rho_choice, bench_rho_impact,
+                        bench_online_drift, bench_rho_choice,
+                        bench_rho_impact, bench_robust_vs_nominal,
                         bench_system_eval)
 from repro.api import backends as rbackends
 from repro.api import compile as rcompile
@@ -45,7 +44,8 @@ from repro_torch import obs as tobs
 from repro_torch.api import backends as tbackends
 from repro_torch.api import compile as tcompile
 from repro_torch.api import report as treport
-from repro_torch.bench import common, fig7_8, fig9, fig19
+from repro_torch.bench import (api, common, fig6, fig7_8, fig9, fig19,
+                               online, tab5)
 from repro_torch.convert import phi_from_numpy
 from repro import obs as robs
 
@@ -138,15 +138,6 @@ def _checklist_specs(m):
     }
 
 
-def _chip_smoke_api_spec():
-    """``chip_smoke.py``'s copy of the API smoke suite's spec."""
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    mod_spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return T.ExperimentSpec.from_dict(mod.API_SPEC)
-
-
 def _suite_specs():
     """(reference, port) pairs of the suites' specs."""
     ref19 = bench_flexible_robustness
@@ -163,8 +154,12 @@ def _suite_specs():
         "fig19_designs": (axis, fig19.axis_spec()),
         "fig19_endure_rho2": (ref19._spec("endure_rho2", "classic", 64,
                                           rhos=(2.0,)), fig19.robust_spec()),
-        "tab5": (bench_system_eval.SPEC, None),
-        "api": (bench_api.SPEC, _chip_smoke_api_spec()),
+        "tab5": (bench_system_eval.SPEC, tab5.make_spec()),
+        "api": (bench_api.SPEC, api.SPEC),
+        "fig6": (bench_robust_vs_nominal.SPEC, fig6.SPEC),
+        **{f"online_{kind}": (bench_online_drift.make_spec(kind, w, target),
+                              online.make_spec(kind, w, target))
+           for kind, w, target in online.SCENARIOS},
     }
 
 
@@ -271,18 +266,19 @@ def test_refusals_name_their_roadmap_queue():
     with pytest.raises(NotImplementedError, match="queue 4"):
         T.DriftSpec(kind="adversary", target=(0.25,) * 4)
     specs = _checklist_specs(T)
-    for name in ("drift", "memory"):
-        with pytest.raises(NotImplementedError, match="queue 3"):
-            T.run_experiment(specs[name], device="cpu")
-        cx = T.compile_spec(specs[name])
-        build = cx.build_memory if name == "memory" else cx.build_drift
-        with pytest.raises(NotImplementedError, match="queue 3"):
-            build(None)
+    memory = "queue 3b: memory arbitration"
+    with pytest.raises(NotImplementedError, match=memory):
+        T.run_experiment(specs["memory"], device="cpu")
+    with pytest.raises(NotImplementedError, match=memory):
+        T.compile_spec(specs["memory"]).build_memory(None)
     report = treport.Report(spec=specs["direct"], sys=TC.LSMSystem(),
                             cells=[], tunings={}, arm_costs={}, chosen={},
                             model_costs={})
-    with pytest.raises(NotImplementedError, match="queue 3"):
+    with pytest.raises(NotImplementedError, match=memory):
         report.memory_fleet_throughput("static")
+    # the drift axis is ported: a drift spec lowers without a memory spec
+    assert T.compile_spec(specs["drift"]).build_memory(None) is None
+    assert T.compile_spec(specs["direct"]).build_drift(None) is None
     for name in ("subprocess", "remote"):
         with pytest.raises(NotImplementedError, match="queue 5"):
             T.get_backend(name, (("workers", 2),))
@@ -632,5 +628,5 @@ def test_report_helpers_are_the_reference_module_s():
         == [f.name for f in dataclasses.fields(rreport.TreeProbe)]
     kept = {f.name for f in dataclasses.fields(treport.Report)}
     assert kept == {f.name for f in dataclasses.fields(rreport.Report)} \
-        - {"drift", "regret", "memory", "memory_events", "failed_cells",
+        - {"regret", "memory", "memory_events", "failed_cells",
            "shard_attempts"}

@@ -781,3 +781,132 @@ def test_launch_inside_a_device_guard_stays_on_its_device(dev, kernel):
             else:
                 torch.testing.assert_close(g.cpu().float(), w.float(),
                                            atol=tol[0], rtol=tol[1])
+
+
+@pytest.mark.parametrize("suite,sizes", [
+    ("fig6", {}), ("tab5", dict(N_KEYS=20_000, QUERIES=1000)),
+    ("api", {}), ("online", dict(N_KEYS=20_000, SEGMENTS=4,
+                                  SEG_QUERIES=500))])
+def test_cpu_held_suites_launch_their_kernels(dev, monkeypatch, suite,
+                                              sizes):
+    """fig6, tab5, api and online through the runner on the card (tab5 and
+    online cut in size): every committed row and key present, one
+    ``dual_solve`` launch per robust Adam step plus one per robust grid
+    (and per robust re-tune storm of the drift loop), and the engine
+    suites' trees on ``merge`` and ``point_read``."""
+    import importlib
+
+    from repro_torch.bench import run
+    from repro_torch.online import session
+    mod = importlib.import_module(f"repro_torch.bench.{suite}")
+    for name, value in sizes.items():
+        monkeypatch.setattr(mod, name, value)
+    robust_storms = []
+    real = session.retune_fleet
+
+    def storm(requests, sys, **kw):
+        robust_storms.append(any(r.rho > 0 for r in requests))
+        return real(requests, sys, **kw)
+
+    monkeypatch.setattr(session, "retune_fleet", storm)
+    before = dict(_build.LAUNCHES)
+    result = run.run_suite(suite, device="cuda")
+    launches = {k: _build.LAUNCHES[k] - before[k]
+                for k in ("dual_solve", "merge", "point_read")}
+    cmp = result["comparison"]
+    assert all(got is not None and want is not None
+               for _, got, want in cmp["missed"])
+    grids = {"fig6": 1, "tab5": 1, "api": 2, "online": 3}[suite]
+    steps = 120 if suite == "api" else 250
+    assert launches["dual_solve"] == grids * (steps + 1) \
+        + sum(robust_storms) * 201
+    assert (launches["merge"] > 0) == (launches["point_read"] > 0) \
+        == (suite != "fig6")
+
+
+def test_drift_on_card_matches_cpu_from_the_same_tunings(dev, monkeypatch):
+    """A small flip drift (20,000 keys, 4 segments of 500 queries, a tight
+    trigger) on the card, then its plan on the CPU with every storm
+    answered by the card's: the same segment records and the same
+    ``LSMTree.retune`` calls; the card's storms launch ``dual_solve``, its
+    trees ``merge`` and ``point_read``."""
+    import dataclasses
+
+    import repro_torch.api as api
+    from repro_torch.bench import online
+    from repro_torch.lsm import LSMTree
+    from repro_torch.online import execute_drift, session
+    spec = online.make_spec("flip", 4, online.SCENARIOS[1][2],
+                            n_keys=20_000, segments=4, seg_queries=500)
+    spec = dataclasses.replace(
+        spec, design=api.DesignSpec(n_starts=16, steps=60, seed=0),
+        drift=dataclasses.replace(spec.drift, kl_threshold=0.05, cooldown=1,
+                                  retune_starts=8, retune_steps=40))
+    storms, calls = [], {"cuda": [], "cpu": []}
+    real_fleet, real_retune = session.retune_fleet, LSMTree.retune
+    where = {"dev": "cuda"}
+
+    def record(requests, sys, **kw):
+        out = real_fleet(requests, sys, **kw)
+        storms.append((requests, out))
+        return out
+
+    def replay(requests, sys, **kw):
+        want, out = storms[len(calls["replayed"])]
+        calls["replayed"].append(requests)
+        assert [(list(a.w), a.rho, a.reason) for a in requests] \
+            == [(list(b.w), b.rho, b.reason) for b in want]
+        return out
+
+    def retune(tree, phi, sys):
+        real_retune(tree, phi, sys)
+        calls[where["dev"]].append((tree.obs_label, tree.cfg.T,
+                                    tree.cfg.K, tree.cfg.buf_entries))
+
+    monkeypatch.setattr(LSMTree, "retune", retune)
+    monkeypatch.setattr(session, "retune_fleet", record)
+    before = dict(_build.LAUNCHES)
+    report = api.run_experiment(spec, device="cuda")
+    launches = {k: _build.LAUNCHES[k] - before[k]
+                for k in ("dual_solve", "merge", "point_read")}
+    assert all(launches.values()), launches
+    assert report.drift[(0, "online")].retunes >= 1
+    calls["replayed"] = []
+    where["dev"] = "cpu"
+    monkeypatch.setattr(session, "retune_fleet", replay)
+    plan = api.compile_spec(spec).build_drift(report)
+    results, _ = execute_drift(plan, device="cpu")
+    assert len(calls["replayed"]) == len(storms) >= 2
+    assert calls["cpu"] == calls["cuda"] and calls["cuda"]
+    for key, res in report.drift.items():
+        a = [dataclasses.asdict(r) for r in res.records]
+        b = [dataclasses.asdict(r) for r in results[key].records]
+        for ra, rb in zip(a, b):
+            for k in ra:
+                np.testing.assert_array_equal(np.asarray(ra[k]),
+                                              np.asarray(rb[k]))
+        assert len(a) == len(b) == 4
+
+
+def test_retune_storm_on_card_pads_without_moving_results(dev):
+    """A storm of five requests (two nominal, three robust at two budgets)
+    on the card, padded to powers of two and not: the same tunings bit
+    for bit; the robust grid launches ``dual_solve`` once per Adam step
+    plus one."""
+    from repro_torch.checkpoint.store import retune_storm
+    W = np.array([[0.1, 0.1, 0.1, 0.7], [0.33, 0.33, 0.33, 0.01],
+                  [0.475, 0.475, 0.04, 0.01], [0.2, 0.5, 0.2, 0.1],
+                  [0.6, 0.2, 0.1, 0.1]])
+    rhos = [0.0, 0.3, 0.3, 0.6, 0.0]
+    sys_t = core.LSMSystem()
+    out = {}
+    for pad in (False, True):
+        before = _build.LAUNCHES["dual_solve"]
+        out[pad] = retune_storm(W, rhos, sys_t, n_starts=8, steps=30,
+                                pad_pow2=pad, device="cuda")
+        assert _build.LAUNCHES["dual_solve"] - before == 30 + 1
+    for a, b in zip(out[False], out[True]):
+        assert torch.equal(a.phi.T, b.phi.T)
+        assert torch.equal(a.phi.K, b.phi.K)
+        assert torch.equal(a.phi.mfilt_bits, b.phi.mfilt_bits)
+        assert a.cost == b.cost

@@ -1,0 +1,150 @@
+"""Carry the JAX package's tunings across into the port's trial and drift
+executors (the tests' helper, not a test module).
+
+The engine and the online loop are bit-exact; the float32 Adam tuners are
+not (a 1-ulp difference in a step grows until two starts end in different
+integral tunings, ROADMAP.md section 3).  So a test that holds the engine
+or the loop against the reference runs both from the SAME tunings: the
+reference's, converted here, with every re-tune storm replayed in order.
+"""
+
+import contextlib
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+
+import repro_torch.api as T
+import repro_torch.core as TC
+from repro_torch.api import compile as tcompile
+from repro_torch.convert import phi_from_numpy
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def port_tuning(r):
+    """A reference ``TuningResult`` as the port's (float32 CPU tensors)."""
+    if r is None:
+        return None
+    raw = None if r.raw_phi is None else phi_from_numpy(
+        np.asarray(r.raw_phi.T), np.asarray(r.raw_phi.mfilt_bits),
+        np.asarray(r.raw_phi.K))
+    return TC.TuningResult(
+        phi=phi_from_numpy(np.asarray(r.phi.T), np.asarray(r.phi.mfilt_bits),
+                           np.asarray(r.phi.K)),
+        cost=float(r.cost), design=TC.DesignSpace(r.design.value),
+        raw_phi=raw, solver=r.solver)
+
+
+def port_sys(sys):
+    return TC.LSMSystem(**dataclasses.asdict(sys))
+
+
+def port_spec(spec):
+    return T.ExperimentSpec.from_json(spec.to_json())
+
+
+def port_trial_plan(ref_plan):
+    fields = dataclasses.asdict(ref_plan)
+    fields["trees"] = [tcompile.TreeBuild(**dataclasses.asdict(b))
+                       for b in ref_plan.trees]
+    return tcompile.TrialPlan(**fields)
+
+
+def port_drift_plan(ref_plan, spec):
+    """The reference's compiled ``DriftPlan`` as the port's: the same arms
+    (the reference's tunings), mixes, schedules and system."""
+    arms = [tcompile.DriftArmInit(widx=a.widx, arm=a.arm,
+                                  tuning=port_tuning(a.tuning), rho=a.rho,
+                                  policy=a.policy,
+                                  policy_params=a.policy_params)
+            for a in ref_plan.arms]
+    return tcompile.DriftPlan(
+        arms=arms, expected=np.asarray(ref_plan.expected),
+        schedules=np.asarray(ref_plan.schedules),
+        drift=port_spec(spec).drift, sys=port_sys(ref_plan.sys),
+        design=TC.DesignSpace(ref_plan.design.value))
+
+
+@contextlib.contextmanager
+def recorded_storms(session_module):
+    """Record every ``retune_fleet`` storm a drift run makes through
+    ``session_module`` (the reference's or the port's): a list of
+    ``(requests, results)``."""
+    storms = []
+    real = session_module.retune_fleet
+
+    def record(requests, sys, **kw):
+        out = real(requests, sys, **kw)
+        storms.append((list(requests), list(out)))
+        return out
+
+    session_module.retune_fleet = record
+    try:
+        yield storms
+    finally:
+        session_module.retune_fleet = real
+
+
+@contextlib.contextmanager
+def replayed_storms(session_module, storms, convert=port_tuning):
+    """Answer the port's storms with recorded ones, in order; each storm's
+    requests must equal the recorded storm's (mix, budget and reason, bit
+    for bit).  Yields the list of storms replayed."""
+    real = session_module.retune_fleet
+    done = []
+
+    def replay(requests, sys, **kw):
+        want, results = storms[len(done)]
+        assert len(requests) == len(want)
+        for got, ref in zip(requests, want):
+            np.testing.assert_array_equal(np.asarray(got.w),
+                                          np.asarray(ref.w))
+            assert (float(got.rho), got.reason) == (float(ref.rho),
+                                                    ref.reason)
+        done.append(requests)
+        return [convert(r) for r in results]
+
+    session_module.retune_fleet = replay
+    try:
+        yield done
+    finally:
+        session_module.retune_fleet = real
+    assert len(done) == len(storms), "a recorded storm was not replayed"
+
+
+def record_fields(rec):
+    """A ``SegmentRecord`` as plain, comparable values."""
+    d = dataclasses.asdict(rec)
+    return {k: (np.asarray(v).tolist() if isinstance(v, np.ndarray) else v)
+            for k, v in d.items()}
+
+
+def drift_records(results):
+    """``{(widx, arm): [record fields, ...]}`` of a drift run."""
+    return {key: [record_fields(r) for r in res.records]
+            for key, res in results.items()}
+
+
+def port_report(ref, fleet=None, drift=None):
+    """The port's ``Report`` holding the reference report's tunings, arms,
+    costs and walls, with the port's own ``fleet`` (trial results) or
+    ``drift`` (drift results) when given, else the reference's fleet."""
+    from repro_torch.api import report as treport
+    return treport.Report(
+        spec=port_spec(ref.spec), sys=port_sys(ref.sys), cells=ref.cells,
+        tunings={c: {p: port_tuning(r) for p, r in arms.items()}
+                 for c, arms in ref.tunings.items()},
+        arm_costs=ref.arm_costs, chosen=ref.chosen,
+        model_costs=ref.model_costs, bench_costs=ref.bench_costs,
+        bench_set=ref.bench_set,
+        fleet=ref.fleet if fleet is None else fleet,
+        drift={} if drift is None else drift, walls=dict(ref.walls))
+
+
+def baseline_of(rows):
+    """Rows as a ``BENCH_<suite>.json`` payload the runner's ``compare``
+    takes (a live reading held like a committed file)."""
+    from repro_torch.api.report import jsonable
+    return {"rows": [{"name": r.name, "derived": jsonable(r.derived)}
+                     for r in rows]}
