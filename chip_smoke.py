@@ -91,9 +91,9 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    launches, which for ``dual_solve`` must be one per robust Adam step
    plus one per tuning: 251 for each API suite's robust grid); and the
    ``dual_solve`` launches a profiler trace records over one fig10 robust
-   call, which must be its steps + 1.  Then ``fig6``, ``tab5``, ``api``
-   and ``online`` (``CPU_HELD_SUITES``), whose committed files the JAX
-   package itself no longer reproduces from those starts: each on the
+   call, which must be its steps + 1.  Then ``fig6``, ``tab5``, ``api``,
+   ``online`` and ``memory`` (``CPU_HELD_SUITES``), whose committed files
+   the JAX package itself no longer reproduces from those starts: each on the
    card, one JSON line with its held fields and its misses against the
    committed file by name (printed, not a failure), its launches
    (``dual_solve`` one per robust Adam step plus one per robust grid and
@@ -103,7 +103,15 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    through the CPU trial, every ``IOStats`` and I/O per query
    bit-identical; online's three drifts replayed on the CPU from the
    card's tunings and re-tune storms, every segment record and
-   ``LSMTree.retune`` call identical.  The ``tuner`` suite runs only under
+   ``LSMTree.retune`` call identical; ``memory``'s three runs (two
+   scenarios and the disabled check) likewise, the division events too.
+   online and memory set the launch counts to 0 before each run and check
+   each run's own (``dual_solve``: 251 for each memory run's first
+   tunings plus 201 for each robust storm).  ``compaction`` (one pinned tuning, no tuner: 0
+   ``dual_solve`` launches, its ``merge`` and ``point_read`` ones
+   printed) and ``robust_sharding`` (its three skip rows: the repository
+   holds no dry-run records) are held against the committed file like
+   fig4.  The ``tuner`` suite runs only under
    ``--suites`` (below): its seed-style row alone takes about 1,000 s on
    the H100.
 7. ``api`` — ``run_experiment`` on the card for the spec of the API
@@ -121,6 +129,16 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    ``LSMTree.retune`` calls; it prints each storm (requests, robust ones,
    the padded lane batches, wall, launches), the re-tunes and each arm's
    throughput.
+9. ``memory`` — the fleet memory arbiter: the memory suite's skew_flip
+   scenario (two tenants of 50,000 keys, 8 segments of 500 queries, the
+   static and the arbitrated fleet) as the suites phase ran it on the
+   card and replayed it on the CPU; it checks that run's own launches
+   (every kernel of its path) and that the arbiter re-divided, and prints
+   each storm (granted share, requests, lane batch, wall, launches), the
+   divisions and each fleet's throughput.
+10. ``robust_sharding`` — ``robust_layout_sweep`` over 64 seeded
+   synthetic layout candidates x the rho grid on the card and the CPU:
+   the same picks, the worst-case grids within rel 1e-5.
 
 The build's ``ptxas`` report (registers and spills) for the bf16
 ``rwkv6`` kernel is printed on a line of its own.
@@ -128,9 +146,9 @@ The build's ``ptxas`` report (registers and spills) for the bf16
     python3 chip_smoke.py --suites [--src DIR]
 
 runs only the suites phase, over ``fig4``, ``fig10``, ``tuner``,
-``fig7_8``, ``fig9``, ``fig19`` and the four held against the CPU, on the
-``repro_torch`` under ``DIR``: one JSON line per suite, then the card's
-name and power limit.
+``fig7_8``, ``fig9``, ``fig19``, ``compaction``, ``robust_sharding`` and
+the five held against the CPU, on the ``repro_torch`` under ``DIR``: one
+JSON line per suite, then the card's name and power limit.
 
     python3 chip_smoke.py --merge [--src DIR] [--sizes FILE]
 
@@ -195,20 +213,32 @@ FLEET_POLICIES = ("klsm", "lazy_leveling")
 # default run holds fig4, fig10 and the API suites; the tuner suite (1,110 s
 # on the H100, most of it its seed-style row) runs under --suites, with the
 # others
-SUITES = ("fig4", "fig10", "fig7_8", "fig9", "fig19")
-ALL_SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19")
+SUITES = ("fig4", "fig10", "fig7_8", "fig9", "fig19", "compaction",
+          "robust_sharding")
+ALL_SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19",
+              "compaction", "robust_sharding")
 # the held fields of each committed BENCH_<suite>.json
 SUITE_HELD = {"fig4": 18, "fig10": 12, "tuner": 11, "fig7_8": 27, "fig9": 4,
-              "fig19": 16}
+              "fig19": 16, "compaction": 32, "robust_sharding": 3}
+# the suites that run the engine (every compaction a merge, every read
+# batch a point_read) and no tuner
+ENGINE_SUITES = ("compaction",)
 # the suites that run through the experiment API, each with one robust grid
 API_SUITES = ("fig7_8", "fig9", "fig19")
 # the suites whose committed file the JAX package itself no longer
 # reproduces from the committed starts (ROADMAP.md section 3): the card is
 # held against the port's CPU run, and its misses against the committed
 # file are printed by name
-CPU_HELD_SUITES = ("fig6", "tab5", "api", "online")
+CPU_HELD_SUITES = ("fig6", "tab5", "api", "online", "memory")
 # the drift phase's experiment: the online suite's flip scenario
 DRIFT_SCENARIO = "flip"
+# the memory phase's experiment: the memory suite's skew_flip scenario
+MEMORY_SCENARIO = "skew_flip"
+# the memory suite's card runs and CPU replays by scenario, kept for the
+# memory phase
+_MEMORY_RUN: dict = {}
+# the robust_sharding phase: seeded synthetic layout candidates x GRID_RHOS
+LAYOUT_CANDIDATES = 64
 MERGE_N, READ_BATCH = 5_000_000, 1_000_000
 # (arch, the kernel its prefill runs once per layer)
 SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"))
@@ -1849,6 +1879,9 @@ def phase_suites(torch, core, build, suites=SUITES) -> list:
         check(launches.get("dual_solve", 0) == want, f"suite {suite}: "
               f"{launches.get('dual_solve', 0)} dual_solve launches, "
               f"expected {want}")
+        if suite in ENGINE_SUITES:
+            check(all(launches.get(k, 0) for k in ("merge", "point_read")),
+                  f"suite {suite}: the card's engine launched {launches}")
     return lines
 
 
@@ -1944,14 +1977,17 @@ def _retune_calls():
 
 @contextlib.contextmanager
 def _storms(torch, build, replay=None):
-    """While open, record every re-tune storm of the drift loop (requests,
-    results, wall, each kernel's launches), or with ``replay`` (a recorded
-    list) answer the loop's storms from it in order, holding each storm's
-    requests to the recorded ones bit for bit."""
+    """While open, record every re-tune storm of the drift loop and of the
+    memory arbiter (requests, results, the system's bits per entry: a
+    memory storm's granted share, wall, each kernel's launches), or with
+    ``replay`` (a recorded list) answer the loops' storms from it in order,
+    holding each storm's requests and share to the recorded ones bit for
+    bit."""
     import numpy as np
 
-    from repro_torch.online import session
+    from repro_torch.online import memory, session
     storms = []
+    modules = (session, memory)
     real = session.retune_fleet
 
     def record(requests, sys, **kw):
@@ -1961,6 +1997,7 @@ def _storms(torch, build, replay=None):
         torch.cuda.synchronize()
         storms.append({
             "requests": list(requests), "results": list(out),
+            "share": float(sys.bits_per_entry),
             "wall_s": time.time() - t0,
             "launches": {k: v - before.get(k, 0)
                          for k, v in build.LAUNCHES.items()
@@ -1968,23 +2005,26 @@ def _storms(torch, build, replay=None):
         return out
 
     def answer(requests, sys, **kw):
-        want = replay[len(storms)]["requests"]
-        check(len(requests) == len(want) and all(
-            np.array_equal(np.asarray(a.w), np.asarray(b.w))
-            and float(a.rho) == float(b.rho) and a.reason == b.reason
-            for a, b in zip(requests, want)),
-            f"drift replay: storm {len(storms)} asked for other re-tunes "
-            "than the card's")
+        want = replay[len(storms)]
+        check(len(requests) == len(want["requests"])
+              and float(sys.bits_per_entry) == want["share"] and all(
+                  np.array_equal(np.asarray(a.w), np.asarray(b.w))
+                  and float(a.rho) == float(b.rho) and a.reason == b.reason
+                  for a, b in zip(requests, want["requests"])),
+              f"replay: storm {len(storms)} asked for other re-tunes "
+              "than the card's")
         storms.append({"requests": list(requests)})
-        return replay[len(storms) - 1]["results"]
+        return want["results"]
 
-    session.retune_fleet = record if replay is None else answer
+    for mod in modules:
+        mod.retune_fleet = record if replay is None else answer
     try:
         yield storms
     finally:
-        session.retune_fleet = real
+        for mod in modules:
+            mod.retune_fleet = real
     if replay is not None:
-        check(len(storms) == len(replay), f"drift replay: {len(storms)} "
+        check(len(storms) == len(replay), f"replay: {len(storms)} "
               f"storms, the card ran {len(replay)}")
 
 
@@ -2011,9 +2051,24 @@ def drift_on_cpu(torch, build, report, storms) -> dict:
     return {"records": _records(results), "retune_calls": calls}
 
 
+def memory_on_cpu(torch, build, report, storms) -> dict:
+    """Replay a card memory-arbitration run on the CPU plain path: the same
+    plan (the card's first tunings), every storm answered with the card's
+    results.  Returns the CPU run's records, division events and
+    ``LSMTree.retune`` calls."""
+    from repro_torch.api import compile_spec
+    from repro_torch.online import execute_memory_fleet
+    plan = compile_spec(report.spec).build_memory(report)
+    with _storms(torch, build, replay=storms), _retune_calls() as calls:
+        results, events = execute_memory_fleet(plan, device="cpu")
+    return {"records": _records(results), "events": events,
+            "retune_calls": calls}
+
+
 def _storm_summary(storms) -> list:
     """Each storm's size (requests, robust ones, the lane batch after
-    power-of-two padding), wall and kernel launches."""
+    power-of-two padding), the system's bits per entry (a memory storm's
+    granted share), wall and kernel launches."""
     def padded(k):
         return 1 << (k - 1).bit_length() if k > 1 else k
 
@@ -2023,9 +2078,14 @@ def _storm_summary(storms) -> list:
         robust = sum(float(r.rho) > 0 for r in st["requests"])
         out.append({"requests": n, "robust": robust,
                     "padded": [padded(n - robust), padded(robust)],
+                    "share": st["share"],
                     "reasons": sorted({r.reason for r in st["requests"]}),
                     "wall_s": st["wall_s"], "launches": st["launches"]})
     return out
+
+
+def _robust_storms(storms) -> int:
+    return sum(any(float(r.rho) > 0 for r in s["requests"]) for s in storms)
 
 
 def suite_against_cpu(torch, build, suite) -> dict:
@@ -2037,8 +2097,10 @@ def suite_against_cpu(torch, build, suite) -> dict:
     through the CPU trial, every tree's ``IOStats`` and I/O per query
     bit-identical.  online: each scenario's drift replayed on the CPU from
     the card's tunings and storms, every segment record and
-    ``LSMTree.retune`` call identical.  ``dual_solve`` launches must be
-    one per robust Adam step plus one per robust grid and storm."""
+    ``LSMTree.retune`` call identical; memory likewise, with its division
+    events.  online and memory set the launch counts to 0 before each
+    scenario and check each scenario's own.  ``dual_solve`` launches must
+    be one per robust Adam step plus one per robust grid and storm."""
     import importlib
 
     import repro_torch.api as api
@@ -2049,15 +2111,25 @@ def suite_against_cpu(torch, build, suite) -> dict:
     log(f"suites: {suite} on the card")
     build.reset_launches()
     t0 = time.time()
-    reports, storms = [], []
-    if suite == "online":
-        for kind, widx, target in mod.SCENARIOS:
+    reports, runs = [], []
+    if suite in ("online", "memory"):
+        specs = mod.specs() if suite == "memory" else [
+            (kind, mod.make_spec(kind, widx, target))
+            for kind, widx, target in mod.SCENARIOS]
+        launches = {}
+        for kind, spec in specs:
+            build.reset_launches()
+            t1 = time.time()
             with _storms(torch, build) as st, _retune_calls() as calls:
-                report = api.run_experiment(
-                    mod.make_spec(kind, widx, target), device=DEVICE,
-                    starts=committed_starts)
+                report = api.run_experiment(spec, device=DEVICE,
+                                            starts=committed_starts)
+            torch.cuda.synchronize()
+            own = {k: v for k, v in build.LAUNCHES.items() if v}
+            for k, v in own.items():
+                launches[k] = launches.get(k, 0) + v
             reports.append((kind, report))
-            storms.append((st, calls))
+            runs.append({"storms": st, "calls": calls, "launches": own,
+                         "card_s": time.time() - t1})
         rows = mod.rows_of(reports)
     else:
         spec = mod.make_spec() if suite == "tab5" else mod.SPEC
@@ -2065,9 +2137,9 @@ def suite_against_cpu(torch, build, suite) -> dict:
                                     starts=committed_starts)
         rows = mod.rows_of(report, 0.0) if suite == "fig6" \
             else mod.rows_of(report)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
     wall = time.time() - t0
-    launches = {k: v for k, v in build.LAUNCHES.items() if v}
     cmp = run.compare(rows, wall, base)
     line = {"phase": "suites", "suite": suite, "starts": "committed",
             "wall_s": wall, "rows": {r.name: r.derived for r in rows},
@@ -2103,18 +2175,34 @@ def suite_against_cpu(torch, build, suite) -> dict:
     else:
         want_dual = 0
         detail = {}
-        for (kind, report), (st, calls) in zip(reports, storms):
-            cpu = drift_on_cpu(torch, build, report, st)
-            check(cpu["records"] == _records(report.drift),
-                  f"online {kind}: segment records on the CPU != card")
-            check(cpu["retune_calls"] == calls, f"online {kind}: "
+        for (kind, report), card_run in zip(reports, runs):
+            st, calls = card_run["storms"], card_run["calls"]
+            t1 = time.time()
+            if suite == "online":
+                cpu = drift_on_cpu(torch, build, report, st)
+                card = _records(report.drift)
+            else:
+                cpu = memory_on_cpu(torch, build, report, st)
+                card = _records(report.memory)
+                check(cpu["events"] == report.memory_events,
+                      f"memory {kind}: division events on the CPU != card")
+            check(cpu["records"] == card,
+                  f"{suite} {kind}: segment records on the CPU != card")
+            check(cpu["retune_calls"] == calls, f"{suite} {kind}: "
                   "LSMTree.retune calls on the CPU != card")
-            robust = sum(any(float(r.rho) > 0 for r in s["requests"])
-                         for s in st)
-            want_dual += report.spec.design.steps + 1 \
+            robust = _robust_storms(st)
+            want = report.spec.design.steps + 1 \
                 + robust * (report.spec.drift.retune_steps + 1)
+            own = card_run["launches"]
+            check(own.get("dual_solve", 0) == want, f"{suite} {kind}: "
+                  f"{own.get('dual_solve', 0)} dual_solve launches, "
+                  f"expected {want}")
+            want_dual += want
             detail[kind] = {"storms": len(st), "robust_storms": robust,
-                            "retune_calls": len(calls)}
+                            "retune_calls": len(calls), "launches": own}
+            if suite == "memory":
+                _MEMORY_RUN[kind] = dict(card_run, report=report,
+                                         cpu_s=time.time() - t1)
         line["card_vs_cpu"] = {"identical": True, "scenarios": detail}
     line["card_vs_cpu"]["cpu_s"] = time.time() - t0
     check(launches.get("dual_solve", 0) == want_dual, f"suite {suite}: "
@@ -2178,6 +2266,84 @@ def phase_drift(torch, build) -> dict:
                            "segment_io": [r.avg_io_per_query
                                           for r in res.records]}
                      for (_, arm), res in report.drift.items()}}
+
+
+def phase_memory() -> dict:
+    """The fleet memory arbiter on the card: the memory suite's skew_flip
+    scenario (two tenants of 50,000 keys, 8 segments of 500 queries, the
+    static and the arbitrated fleet) as the suites phase ran it from the
+    committed starts, with the launch counts set to 0 just before it, and
+    replayed it on the CPU plain path (same segment records, division
+    events and ``LSMTree.retune`` calls).  Checks that this run launched
+    every kernel of its path and that the arbiter re-divided; prints each
+    storm (share, requests, lane batch, wall, launches), the divisions and
+    each fleet's throughput."""
+    check(MEMORY_SCENARIO in _MEMORY_RUN,
+          "memory: the suites phase did not run the memory suite")
+    run = _MEMORY_RUN[MEMORY_SCENARIO]
+    report, launches = run["report"], run["launches"]
+    check(all(launches.get(k, 0) for k in ("dual_solve", "merge",
+                                           "point_read")),
+          f"memory: the card's run launched {launches}")
+    check(any(e["segment"] >= 0 for e in report.memory_events),
+          "memory: the arbiter never re-divided")
+    d = report.spec.drift
+    return {"phase": "memory", "scenario": MEMORY_SCENARIO,
+            "tenants": len(report.spec.workload.workloads),
+            "n_keys": d.n_keys, "segments": d.segments,
+            "seg_queries": d.n_queries, "identical": True,
+            "card_s": run["card_s"], "cpu_s": run["cpu_s"],
+            "walls": report.walls, "launches": launches,
+            "storms": _storm_summary(run["storms"]),
+            "retune_calls": len(run["calls"]),
+            "events": report.memory_events,
+            "fleets": {f"w{w}_{fleet}": {
+                "throughput": res.throughput, "retunes": res.retunes,
+                "segment_io": [r.avg_io_per_query for r in res.records]}
+                for (w, fleet), res in report.memory.items()},
+            "tp": {fleet: report.memory_fleet_throughput(fleet)
+                   for fleet in ("static", "arbitrated")}}
+
+
+def phase_robust_sharding(torch) -> dict:
+    """Robust layout selection on the card and on the CPU:
+    ``robust_layout_sweep`` over ``LAYOUT_CANDIDATES`` seeded synthetic
+    candidates (a base cost per layout, one slow class whose penalty grows
+    as the base falls) x ``GRID_RHOS``, one broadcast lane batch of
+    ``robust_cost`` each.  The picks must be equal and the grids agree to
+    rel 1e-5."""
+    import numpy as np
+
+    from repro_torch.core import robust_sharding as rs
+    rng = np.random.default_rng(0)
+    n = LAYOUT_CANDIDATES
+    base = rng.uniform(0.5, 2.0, n)
+    costs = base[:, None] * rng.uniform(0.8, 1.2, (n, 4))
+    costs[np.arange(n), rng.integers(0, 4, n)] *= 1.0 + 40.0 / base ** 3
+    mix = rng.dirichlet(np.ones(4) * 2.0)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        cands = [rs.LayoutCandidate(f"c{i}", c) for i, c in enumerate(costs)]
+        rs.worst_case_grid(cands, mix, GRID_RHOS, device=dev)     # warm
+        t0 = time.time()
+        grid = rs.worst_case_grid(cands, mix, GRID_RHOS, device=dev)
+        grid_s = time.time() - t0
+        picks = [c.name for c in rs.robust_layout_sweep(
+            cands, mix, GRID_RHOS, device=dev)]
+        out[dev] = {"grid": grid, "grid_s": grid_s, "picks": picks}
+    card, cpu = out[DEVICE], out["cpu"]
+    rel = float(np.max(np.abs(card["grid"] - cpu["grid"])
+                       / np.abs(cpu["grid"])))
+    check(card["picks"] == cpu["picks"], f"robust_sharding: picks on the "
+          f"card {card['picks']} != CPU {cpu['picks']}")
+    check(rel <= 1e-5, f"robust_sharding: grid rel err {rel:.3g} > 1e-5")
+    nominal = rs.nominal_layout(
+        [rs.LayoutCandidate(f"c{i}", c) for i, c in enumerate(costs)],
+        mix).name
+    return {"phase": "robust_sharding", "candidates": n,
+            "rhos": list(GRID_RHOS), "nominal": nominal,
+            "picks": card["picks"], "grid_max_rel_err": rel,
+            "card_grid_s": card["grid_s"], "cpu_grid_s": cpu["grid_s"]}
 
 
 def suites_main(torch) -> int:
@@ -2331,6 +2497,8 @@ def main(argv=None) -> int:
         emit(suite_against_cpu(torch, build, suite))
     emit(phase_api(torch, build))
     emit(phase_drift(torch, build))
+    emit(phase_memory())
+    emit(phase_robust_sharding(torch))
     keyset = ("name", "route", "source", "replaces", "launches",
               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")

@@ -19,9 +19,9 @@ and the fleet executor, runs it on the spec's execution backend
 ``BENCH_<suite>.json`` schema.  Specs round-trip through JSON with the
 JAX package's text.
 
-Not ported yet, and refused with ``NotImplementedError``: the memory axis
-(ROADMAP.md queue 3b), scenario drift kinds (queue 4), and the subprocess
-and remote backends (queue 5).
+Not ported yet, and refused with ``NotImplementedError``: scenario drift
+kinds (ROADMAP.md queue 4: scenarios), and the subprocess and remote
+backends (queue 5).
 """
 
 from __future__ import annotations
@@ -58,16 +58,13 @@ def run_experiment(spec: ExperimentSpec, backend=None, *, device=None,
 
     ``backend`` overrides the spec's backend instance; by default the
     spec's ``backend`` / ``backend_params`` fields select it.  ``device``
-    is where the tunings, the trial and the drift loop run (``None`` is
-    the card).  ``starts(design, n_starts, seed)`` gives each tuning
-    plan's starts and every re-tune storm's
-    (``repro_torch.bench.common``); with ``None`` the tuners draw their
-    own from ``seed``.  ``spec.faults`` compiles into a
-    :class:`~repro_torch.faults.FaultPlan` handed to the trial executor."""
-    if spec.memory is not None:
-        raise NotImplementedError(
-            "the memory axis is not ported yet (ROADMAP.md queue 3b: "
-            "memory arbitration)")
+    is where the tunings, the trial, the drift loop and the memory
+    arbitration loop run (``None`` is the card).  ``starts(design,
+    n_starts, seed)`` gives each tuning plan's starts and every re-tune
+    storm's (``repro_torch.bench.common``); with ``None`` the tuners draw
+    their own from ``seed``.  ``spec.faults`` compiles into a
+    :class:`~repro_torch.faults.FaultPlan` handed to the trial executor.
+    A memory spec runs its paired fleets *in place of* the drift arms."""
     cx = compile_spec(spec)
     if backend is None:
         backend = get_backend(spec.backend, spec.backend_params)
@@ -90,7 +87,14 @@ def run_experiment(spec: ExperimentSpec, backend=None, *, device=None,
     trial = cx.build_trial(report)
     if trial is not None:
         backend.run_trial(trial, report, faults=faults, device=device)
-    drift = cx.build_drift(report)
-    if drift is not None:
-        backend.run_drift(drift, report, device=device, starts=starts)
+    memory = cx.build_memory(report)
+    if memory is not None:
+        # the memory axis REPLACES drift-arm execution: the drift spec is
+        # consumed as the schedule/loop configuration of the paired
+        # static/arbitrated fleet comparison
+        backend.run_memory(memory, report, device=device, starts=starts)
+    else:
+        drift = cx.build_drift(report)
+        if drift is not None:
+            backend.run_drift(drift, report, device=device, starts=starts)
     return report

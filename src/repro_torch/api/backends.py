@@ -4,8 +4,9 @@ The port of ``repro/api/backends.py``.  A backend executes a compiled
 experiment's heavy phases — the batched tuning grid, the engine fleet
 trial and the drift loop — without changing their semantics.
 
-The drift loop (:meth:`ExecutionBackend.run_drift`) is one driver that
-every backend shares.
+The drift loop (:meth:`ExecutionBackend.run_drift`) and the memory
+arbitration loop (:meth:`ExecutionBackend.run_memory`) are one driver each
+that every backend shares.
 
 * :class:`InlineBackend` (``"inline"``, default) — one
   ``tune_nominal_many`` / ``tune_robust_many`` lane batch per plan on the
@@ -179,6 +180,24 @@ class ExecutionBackend:
         results, _ = execute_drift(plan, device=device, starts=starts)
         report.drift.update(results)
         report.walls["drift_s"] = time.time() - t0
+
+    def run_memory(self, plan, report: Report, device=None,
+                   starts=None) -> None:
+        """Run a compiled memory-arbitration experiment
+        (``repro_torch.api.compile.MemoryPlan``) on ``device``.
+
+        Shared for the same reason as :meth:`run_drift`: the arbitration
+        loop feeds observed segments back into memory divisions, so it is
+        sequential per fleet and every backend runs the same inline driver
+        (its re-tune storms are still one batched dispatch per granted
+        share)."""
+        from ..online import execute_memory_fleet
+        t0 = time.time()
+        results, events = execute_memory_fleet(plan, device=device,
+                                               starts=starts)
+        report.memory.update(results)
+        report.memory_events.extend(events)
+        report.walls["memory_s"] = time.time() - t0
 
     def annotate(self, report: Report) -> None:
         """Record what the backend did beside the report's walls."""

@@ -21,9 +21,9 @@ tuners and the fleet executor: the port of ``repro/api/compile.py``.
 A plan carries plain numbers (workload matrix, design, ``n_starts``,
 ``seed``), so the caller's starts provider can answer for it.
 :meth:`CompiledExperiment.build_drift` lowers a drift spec onto the
-per-arm deployments :func:`repro_torch.online.execute_drift` runs; memory
-arbitration is not ported yet, and
-:meth:`CompiledExperiment.build_memory` refuses (ROADMAP.md queue 3b).
+per-arm deployments :func:`repro_torch.online.execute_drift` runs, and
+:meth:`CompiledExperiment.build_memory` a memory spec onto the per-tenant
+fleet :func:`repro_torch.online.execute_memory_fleet` runs.
 """
 
 from __future__ import annotations
@@ -46,9 +46,6 @@ ARM_DESIGNS = {"lazy_leveling": "lazy_leveling"}
 #: (``policy_effective_phi``) only — stripped before the engine planner
 #: constructor sees them.
 MODEL_ONLY_PARAMS = frozenset({"fill"})
-
-_MEMORY = ("fleet memory arbitration is not ported yet (ROADMAP.md queue "
-           "3b: memory arbitration)")
 
 
 @dataclasses.dataclass
@@ -115,7 +112,10 @@ class MemoryPlan:
     """A compiled memory-arbitration experiment
     (:class:`repro_torch.api.spec.MemorySpec` over a drift schedule): one
     tenant per workload row, each starting from its robust cell's chosen
-    policy arm, plus the budget spec and the equal-split base system."""
+    policy arm, plus the budget spec and the equal-split base system.
+    Executed by :func:`repro_torch.online.execute_memory_fleet` (paired
+    static/arbitrated fleets; inherently sequential like the drift loop,
+    so every backend shares the inline driver)."""
 
     tunings: List[object]            # per-tenant initial TuningResult
     policies: List[str]              # per-tenant chosen policy arm
@@ -379,7 +379,7 @@ class CompiledExperiment:
                          bits_per_entry=self.sys.bits_per_entry,
                          sys_N=self.sys.N)
 
-    # -- drift / memory ------------------------------------------------------
+    # -- drift ---------------------------------------------------------------
 
     def build_drift(self, report: Report) -> Optional[DriftPlan]:
         """Lower the spec's drift schedule onto per-arm deployments.
@@ -418,12 +418,41 @@ class CompiledExperiment:
                          schedules=schedules, drift=dr, sys=self.sys,
                          design=self.primary_design)
 
+    # -- memory --------------------------------------------------------------
+
     def build_memory(self, report: Report) -> Optional[MemoryPlan]:
-        """None without a memory spec; memory arbitration is not ported
-        yet."""
-        if self.spec.memory is None:
+        """Lower the spec's memory axis onto a per-tenant fleet.
+
+        Every workload row is one tenant; each deploys its robust cell
+        (i, rho*) at the LAST resolved rho — the ``static_robust``
+        convention, so the static fleet here is bit-identical to that
+        drift arm — with the cell's chosen policy arm.  When a memory spec
+        is present it *replaces* drift-arm execution: the drift spec is
+        the schedule/loop configuration, the memory spec the division
+        semantics."""
+        me = self.spec.memory
+        if me is None:
             return None
-        raise NotImplementedError(_MEMORY)
+        dr = self.spec.drift
+        rho0 = self.rhos[-1] if self.rhos else 0.0
+        tunings: List[object] = []
+        policies: List[str] = []
+        params: List[Pairs] = []
+        for i in range(len(self.W)):
+            cell = (i, rho0)
+            pol = report.chosen[cell]
+            tunings.append(report.tunings[cell][pol])
+            policies.append(pol)
+            params.append(tuple(
+                (k, v) for k, v in self.spec.design.params_for(pol)
+                if k not in MODEL_ONLY_PARAMS))
+        schedules = np.stack([drift_schedule(self.W[i], dr)
+                              for i in range(len(self.W))])
+        return MemoryPlan(tunings=tunings, policies=policies,
+                          policy_params=params, rho0=float(rho0),
+                          expected=np.asarray(self.W, np.float64),
+                          schedules=schedules, drift=dr, memory=me,
+                          sys=self.sys, design=self.primary_design)
 
 
 def compile_spec(spec: ExperimentSpec) -> CompiledExperiment:

@@ -15,8 +15,8 @@ checksum included.  The row layer the paper suites share (:class:`Row`,
 strict-JSON coercion, benchmark-set cost evaluation, Delta-throughput)
 lives here too; ``repro_torch.bench.run`` prints rows as CSV.
 
-The memory, adversary-regret and subprocess-shard parts of the reference's
-report are not ported yet (ROADMAP.md queues 3b, 4 and 5).
+The adversary-regret and subprocess-shard parts of the reference's report
+are not ported yet (ROADMAP.md queues 4 and 5).
 """
 
 from __future__ import annotations
@@ -158,6 +158,14 @@ class Report:
     #: -> repro_torch.online.DriftArmResult
     drift: Dict[Tuple[int, str], Any] = dataclasses.field(
         default_factory=dict)
+    #: the memory-arbitration experiment (ExperimentSpec.memory):
+    #: (tenant index, fleet in repro_torch.online.MEMORY_ARMS) ->
+    #: DriftArmResult, plus the arbiter's division event log (initial
+    #: division + every online re-division: segment, reasons, granted
+    #: shares, re-tuned set)
+    memory: Dict[Tuple[int, str], Any] = dataclasses.field(
+        default_factory=dict)
+    memory_events: List[dict] = dataclasses.field(default_factory=list)
     walls: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     # -- accessors ----------------------------------------------------------
@@ -187,11 +195,15 @@ class Report:
         return delta_tp(cn, cr)
 
     def memory_fleet_throughput(self, fleet: str) -> float:
-        """Fleet-wide throughput of one memory arm: the memory axis is not
-        ported yet."""
-        raise NotImplementedError(
-            "the memory-arbitration axis is not ported yet (ROADMAP.md "
-            "queue 3b: memory arbitration)")
+        """Fleet-wide throughput of one memory arm (``"static"`` /
+        ``"arbitrated"``): total queries over total measured I/O across
+        every tenant — tenants serving more traffic weigh more, exactly
+        like the per-tree query weighting."""
+        recs = [rec for (_, arm), res in self.memory.items()
+                if arm == fleet for rec in res.records]
+        q = sum(r.queries for r in recs)
+        io = sum(r.avg_io_per_query * r.queries for r in recs)
+        return q / max(io, 1e-9)
 
     @property
     def wall_time_s(self) -> float:
@@ -243,6 +255,33 @@ class Report:
                 final_rho=round(float(last.rho_live), 4),
                 segment_io=[round(r.avg_io_per_query, 3)
                             for r in res.records],
+            ))
+        for (widx, fleet), res in sorted(self.memory.items()):
+            last = res.records[-1]
+            out.append(Row(
+                f"{name}_memory_w{widx}_{fleet}", 0.0,
+                avg_io=round(res.avg_io_per_query, 4),
+                throughput=round(res.throughput, 4),
+                retunes=res.retunes,
+                segments=len(res.records),
+                final_kl=round(float(last.kl_est), 4),
+                segment_io=[round(r.avg_io_per_query, 3)
+                            for r in res.records],
+            ))
+        if self.memory:
+            tp_static = self.memory_fleet_throughput("static")
+            tp_arb = self.memory_fleet_throughput("arbitrated")
+            out.append(Row(
+                f"{name}_memory_fleet", 0.0,
+                tenants=len({w for w, _ in self.memory}),
+                tp_static=round(tp_static, 4),
+                tp_arbitrated=round(tp_arb, 4),
+                fleet_speedup=round(tp_arb / max(tp_static, 1e-9), 4),
+                divisions=len(self.memory_events),
+                events=[{"segment": e["segment"], "reason": e["reason"],
+                         "shares": [round(s, 3) for s in e["shares"]],
+                         "retuned": e["retuned"]}
+                        for e in self.memory_events],
             ))
         out.append(Row(f"{name}_walls", self.wall_time_s * 1e6,
                        **{k: round(v, 3) for k, v in self.walls.items()},

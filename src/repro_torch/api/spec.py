@@ -17,8 +17,8 @@ tuple of :class:`repro_torch.faults.FaultSpec`) are axes of the spec too.
 
 What the port does not run yet is refused, never accepted unchecked: a
 scenario-kind :class:`DriftSpec` raises ``NotImplementedError`` (ROADMAP.md
-queue 4); the classic drift kinds and :class:`MemorySpec` validate here,
-and ``run_experiment`` refuses to execute them (queue 3).
+queue 4: scenarios).  The classic drift kinds and :class:`MemorySpec`
+validate here, and ``run_experiment`` runs them.
 """
 
 from __future__ import annotations
@@ -199,8 +199,8 @@ class DriftSpec:
     the expected one over ``segments`` equal segments of ``n_queries``
     queries, and per-arm deployments react (or don't) — the JAX
     package's ``repro.online`` loop as a declarative schedule.  The port
-    validates the classic kinds and refuses the scenario kinds; neither
-    runs yet (ROADMAP.md queues 3 and 4).
+    validates and runs the classic kinds and refuses the scenario kinds
+    (ROADMAP.md queue 4: scenarios).
 
     **Schedule** — ``kind`` generates the per-segment true mixes from the
     workload's expected mix and ``target``: ``"gradual"`` (linear rotation
@@ -315,8 +315,8 @@ class DriftSpec:
 @dataclasses.dataclass(frozen=True)
 class MemorySpec:
     """Fleet-level memory arbitration over the drift schedule — the JAX
-    package's ``repro.online.memory`` subsystem as a spec axis (validated
-    here; not run by the port yet, ROADMAP.md queue 3).
+    package's ``repro.online.memory`` subsystem as a spec axis, run by
+    :func:`repro_torch.online.execute_memory_fleet`.
 
     Composes with (and requires) :class:`DriftSpec`: the drift spec
     supplies the tenants (the workload rows), the per-tenant true-mix
@@ -324,7 +324,7 @@ class MemorySpec:
     solver knobs; this spec supplies the budget semantics.  Execution
     replaces the drift arms with a paired two-fleet comparison (``static``
     fixed equal split vs ``arbitrated``; see
-    :func:`repro.online.execute_memory_fleet`).
+    :func:`repro_torch.online.execute_memory_fleet`).
 
     **Budget** — ``total_bits_per_entry`` is the global budget summed over
     tenants (default: ``n_tenants * sys.bits_per_entry``, i.e. exactly the
@@ -334,7 +334,7 @@ class MemorySpec:
     granularity (spatial hysteresis).
 
     **Trigger/hysteresis** — per-tenant KL triggers reuse the
-    :class:`repro.online.DriftPolicy` contract with the drift spec's
+    :class:`repro_torch.online.DriftPolicy` contract with the drift spec's
     ``kl_threshold`` (override with ``rebalance_kl``) and ``rho_floor``;
     ``min_windows`` and ``cooldown`` here gate the *fleet-level* decision
     (one re-division resets every tenant's cooldown).

@@ -4,6 +4,8 @@
     PYTHONPATH=src python -m repro_torch.bench.run fig4 fig10 tuner
     PYTHONPATH=src python -m repro_torch.bench.run fig7_8 fig9 fig19
     PYTHONPATH=src python -m repro_torch.bench.run fig6 tab5 api online
+    PYTHONPATH=src python -m repro_torch.bench.run compaction memory \\
+        robust_sharding
     PYTHONPATH=src python -m repro_torch.bench.run fig4 --device cpu
     PYTHONPATH=src python -m repro_torch.bench.run tuner --json out/ \\
         --baseline .
@@ -50,11 +52,12 @@ from ..api.report import Row, jsonable
 from ..faults import atomic_write_json, checksum_ok, stamp_checksum
 from .common import committed_starts, own_starts
 
-#: suite key -> module of this package; all but fig4, fig10 and tuner run
-#: through the experiment API (``repro_torch.api.run_experiment``), online
-#: through its drift axis
+#: suite key -> module of this package; all but fig4, fig10, tuner and
+#: robust_sharding run through the experiment API
+#: (``repro_torch.api.run_experiment``), online through its drift axis and
+#: memory through its memory axis
 SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19", "fig6", "tab5",
-          "api", "online")
+          "api", "online", "compaction", "robust_sharding", "memory")
 #: a held float lies within ABS_TOL + REL_TOL * |committed| of the
 #: committed value: tuned costs move with the starts
 ABS_TOL, REL_TOL = 0.01, 0.01

@@ -2,7 +2,7 @@
 
 The three dense decoders and ``rwkv6-3b``; the JAX package's other
 architectures (MoE, mamba and hybrid stacks, encoder towers) come with
-their families (ROADMAP.md queue 1 item 12).
+their families (ROADMAP.md queue 1 item 6).
 """
 
 from . import glm4_9b, phi3_mini_3_8b, qwen3_14b, rwkv6_3b
@@ -16,7 +16,7 @@ def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(
             f"arch {name!r} is not ported yet (see ROADMAP.md, queue 1 "
-            f"item 12); available: {sorted(ARCHS)}")
+            f"item 6); available: {sorted(ARCHS)}")
     return ARCHS[name]
 
 

@@ -7,7 +7,7 @@ runtime knobs.  The fields are the JAX package's, with two differences:
 
 * ``moe`` and ``encoder`` stay ``None``: ``MoEConfig``, ``EncoderConfig``,
   ``SHAPES`` and ``shape_applicable`` come with the families that need them
-  (ROADMAP.md queue 1 item 12); :meth:`ModelConfig.reduced` raises for a
+  (ROADMAP.md queue 1 item 6); :meth:`ModelConfig.reduced` raises for a
   config that sets either, or M-RoPE, and :meth:`ModelConfig.param_count`
   counts ``attn``/``rwkv`` mixers and ``dense``/``rwkv_ffn`` MLPs only.
 * ``attention_impl`` names the port's two prefill paths: ``"flash"`` (the
@@ -105,7 +105,7 @@ class ModelConfig:
             if mixer not in mixers or mlp not in mlps:
                 raise NotImplementedError(
                     f"{self.name}: ({mixer}, {mlp}) blocks are not ported "
-                    "yet (ROADMAP.md queue 1 item 12)")
+                    "yet (ROADMAP.md queue 1 item 6)")
             total += mixers[mixer] + mlps[mlp] + 2 * d   # + 2 norms
         return total + self.vocab_size * d * (
             1 if self.tie_embeddings else 2)
@@ -116,7 +116,7 @@ class ModelConfig:
                 or self.mrope_sections is not None:
             raise NotImplementedError(
                 f"{self.name}: MoE, encoder towers and M-RoPE are not "
-                "ported yet (ROADMAP.md queue 1 item 12)")
+                "ported yet (ROADMAP.md queue 1 item 6)")
         kw = dict(
             name=self.name + "-smoke",
             num_layers=len(self.prelude) + 2 * len(self.pattern),

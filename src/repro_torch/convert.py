@@ -118,7 +118,7 @@ def lm_params_from_numpy(cfg: ModelConfig, params_np: Mapping[str, Any],
     j).  On ``device`` (the card unless ``"cpu"``)."""
     if params_np.get("prelude"):
         raise NotImplementedError("prelude layers come with DeepSeek-MoE "
-                                  "(ROADMAP.md queue 1 item 12)")
+                                  "(ROADMAP.md queue 1 item 6)")
     dev = resolve_device(device)
     out: Dict[str, Any] = {
         name: _map_tree(lambda a: _tensor(a, dev), params_np[name])

@@ -101,7 +101,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (B, S, n_heads, head_dim); positions: (B, S)."""
     if cfg.mrope_sections is not None:
         raise NotImplementedError(
-            "M-RoPE waits for qwen2-vl (ROADMAP.md queue 1 item 12)")
+            "M-RoPE waits for qwen2-vl (ROADMAP.md queue 1 item 6)")
     hd = x.shape[-1]
     rot = int(hd * cfg.rotary_pct)
     rot -= rot % 2

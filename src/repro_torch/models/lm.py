@@ -34,8 +34,8 @@ Params = Dict[str, Any]
 _MIXERS = ("attn", "rwkv")
 _MLPS = ("dense", "rwkv_ffn")
 _NOT_PORTED = {
-    "mamba": "mamba and hybrid stacks, ROADMAP.md queue 1 item 12",
-    "moe": "mixture-of-experts MLPs, ROADMAP.md queue 1 item 12",
+    "mamba": "mamba and hybrid stacks, ROADMAP.md queue 1 item 6",
+    "moe": "mixture-of-experts MLPs, ROADMAP.md queue 1 item 6",
 }
 
 
@@ -52,11 +52,11 @@ def _check_kind(kind: Tuple[str, str]) -> None:
 def _check_cfg(cfg: ModelConfig) -> None:
     if cfg.prelude:
         raise NotImplementedError("prelude layers come with DeepSeek-MoE "
-                                  "(ROADMAP.md queue 1 item 12)")
+                                  "(ROADMAP.md queue 1 item 6)")
     if not cfg.embed_inputs or cfg.encoder is not None:
         raise NotImplementedError("stub-embedding and encoder inputs are "
                                   "not ported yet (ROADMAP.md queue 1 "
-                                  "item 12)")
+                                  "item 6)")
     for kind in cfg.pattern:
         _check_kind(kind)
 

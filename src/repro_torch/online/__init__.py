@@ -12,16 +12,20 @@ of ``repro.online``).
 * **drive** (:mod:`repro_torch.online.session`) — :class:`OnlineSession`
   swaps tunings at flush boundaries via ``LSMTree.retune``;
   :func:`execute_drift` runs whole drift experiments (the
-  ``repro_torch.api`` `DriftSpec` lowering).
-
-Fleet memory arbitration (``repro.online.memory``) is not ported yet
-(ROADMAP.md queue 3b: memory arbitration).
+  ``repro_torch.api`` `DriftSpec` lowering);
+* **arbitrate** (:mod:`repro_torch.online.memory`) — fleet-level memory as
+  a single global budget: :class:`MemoryBudget` / :class:`FleetArbiter`
+  divide it across tenants by marginal cost-model benefit and re-divide on
+  the drift triggers; :func:`execute_memory_fleet` runs whole arbitration
+  experiments (the ``repro_torch.api`` `MemorySpec` lowering).
 """
 
 from .estimate import (ESTIMATORS, EWMAEstimator, SlidingWindowEstimator,
                        WindowHistory, kl_np, make_estimator,
                        normalize_counts, rho_from_history_batch,
                        rho_from_windows, smooth_mix)
+from .memory import (MEMORY_ARMS, FleetArbiter, MemoryBudget, divide_budget,
+                     execute_memory_fleet, memory_cost_curves)
 from .retune import (CusumDetector, DriftPolicy, PageHinkleyDetector,
                      RetuneRequest, retune_fleet)
 from .session import (ARMS, DriftArmResult, OnlineSession, SegmentRecord,
@@ -35,4 +39,6 @@ __all__ = [
     "retune_fleet",
     "ARMS", "OnlineSession", "SegmentRecord", "DriftArmResult",
     "execute_drift",
+    "MEMORY_ARMS", "MemoryBudget", "FleetArbiter", "divide_budget",
+    "memory_cost_curves", "execute_memory_fleet",
 ]

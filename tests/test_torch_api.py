@@ -5,9 +5,9 @@
   build (the suites', the API checklist's, one with faults, one with a
   classic drift), and ``from_json`` of the reference's text gives an equal
   spec; every spec the reference rejects, the port rejects.
-* Refusals: what the port has not ported (scenario drifts, the memory
-  axis, the subprocess and remote backends) raises
-  ``NotImplementedError`` naming its ROADMAP.md queue.
+* Refusals: what the port has not ported (scenario drifts, the
+  subprocess and remote backends) raises ``NotImplementedError`` naming
+  its ROADMAP.md queue.
 * ``FaultPlan``: the same firings over a grid of shards, attempts and
   basenames.
 * Tunings and arms: from the same starts, ``run_experiment`` matches the
@@ -266,17 +266,16 @@ def test_refusals_name_their_roadmap_queue():
     with pytest.raises(NotImplementedError, match="queue 4"):
         T.DriftSpec(kind="adversary", target=(0.25,) * 4)
     specs = _checklist_specs(T)
-    memory = "queue 3b: memory arbitration"
-    with pytest.raises(NotImplementedError, match=memory):
-        T.run_experiment(specs["memory"], device="cpu")
-    with pytest.raises(NotImplementedError, match=memory):
-        T.compile_spec(specs["memory"]).build_memory(None)
+    # the drift and memory axes are ported: a drift spec lowers without a
+    # memory spec, and an empty report's memory fleets read as the
+    # reference's do
     report = treport.Report(spec=specs["direct"], sys=TC.LSMSystem(),
                             cells=[], tunings={}, arm_costs={}, chosen={},
                             model_costs={})
-    with pytest.raises(NotImplementedError, match=memory):
-        report.memory_fleet_throughput("static")
-    # the drift axis is ported: a drift spec lowers without a memory spec
+    ref_report = rreport.Report(spec=None, sys=None, cells=[], tunings={},
+                                arm_costs={}, chosen={}, model_costs={})
+    assert report.memory_fleet_throughput("static") \
+        == ref_report.memory_fleet_throughput("static")
     assert T.compile_spec(specs["drift"]).build_memory(None) is None
     assert T.compile_spec(specs["direct"]).build_drift(None) is None
     for name in ("subprocess", "remote"):
@@ -628,5 +627,4 @@ def test_report_helpers_are_the_reference_module_s():
         == [f.name for f in dataclasses.fields(rreport.TreeProbe)]
     kept = {f.name for f in dataclasses.fields(treport.Report)}
     assert kept == {f.name for f in dataclasses.fields(rreport.Report)} \
-        - {"regret", "memory", "memory_events", "failed_cells",
-           "shard_attempts"}
+        - {"regret", "failed_cells", "shard_attempts"}

@@ -786,18 +786,21 @@ def test_launch_inside_a_device_guard_stays_on_its_device(dev, kernel):
 @pytest.mark.parametrize("suite,sizes", [
     ("fig6", {}), ("tab5", dict(N_KEYS=20_000, QUERIES=1000)),
     ("api", {}), ("online", dict(N_KEYS=20_000, SEGMENTS=4,
-                                  SEG_QUERIES=500))])
+                                  SEG_QUERIES=500)),
+    ("memory", dict(N_KEYS=20_000, SEGMENTS=4, SEG_QUERIES=500)),
+    ("compaction", dict(N_KEYS=20_000, QUERIES=1000))])
 def test_cpu_held_suites_launch_their_kernels(dev, monkeypatch, suite,
                                               sizes):
-    """fig6, tab5, api and online through the runner on the card (tab5 and
-    online cut in size): every committed row and key present, one
-    ``dual_solve`` launch per robust Adam step plus one per robust grid
-    (and per robust re-tune storm of the drift loop), and the engine
+    """fig6, tab5, api, online, memory and compaction through the runner
+    on the card (all but fig6 and api cut in size): every committed row
+    and key present, one ``dual_solve`` launch per robust Adam step plus
+    one per robust grid (and per robust re-tune storm of the drift loop
+    or the memory arbiter; compaction runs no tuner), and the engine
     suites' trees on ``merge`` and ``point_read``."""
     import importlib
 
     from repro_torch.bench import run
-    from repro_torch.online import session
+    from repro_torch.online import memory, session
     mod = importlib.import_module(f"repro_torch.bench.{suite}")
     for name, value in sizes.items():
         monkeypatch.setattr(mod, name, value)
@@ -809,6 +812,7 @@ def test_cpu_held_suites_launch_their_kernels(dev, monkeypatch, suite,
         return real(requests, sys, **kw)
 
     monkeypatch.setattr(session, "retune_fleet", storm)
+    monkeypatch.setattr(memory, "retune_fleet", storm)
     before = dict(_build.LAUNCHES)
     result = run.run_suite(suite, device="cuda")
     launches = {k: _build.LAUNCHES[k] - before[k]
@@ -816,7 +820,8 @@ def test_cpu_held_suites_launch_their_kernels(dev, monkeypatch, suite,
     cmp = result["comparison"]
     assert all(got is not None and want is not None
                for _, got, want in cmp["missed"])
-    grids = {"fig6": 1, "tab5": 1, "api": 2, "online": 3}[suite]
+    grids = {"fig6": 1, "tab5": 1, "api": 2, "online": 3, "memory": 3,
+             "compaction": 0}[suite]
     steps = 120 if suite == "api" else 250
     assert launches["dual_solve"] == grids * (steps + 1) \
         + sum(robust_storms) * 201
@@ -886,6 +891,97 @@ def test_drift_on_card_matches_cpu_from_the_same_tunings(dev, monkeypatch):
                 np.testing.assert_array_equal(np.asarray(ra[k]),
                                               np.asarray(rb[k]))
         assert len(a) == len(b) == 4
+
+
+def test_memory_on_card_matches_cpu_from_the_same_tunings(dev, monkeypatch):
+    """A small skew_flip memory run (two tenants of 20,000 keys, 4
+    segments of 500 queries) on the card, then its plan on the CPU with
+    every arbiter storm answered by the card's (its share checked): the
+    same segment records, division events and ``LSMTree.retune`` calls;
+    the card's storms launch ``dual_solve``, its trees ``merge`` and
+    ``point_read``."""
+    import dataclasses
+
+    import repro_torch.api as api
+    from repro_torch.bench import memory
+    from repro_torch.lsm import LSMTree
+    from repro_torch.online import execute_memory_fleet
+    from repro_torch.online import memory as arbiter
+    spec = memory.make_spec("skew_flip", memory.SCENARIOS[0][1],
+                            n_keys=20_000, segments=4, seg_queries=500)
+    spec = dataclasses.replace(
+        spec, design=api.DesignSpec(n_starts=16, steps=60, seed=0),
+        drift=dataclasses.replace(spec.drift, retune_starts=8,
+                                  retune_steps=40))
+    storms, calls = [], {"cuda": [], "cpu": [], "replayed": []}
+    real_fleet, real_retune = arbiter.retune_fleet, LSMTree.retune
+    where = {"dev": "cuda"}
+
+    def record(requests, sys, **kw):
+        out = real_fleet(requests, sys, **kw)
+        storms.append((requests, out, sys.bits_per_entry))
+        return out
+
+    def replay(requests, sys, **kw):
+        want, out, share = storms[len(calls["replayed"])]
+        calls["replayed"].append(requests)
+        assert sys.bits_per_entry == share
+        assert [(list(a.w), a.rho, a.reason) for a in requests] \
+            == [(list(b.w), b.rho, b.reason) for b in want]
+        return out
+
+    def retune(tree, phi, sys):
+        real_retune(tree, phi, sys)
+        calls[where["dev"]].append((tree.obs_label, tree.cfg.T,
+                                    tree.cfg.K, tree.cfg.buf_entries,
+                                    tree.cfg.mfilt_bits_per_entry))
+
+    monkeypatch.setattr(LSMTree, "retune", retune)
+    monkeypatch.setattr(arbiter, "retune_fleet", record)
+    before = dict(_build.LAUNCHES)
+    report = api.run_experiment(spec, device="cuda")
+    launches = {k: _build.LAUNCHES[k] - before[k]
+                for k in ("dual_solve", "merge", "point_read")}
+    assert all(launches.values()), launches
+    assert any(e["segment"] >= 0 for e in report.memory_events)
+    where["dev"] = "cpu"
+    monkeypatch.setattr(arbiter, "retune_fleet", replay)
+    plan = api.compile_spec(spec).build_memory(report)
+    results, events = execute_memory_fleet(plan, device="cpu")
+    assert len(calls["replayed"]) == len(storms) >= 3
+    assert events == report.memory_events
+    assert calls["cpu"] == calls["cuda"] and calls["cuda"]
+    for key, res in report.memory.items():
+        a = [dataclasses.asdict(r) for r in res.records]
+        b = [dataclasses.asdict(r) for r in results[key].records]
+        for ra, rb in zip(a, b):
+            for k in ra:
+                np.testing.assert_array_equal(np.asarray(ra[k]),
+                                              np.asarray(rb[k]))
+        assert len(a) == len(b) == 4
+
+
+def test_robust_layout_sweep_on_card_matches_cpu(dev):
+    """``robust_layout_sweep`` over 64 seeded synthetic candidates x six
+    rhos on the card and the CPU: the same picks, the worst-case grids
+    within rel 1e-5, and ``adversarial_mix`` within 1e-5."""
+    from repro_torch.core import robust_sharding as rs
+    rng = np.random.default_rng(1)
+    base = rng.uniform(0.5, 2.0, 64)
+    costs = base[:, None] * rng.uniform(0.8, 1.2, (64, 4))
+    costs[np.arange(64), rng.integers(0, 4, 64)] *= 1.0 + 40.0 / base ** 3
+    mix = rng.dirichlet(np.ones(4) * 2.0)
+    rhos = (0.1, 0.25, 0.5, 1.0, 2.0, 3.0)
+    out = {}
+    for d in ("cuda", "cpu"):
+        cands = [rs.LayoutCandidate(f"c{i}", c) for i, c in enumerate(costs)]
+        out[d] = (rs.worst_case_grid(cands, mix, rhos, device=d),
+                  [c.name for c in rs.robust_layout_sweep(cands, mix, rhos,
+                                                          device=d)],
+                  rs.adversarial_mix(cands[0], mix, 1.0, device=d))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    assert out["cuda"][1] == out["cpu"][1]
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], atol=1e-5)
 
 
 def test_retune_storm_on_card_pads_without_moving_results(dev):

@@ -12,18 +12,20 @@ shares with the JAX package, on the CPU.
 * fig4 runs at its committed size from the starts the committed file was
   made from (the JAX package's, ``bench/jax_starts.npz``) and reproduces
   it at its printed precision; so do the API suites fig7_8, fig9 and
-  fig19, every held field within the runner's tolerance.
-* fig6, tab5 and api run at their committed sizes from those starts in
+  fig19, every held field within the runner's tolerance, and compaction
+  (no tuner: the exact engine) in all 32 held fields.
+* fig6, tab5, api and memory run at their committed sizes from those starts in
   both packages, and the port's rows are held against the JAX package's
   live reading within the runner's tolerance.  fig6 matches it in every
-  held field.  The JAX package no longer reproduces the committed fig6
-  and tab5 (``LIVE_COMMITTED_MISSES``), and the port misses the same
-  fields.  Where a float32 tuner lands a cell's starts on another
+  held field, and so does memory.  The JAX package no longer reproduces
+  the committed fig6, tab5 and memory (``LIVE_COMMITTED_MISSES``), and the
+  port misses the same fields.  Where a float32 tuner lands a cell's starts on another
   integral tuning in the port (tab5's w7 nominal) or on other filter bits
   (api's w4 nominal), the fields that cell feeds part from the live
   reading (``PORT_LIVE_MISSES``); with the reference's tunings carried
   across, the port's trial gives its ``IOStats`` bit for bit and its rows
-  exactly (ROADMAP.md section 3).
+  exactly, and the memory suite's arbiter, its storms replayed, every
+  segment record and division event (ROADMAP.md section 3).
 """
 
 import json
@@ -36,7 +38,8 @@ import torch
 
 import repro.api as RA
 import repro.core as R
-from benchmarks import bench_api, bench_robust_vs_nominal, bench_system_eval
+from benchmarks import bench_api, bench_memory_fleet, \
+    bench_robust_vs_nominal, bench_system_eval
 from repro.api import compile as jcompile
 from repro.api import report as jreport
 from repro.faults import artifacts as jartifacts
@@ -45,15 +48,15 @@ from repro_torch.api import report as treport
 from repro_torch.api import compile_spec
 from repro_torch.api import backends as tbackends
 from repro_torch.api import run_experiment
-from repro_torch.bench import api, common, fig4, fig6, fig7_8, fig9, fig10, \
-    fig19, online, run, tab5, tuner
+from repro_torch.bench import api, common, compaction, fig4, fig6, fig7_8, \
+    fig9, fig10, fig19, memory, online, robust_sharding, run, tab5, tuner
 from repro_torch.faults import artifacts as tartifacts
 
 import torch_carry as carry
 
 REPO = Path(__file__).resolve().parents[1]
 SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19", "fig6",
-          "tab5", "api", "online")
+          "tab5", "api", "online", "compaction", "robust_sharding", "memory")
 #: the suites that run through the experiment API, with the specs their
 #: run_experiment calls take, and the held fields of their committed files
 API_SUITES = {"fig7_8": ((fig7_8.make_spec,), 27),
@@ -145,6 +148,11 @@ SHRINK = {
     "tab5": (tab5, dict(N_KEYS=4000, QUERIES=300)),
     "api": (api, {}),
     "online": (online, dict(N_KEYS=4000, SEGMENTS=3, SEG_QUERIES=200)),
+    "compaction": (compaction, dict(N_KEYS=4000, QUERIES=300)),
+    "robust_sharding": (robust_sharding, {}),
+    "memory": (memory, dict(N_KEYS=4000, SEGMENTS=3, SEG_QUERIES=200,
+                            DISABLED_SIZES=dict(n_keys=3000, segments=2,
+                                                seg_queries=100))),
 }
 
 
@@ -159,6 +167,10 @@ _API_ROWS = ["api_w0", "api_w1", "api_w0_rho1", "api_w1_rho1", "api_walls",
              "api_fleet"]
 _ONLINE_ROWS = [f"online_{k}" for k, *_ in online.SCENARIOS] \
     + ["online_fleet", "online_summary"]
+_COMPACTION_ROWS = [f"compaction_{p}" for p in compaction.POLICIES] \
+    + ["compaction_summary", "compaction_fleet"]
+_MEMORY_ROWS = [f"memory_{k}" for k, _ in memory.SCENARIOS] \
+    + ["memory_fleet", "memory_summary"]
 #: what the runner does not compare: (time-derived, start-dependent)
 UNCOMPARED = {
     "fig4": ({"wall_time_s", "fig4_nominal_designs_w7.us_per_call",
@@ -198,6 +210,12 @@ UNCOMPARED = {
                    "api_fleet.tuning_s", "api_fleet.engine_s"), set()),
     "online": (_times(_ONLINE_ROWS, "online_fleet.tuning_s",
                       "online_fleet.engine_s"), set()),
+    "compaction": (_times(_COMPACTION_ROWS, "compaction_fleet.populate_s",
+                          "compaction_fleet.engine_s"), set()),
+    "robust_sharding": (_times([f"robust_sharding_{a}"
+                                for a in robust_sharding.ARCHS]), set()),
+    "memory": (_times(_MEMORY_ROWS, "memory_fleet.tuning_s",
+                      "memory_fleet.engine_s"), set()),
 }
 
 
@@ -311,11 +329,16 @@ def test_committed_starts_file_holds_the_jax_draws():
     np.testing.assert_array_equal(
         common.committed_starts(T.DesignSpace.KLSM, 128, 3)[0].numpy(), ref)
     # every tuning plan of the API suites finds its draw there, and so does
-    # every re-tune storm of the online suite's drift loop
+    # every re-tune storm of the online suite's drift loop and of the
+    # memory suite's arbiter
     specs = [make() for makes, _ in API_SUITES.values() for make in makes]
-    specs += [fig6.SPEC, tab5.make_spec(), api.SPEC]
+    specs += [fig6.SPEC, tab5.make_spec(), api.SPEC, compaction.make_spec()]
     specs += [online.make_spec(kind, w, target)
               for kind, w, target in online.SCENARIOS]
+    specs += [memory.make_spec(kind, target)
+              for kind, target in memory.SCENARIOS]
+    specs += [memory.make_spec("skew_flip", memory.SCENARIOS[0][1],
+                               enabled=False, **memory.DISABLED_SIZES)]
     with np.load(common.STARTS_FILE) as f:
         for spec in specs:
             cx = compile_spec(spec)
@@ -364,6 +387,21 @@ def test_api_suites_from_the_committed_starts_reproduce_the_committed_files():
         assert cmp["spread"] == []
 
 
+def test_compaction_reproduces_the_committed_file():
+    """compaction at its committed size on the CPU: one pinned tuning, no
+    tuner, so every one of its 32 held fields is the exact engine's and
+    matches the committed file; only its two wall fields and the time
+    fields go uncompared.  Its spec is the JAX package's, text for text."""
+    from benchmarks import bench_compaction_space
+    assert compaction.make_spec().to_json() \
+        == bench_compaction_space.SPEC.to_json()
+    result = run.run_suite("compaction", device="cpu")
+    cmp = result["comparison"]
+    assert cmp["missed"] == [] and cmp["spread"] == []
+    assert len(cmp["held"]) == 32
+    assert {f for f, *_ in cmp["time"]} == UNCOMPARED["compaction"][0]
+
+
 # ---------------------------------------------------------------------------
 # fig6, tab5 and api against the JAX package's live reading
 # ---------------------------------------------------------------------------
@@ -378,6 +416,8 @@ LIVE_COMMITTED_MISSES = {
     "tab5": {"tab5_system_w7.engine_io_nominal",
              "tab5_system_w7.measured_delta_tp"},
     "api": {"api_w0.measured_io", "api_w0.agreement_ratio"},
+    # skew_flip's static fleet: segment 5 reads 1.304 against 1.266
+    "memory": {"memory_skew_flip.segment_io_static"},
 }
 #: the held fields where the port's reading parts from the JAX package's
 #: live one, each fed by one nominal cell whose float32 Adam trajectories
@@ -392,11 +432,15 @@ PORT_LIVE_MISSES = {
              "tab5_summary.robust_wins",
              "tab5_summary.model_system_ranking_agreement"},
     "api": {"api_w0.measured_io", "api_w0.agreement_ratio"},
+    # every first tuning and storm lands on the reference's integral
+    # tunings, so the memory suite reads the JAX package's live reading
+    "memory": set(),
 }
 LIVE = {"fig6": (bench_robust_vs_nominal, lambda: fig6.SPEC,
                  lambda report: fig6.rows_of(report, 0.0)),
         "tab5": (bench_system_eval, tab5.make_spec, tab5.rows_of),
-        "api": (bench_api, lambda: api.SPEC, api.rows_of)}
+        "api": (bench_api, lambda: api.SPEC, api.rows_of),
+        "memory": (bench_memory_fleet, None, memory.rows_of)}
 
 
 def _jax_reading(bench):
@@ -422,6 +466,58 @@ def _missed(rows, base):
     return {f for f, *_ in run.compare(rows, 0.0, base)["missed"]}
 
 
+def _memory_live():
+    """The memory suite: three ``run_experiment`` calls (both scenarios and
+    the disabled check), each held as fig6's report is; then each
+    reference report's ``MemoryPlan`` with its tunings carried across and
+    its arbiter's storms replayed (each under its share): the port's
+    ``execute_memory_fleet`` gives every segment record and division event
+    bit for bit, and the rows the reference printed."""
+    from repro.online import memory as rmemory
+    from repro_torch.online import execute_memory_fleet
+    from repro_torch.online import memory as tmemory
+    runs = []
+    real = bench_memory_fleet.run_experiment
+
+    def recorded(spec, *a, **kw):
+        with carry.recorded_storms(rmemory) as storms:
+            runs.append((spec, real(spec, *a, **kw), storms))
+        return runs[-1][1]
+
+    bench_memory_fleet.run_experiment = recorded
+    try:
+        with jax.threefry_partitionable(False):
+            ref_rows = bench_memory_fleet.run()
+    finally:
+        bench_memory_fleet.run_experiment = real
+    reports = memory.scenario_reports(device="cpu",
+                                      starts=common.committed_starts)
+    assert [r.spec.to_json() for _, r in reports] \
+        == [spec.to_json() for spec, *_ in runs]
+    committed = run.load_baseline("memory", REPO)
+    assert _missed(ref_rows, committed) == LIVE_COMMITTED_MISSES["memory"]
+    rows = memory.rows_of(reports)
+    assert _missed(rows, carry.baseline_of(ref_rows)) \
+        == PORT_LIVE_MISSES["memory"]
+    assert _missed(rows, committed) \
+        == LIVE_COMMITTED_MISSES["memory"] | PORT_LIVE_MISSES["memory"]
+    carried = []
+    for (spec, ref, storms), (kind, _) in zip(runs, reports):
+        plan = carry.port_memory_plan(
+            jcompile.compile_spec(spec).build_memory(ref), spec)
+        with carry.replayed_storms(tmemory, storms):
+            results, events = execute_memory_fleet(plan, device="cpu")
+        assert carry.drift_records(results) \
+            == carry.drift_records(ref.memory)
+        assert events == ref.memory_events
+        carried.append((kind, carry.port_report(
+            ref, memory=results, memory_events=events)))
+    timed = {"memory_fleet"}
+    assert [(r.name, r.derived) for r in memory.rows_of(carried)
+            if r.name not in timed] \
+        == [(r.name, r.derived) for r in ref_rows if r.name not in timed]
+
+
 @pytest.mark.parametrize("suite", sorted(LIVE))
 def test_suite_matches_the_jax_package_s_live_reading(suite):
     """At the committed sizes, from the committed starts, on the CPU: the
@@ -429,7 +525,10 @@ def test_suite_matches_the_jax_package_s_live_reading(suite):
     against the committed file, the JAX package's misses and the port's.
     Then the reference's tunings carried across: the port's trial gives
     every tree's ``IOStats`` and ``TreeProbe`` bit for bit, and the rows
-    the reference printed."""
+    the reference printed.  The memory suite is held so from its three
+    reports (:func:`_memory_live`)."""
+    if suite == "memory":
+        return _memory_live()
     bench, make_spec, rows_of = LIVE[suite]
     ref_rows, ref = _jax_reading(bench)
     report = run_experiment(make_spec(), device="cpu",

@@ -1,11 +1,14 @@
-"""Carry the JAX package's tunings across into the port's trial and drift
-executors (the tests' helper, not a test module).
+"""Carry the JAX package's tunings across into the port's trial, drift and
+memory executors (the tests' helper, not a test module).
 
 The engine and the online loop are bit-exact; the float32 Adam tuners are
 not (a 1-ulp difference in a step grows until two starts end in different
 integral tunings, ROADMAP.md section 3).  So a test that holds the engine
 or the loop against the reference runs both from the SAME tunings: the
 reference's, converted here, with every re-tune storm replayed in order.
+Storms come from two modules: ``online.session`` (the drift loop) and
+``online.memory`` (the memory arbiter, whose storms also differ by the
+system they solve against: the granted share).
 """
 
 import contextlib
@@ -66,17 +69,32 @@ def port_drift_plan(ref_plan, spec):
         design=TC.DesignSpace(ref_plan.design.value))
 
 
+def port_memory_plan(ref_plan, spec):
+    """The reference's compiled ``MemoryPlan`` as the port's: the same
+    tenants (the reference's tunings), arms, mixes, schedules, budget spec
+    and system."""
+    tspec = port_spec(spec)
+    return tcompile.MemoryPlan(
+        tunings=[port_tuning(t) for t in ref_plan.tunings],
+        policies=list(ref_plan.policies),
+        policy_params=list(ref_plan.policy_params), rho0=ref_plan.rho0,
+        expected=np.asarray(ref_plan.expected),
+        schedules=np.asarray(ref_plan.schedules), drift=tspec.drift,
+        memory=tspec.memory, sys=port_sys(ref_plan.sys),
+        design=TC.DesignSpace(ref_plan.design.value))
+
+
 @contextlib.contextmanager
 def recorded_storms(session_module):
-    """Record every ``retune_fleet`` storm a drift run makes through
-    ``session_module`` (the reference's or the port's): a list of
-    ``(requests, results)``."""
+    """Record every ``retune_fleet`` storm a run makes through
+    ``session_module`` (the reference's or the port's ``online.session``
+    or ``online.memory``): a list of ``(requests, results, sys)``."""
     storms = []
     real = session_module.retune_fleet
 
     def record(requests, sys, **kw):
         out = real(requests, sys, **kw)
-        storms.append((list(requests), list(out)))
+        storms.append((list(requests), list(out), sys))
         return out
 
     session_module.retune_fleet = record
@@ -90,12 +108,15 @@ def recorded_storms(session_module):
 def replayed_storms(session_module, storms, convert=port_tuning):
     """Answer the port's storms with recorded ones, in order; each storm's
     requests must equal the recorded storm's (mix, budget and reason, bit
-    for bit).  Yields the list of storms replayed."""
+    for bit), and its system's ``bits_per_entry`` (the share a memory
+    storm solves under) the recorded one's.  Yields the list of storms
+    replayed."""
     real = session_module.retune_fleet
     done = []
 
     def replay(requests, sys, **kw):
-        want, results = storms[len(done)]
+        want, results, want_sys = storms[len(done)]
+        assert float(sys.bits_per_entry) == float(want_sys.bits_per_entry)
         assert len(requests) == len(want)
         for got, ref in zip(requests, want):
             np.testing.assert_array_equal(np.asarray(got.w),
@@ -113,6 +134,25 @@ def replayed_storms(session_module, storms, convert=port_tuning):
     assert len(done) == len(storms), "a recorded storm was not replayed"
 
 
+@contextlib.contextmanager
+def retune_calls(tree_cls):
+    """Record every ``tree_cls.retune`` call (the reference's or the
+    port's ``LSMTree``), noop or not: a list of (tree label, engine config
+    as a dict) after each call."""
+    calls = []
+    real = tree_cls.retune
+
+    def retune(tree, phi, sys):
+        real(tree, phi, sys)
+        calls.append((tree.obs_label, dataclasses.asdict(tree.cfg)))
+
+    tree_cls.retune = retune
+    try:
+        yield calls
+    finally:
+        tree_cls.retune = real
+
+
 def record_fields(rec):
     """A ``SegmentRecord`` as plain, comparable values."""
     d = dataclasses.asdict(rec)
@@ -126,10 +166,12 @@ def drift_records(results):
             for key, res in results.items()}
 
 
-def port_report(ref, fleet=None, drift=None):
+def port_report(ref, fleet=None, drift=None, memory=None,
+                memory_events=None):
     """The port's ``Report`` holding the reference report's tunings, arms,
-    costs and walls, with the port's own ``fleet`` (trial results) or
-    ``drift`` (drift results) when given, else the reference's fleet."""
+    costs and walls, with the port's own ``fleet`` (trial results),
+    ``drift`` (drift results) or ``memory`` and ``memory_events`` (memory
+    results) when given, else the reference's fleet."""
     from repro_torch.api import report as treport
     return treport.Report(
         spec=port_spec(ref.spec), sys=port_sys(ref.sys), cells=ref.cells,
@@ -139,7 +181,10 @@ def port_report(ref, fleet=None, drift=None):
         model_costs=ref.model_costs, bench_costs=ref.bench_costs,
         bench_set=ref.bench_set,
         fleet=ref.fleet if fleet is None else fleet,
-        drift={} if drift is None else drift, walls=dict(ref.walls))
+        drift={} if drift is None else drift,
+        memory={} if memory is None else memory,
+        memory_events=[] if memory_events is None else memory_events,
+        walls=dict(ref.walls))
 
 
 def baseline_of(rows):
