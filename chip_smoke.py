@@ -92,9 +92,9 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    plus one per tuning: 251 for each API suite's robust grid); and the
    ``dual_solve`` launches a profiler trace records over one fig10 robust
    call, which must be its steps + 1.  Then ``fig6``, ``tab5``, ``api``,
-   ``online`` and ``memory`` (``CPU_HELD_SUITES``), whose committed files
-   the JAX package itself no longer reproduces from those starts: each on the
-   card, one JSON line with its held fields and its misses against the
+   ``online``, ``memory`` and ``scenarios`` (``CPU_HELD_SUITES``), whose
+   committed files the JAX package itself no longer reproduces from those
+   starts: each on the card, one JSON line with its held fields and its misses against the
    committed file by name (printed, not a failure), its launches
    (``dual_solve`` one per robust Adam step plus one per robust grid and
    per robust re-tune storm; ``merge`` and ``point_read`` for the engine
@@ -104,10 +104,19 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    bit-identical; online's three drifts replayed on the CPU from the
    card's tunings and re-tune storms, every segment record and
    ``LSMTree.retune`` call identical; ``memory``'s three runs (two
-   scenarios and the disabled check) likewise, the division events too.
-   online and memory set the launch counts to 0 before each run and check
-   each run's own (``dual_solve``: 251 for each memory run's first
-   tunings plus 201 for each robust storm).  ``compaction`` (one pinned tuning, no tuner: 0
+   scenarios and the disabled check) likewise, the division events too;
+   ``scenarios``' five runs (``zipf_migrate``, ``burst_storm``,
+   ``tombstone_churn``, ``scan_heavy`` and the live ``adversary``: 100,000
+   keys, 8 segments of 600 baseline queries, 16-start 120-step storms)
+   likewise, each adversary window replayed from the card's attacked mix
+   while the CPU's own attack on the same defender state must give the
+   card's regret record to rel 1e-5, both claim flags true on the card,
+   and each window's dual-bound margin printed.  online, memory and
+   scenarios set the launch counts to 0 before each run and check each
+   run's own (``dual_solve``: 251 for each memory run's first tunings
+   plus 201 for each robust storm; 251 for each scenario's plus 121 per
+   robust storm; each scenario's ``merge`` and ``point_read`` launches
+   equal to the calls its CPU replay counted).  ``compaction`` (one pinned tuning, no tuner: 0
    ``dual_solve`` launches, its ``merge`` and ``point_read`` ones
    printed) and ``robust_sharding`` (its three skip rows: the repository
    holds no dry-run records) are held against the committed file like
@@ -147,7 +156,7 @@ The build's ``ptxas`` report (registers and spills) for the bf16
 
 runs only the suites phase, over ``fig4``, ``fig10``, ``tuner``,
 ``fig7_8``, ``fig9``, ``fig19``, ``compaction``, ``robust_sharding`` and
-the five held against the CPU, on the ``repro_torch`` under ``DIR``: one
+the six held against the CPU, on the ``repro_torch`` under ``DIR``: one
 JSON line per suite, then the card's name and power limit.
 
     python3 chip_smoke.py --merge [--src DIR] [--sizes FILE]
@@ -229,7 +238,7 @@ API_SUITES = ("fig7_8", "fig9", "fig19")
 # reproduces from the committed starts (ROADMAP.md section 3): the card is
 # held against the port's CPU run, and its misses against the committed
 # file are printed by name
-CPU_HELD_SUITES = ("fig6", "tab5", "api", "online", "memory")
+CPU_HELD_SUITES = ("fig6", "tab5", "api", "online", "memory", "scenarios")
 # the drift phase's experiment: the online suite's flip scenario
 DRIFT_SCENARIO = "flip"
 # the memory phase's experiment: the memory suite's skew_flip scenario
@@ -319,7 +328,8 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def cuda_events(torch, fn, calls: int = 0, tries: int = 3) -> tuple:
+def cuda_events(torch, fn, calls: int = 0, tries: int = 3,
+                lead=None) -> tuple:
     """Host wall seconds of ``fn`` (up to a synchronise) and the CUDA
     activities a ``torch.profiler`` trace of it records, as (name, device
     µs) pairs.  Late in this script a trace does not record the first one
@@ -330,21 +340,34 @@ def cuda_events(torch, fn, calls: int = 0, tries: int = 3) -> tuple:
     trace in which an activity's count is not a multiple of ``calls``
     missed events and is taken again, and when every one of ``tries``
     traces misses some, the check fails.  Without it, only a trace that
-    holds no CUDA event at all is taken again."""
+    holds no CUDA event at all is taken again.  A trace may also miss the
+    first launch of a kernel in it (one fold step of ten, its copy kept):
+    ``lead``, when given, launches ``fn``'s kernels once after the
+    throwaway launches, and only the events that start after one more
+    ``spin_kernel``, launched once ``lead`` is done, are kept."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(LEAD_KERNELS):
                 torch.cuda._sleep(100)
+            if lead is not None:
+                lead()
+                torch.cuda.synchronize()
+                torch.cuda._sleep(100)
             torch.cuda.synchronize()
             t0 = time.time()
             fn()
             torch.cuda.synchronize()
             wall = time.time() - t0
-        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and "spin_kernel" not in e.name]
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        spins = [e.time_range.start for e in device
+                 if "spin_kernel" in e.name]
+        after = max(spins) if lead is not None and spins else float("-inf")
+        events = [(e.name, e.time_range.elapsed_us()) for e in device
+                  if "spin_kernel" not in e.name
+                  and e.time_range.start > after]
         counts = {}
         for name, _ in events:
             counts[name] = counts.get(name, 0) + 1
@@ -367,7 +390,7 @@ def per_call(torch, fn, iters: int, kernel: str) -> dict:
     host's wall ms."""
     fn()
     wall, events = cuda_events(torch, lambda: [fn() for _ in range(iters)],
-                               calls=iters)
+                               calls=iters, lead=fn)
     mine = [us for name, us in events if kernel in name]
     return {"device_ms": sum(mine) / 1e3 / iters,
             "kernels": len(mine) // iters,
@@ -1196,7 +1219,10 @@ def merge_path_replay(torch, ops, dev, sizes) -> dict:
             kept.append(ops.merge_runs([ak, bk], [av, bv])[0].numel())
 
     replay()
-    wall, events = cuda_events(torch, replay, calls=len(sizes))
+    ak, av, bk, bv = runs[0]
+    wall, events = cuda_events(
+        torch, replay, calls=len(sizes),
+        lead=lambda: ops.merge_runs([ak, bk], [av, bv]))
     del runs
     name = CUDA_NAMES["merge"]
     path_ms = sum(us for n, us in events if name in n) / 1e3
@@ -2028,6 +2054,89 @@ def _storms(torch, build, replay=None):
               f"storms, the card ran {len(replay)}")
 
 
+def _attack_inputs(phi, w_center, rho_live) -> tuple:
+    import numpy as np
+    return (phi.T.cpu().numpy().copy(), phi.mfilt_bits.cpu().numpy().copy(),
+            phi.K.cpu().numpy().copy(), np.array(w_center, np.float64),
+            float(rho_live))
+
+
+@contextlib.contextmanager
+def _attacks(replay=None):
+    """While open, record every attack of the adversary scenario (the
+    defender state it read, the mix and the regret record it returned), or
+    with ``replay`` (a recorded list) answer each attack with the recorded
+    mix and record, in order: the defender state must be the recorded one
+    bit for bit, and this run's own attack on it (on the device the loop
+    passes) must give the recorded record by the port's one rule
+    (``record_mismatches``: rel 1e-5, ``le_dual_bound`` equal).  The list
+    holds, per attack, the recorded entry and this run's own record."""
+    import numpy as np
+
+    from repro_torch.scenarios import AdversaryScenario
+    from repro_torch.scenarios.adversary import record_mismatches
+    attacks = []
+    real = AdversaryScenario.attack
+
+    def record(self, phi, w_center, rho_live, sys, device=None):
+        mix, rec = real(self, phi, w_center, rho_live, sys, device=device)
+        attacks.append({"inputs": _attack_inputs(phi, w_center, rho_live),
+                        "mix": np.array(mix), "record": dict(rec)})
+        return mix, rec
+
+    def answer(self, phi, w_center, rho_live, sys, device=None):
+        want = replay[len(attacks)]
+        check(all(np.array_equal(a, b) for a, b in zip(
+            _attack_inputs(phi, w_center, rho_live), want["inputs"])),
+            f"replay: attack {len(attacks)} read another defender state "
+            "than the card's")
+        _, own = real(self, phi, w_center, rho_live, sys, device=device)
+        ref = want["record"]
+        bad = record_mismatches(own, ref)
+        check(not bad, f"replay: attack {len(attacks)} on the CPU parts "
+              f"from the card on {bad}: {own} != {ref}")
+        attacks.append({"own": own})
+        return np.array(want["mix"]), dict(ref)
+
+    AdversaryScenario.attack = record if replay is None else answer
+    try:
+        yield attacks
+    finally:
+        AdversaryScenario.attack = real
+    if replay is not None:
+        check(len(attacks) == len(replay), f"replay: {len(attacks)} "
+              f"attacks, the card made {len(replay)}")
+
+
+@contextlib.contextmanager
+def _engine_calls():
+    """While open, count the calls of the engine's kernel wrappers that
+    launch their kernel on the card (a fold step of ``merge_runs``; a
+    per-level point read of a non-empty batch), on whatever device they
+    run: on the CPU they run the plain versions, and the counts say how
+    many launches the card's run must have made."""
+    from repro_torch.kernels.merge import ops as merge_ops
+    from repro_torch.lsm import read_path
+    calls = {"merge": 0, "point_read": 0}
+    merge, read = merge_ops.merge_newest_wins, read_path._point_read
+
+    def counted_merge(*args):
+        calls["merge"] += 1
+        return merge(*args)
+
+    def counted_read(q, *args):
+        calls["point_read"] += int(q.shape[0] > 0)
+        return read(q, *args)
+
+    merge_ops.merge_newest_wins = counted_merge
+    read_path._point_read = counted_read
+    try:
+        yield calls
+    finally:
+        merge_ops.merge_newest_wins = merge
+        read_path._point_read = read
+
+
 def _records(results) -> dict:
     """A drift run's segment records as plain values."""
     import dataclasses
@@ -2039,16 +2148,21 @@ def _records(results) -> dict:
         for (w, arm), res in results.items()}
 
 
-def drift_on_cpu(torch, build, report, storms) -> dict:
+def drift_on_cpu(torch, build, report, storms, attacks=()) -> dict:
     """Replay a card drift run on the CPU plain path: the same plan (the
-    card's first tunings), every storm answered with the card's results.
-    Returns the CPU run's records and ``LSMTree.retune`` calls."""
+    card's first tunings), every storm answered with the card's results
+    and every adversary attack with the card's mix and record (the CPU's
+    own attack on the same defender state held to it).  Returns the CPU
+    run's records, regret, ``LSMTree.retune`` calls, own attack records
+    and the engine's counted kernel-wrapper calls."""
     from repro_torch.api import compile_spec
     from repro_torch.online import execute_drift
     plan = compile_spec(report.spec).build_drift(report)
-    with _storms(torch, build, replay=storms), _retune_calls() as calls:
-        results, _ = execute_drift(plan, device="cpu")
-    return {"records": _records(results), "retune_calls": calls}
+    with _storms(torch, build, replay=storms), _retune_calls() as calls, \
+            _attacks(replay=list(attacks)) as own, _engine_calls() as n:
+        results, regret = execute_drift(plan, device="cpu")
+    return {"records": _records(results), "regret": regret,
+            "retune_calls": calls, "attacks": own, "engine_calls": n}
 
 
 def memory_on_cpu(torch, build, report, storms) -> dict:
@@ -2098,9 +2212,15 @@ def suite_against_cpu(torch, build, suite) -> dict:
     bit-identical.  online: each scenario's drift replayed on the CPU from
     the card's tunings and storms, every segment record and
     ``LSMTree.retune`` call identical; memory likewise, with its division
-    events.  online and memory set the launch counts to 0 before each
-    scenario and check each scenario's own.  ``dual_solve`` launches must
-    be one per robust Adam step plus one per robust grid and storm."""
+    events; scenarios likewise, every adversary attack answered with the
+    card's mix and record (the CPU's own attack on the same defender state
+    held to the card's record to rel 1e-5, ``le_dual_bound`` equal), the
+    regret records equal and both claim flags true.  online, memory and
+    scenarios set the launch counts to 0 before each scenario and check
+    each scenario's own.  ``dual_solve`` launches must be one per robust
+    Adam step plus one per robust grid and storm; each scenario's
+    ``merge`` and ``point_read`` launches must be the calls the CPU replay
+    counted (``_engine_calls``), and more than none."""
     import importlib
 
     import repro_torch.api as api
@@ -2112,15 +2232,16 @@ def suite_against_cpu(torch, build, suite) -> dict:
     build.reset_launches()
     t0 = time.time()
     reports, runs = [], []
-    if suite in ("online", "memory"):
-        specs = mod.specs() if suite == "memory" else [
+    if suite in ("online", "memory", "scenarios"):
+        specs = mod.specs() if suite != "online" else [
             (kind, mod.make_spec(kind, widx, target))
             for kind, widx, target in mod.SCENARIOS]
         launches = {}
         for kind, spec in specs:
             build.reset_launches()
             t1 = time.time()
-            with _storms(torch, build) as st, _retune_calls() as calls:
+            with _storms(torch, build) as st, _retune_calls() as calls, \
+                    _attacks() as atk:
                 report = api.run_experiment(spec, device=DEVICE,
                                             starts=committed_starts)
             torch.cuda.synchronize()
@@ -2129,7 +2250,7 @@ def suite_against_cpu(torch, build, suite) -> dict:
                 launches[k] = launches.get(k, 0) + v
             reports.append((kind, report))
             runs.append({"storms": st, "calls": calls, "launches": own,
-                         "card_s": time.time() - t1})
+                         "attacks": atk, "card_s": time.time() - t1})
         rows = mod.rows_of(reports)
     else:
         spec = mod.make_spec() if suite == "tab5" else mod.SPEC
@@ -2178,9 +2299,12 @@ def suite_against_cpu(torch, build, suite) -> dict:
         for (kind, report), card_run in zip(reports, runs):
             st, calls = card_run["storms"], card_run["calls"]
             t1 = time.time()
-            if suite == "online":
-                cpu = drift_on_cpu(torch, build, report, st)
+            if suite in ("online", "scenarios"):
+                cpu = drift_on_cpu(torch, build, report, st,
+                                   card_run["attacks"])
                 card = _records(report.drift)
+                check(cpu["regret"] == report.regret, f"{suite} {kind}: "
+                      "regret records on the CPU != card")
             else:
                 cpu = memory_on_cpu(torch, build, report, st)
                 card = _records(report.memory)
@@ -2200,6 +2324,27 @@ def suite_against_cpu(torch, build, suite) -> dict:
             want_dual += want
             detail[kind] = {"storms": len(st), "robust_storms": robust,
                             "retune_calls": len(calls), "launches": own}
+            if suite == "scenarios":
+                engine = cpu["engine_calls"]
+                check(all(own.get(k, 0) == engine[k] > 0 for k in engine),
+                      f"scenarios {kind}: the card launched {own}, the CPU "
+                      f"replay counted {engine}")
+                detail[kind].update(
+                    cpu_calls=engine, attacks=len(card_run["attacks"]),
+                    dual_solve_want=want,
+                    queries=[r.queries for r in
+                             report.drift[(0, "online")].records],
+                    online_retunes=report.drift[(0, "online")].retunes)
+                if report.regret:
+                    detail[kind]["windows"] = [
+                        {k: r[k] for k in ("segment", "rho", "kl_adv",
+                                           "cost_nominal", "cost_adv",
+                                           "dual_bound", "le_dual_bound",
+                                           "measured_io")}
+                        | {"margin": r["dual_bound"] - r["cost_adv"],
+                           "cpu_margin": o["own"]["dual_bound"]
+                           - o["own"]["cost_adv"]}
+                        for r, o in zip(report.regret[0], cpu["attacks"])]
             if suite == "memory":
                 _MEMORY_RUN[kind] = dict(card_run, report=report,
                                          cpu_s=time.time() - t1)
@@ -2208,6 +2353,11 @@ def suite_against_cpu(torch, build, suite) -> dict:
     check(launches.get("dual_solve", 0) == want_dual, f"suite {suite}: "
           f"{launches.get('dual_solve', 0)} dual_solve launches, expected "
           f"{want_dual}")
+    if suite == "scenarios":
+        summary = rows[-1].derived
+        check(summary["claim_robust_ge_stale"]
+              and summary["claim_regret_le_dual_bound"],
+              f"scenarios: a claim failed on the card: {summary}")
     engine = ("merge", "point_read")
     if suite == "fig6":
         check(not any(launches.get(k, 0) for k in engine),

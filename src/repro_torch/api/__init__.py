@@ -19,9 +19,11 @@ and the fleet executor, runs it on the spec's execution backend
 ``BENCH_<suite>.json`` schema.  Specs round-trip through JSON with the
 JAX package's text.
 
-Not ported yet, and refused with ``NotImplementedError``: scenario drift
-kinds (ROADMAP.md queue 4: scenarios), and the subprocess and remote
-backends (queue 5).
+A drift spec of any kind runs, the scenario kinds of
+:mod:`repro_torch.scenarios` included (the adversary's regret trace lands
+in ``Report.regret``).  Not ported yet, and refused with
+``NotImplementedError``: the subprocess and remote backends (ROADMAP.md
+queue 5).
 """
 
 from __future__ import annotations

@@ -177,8 +177,10 @@ class ExecutionBackend:
         the storms' starts (``run_experiment``'s)."""
         from ..online import execute_drift
         t0 = time.time()
-        results, _ = execute_drift(plan, device=device, starts=starts)
+        results, regret = execute_drift(plan, device=device, starts=starts)
         report.drift.update(results)
+        for widx, recs in regret.items():
+            report.regret.setdefault(widx, []).extend(recs)
         report.walls["drift_s"] = time.time() - t0
 
     def run_memory(self, plan, report: Report, device=None,

@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..scenarios import get_scenario
 from .report import Cell, Report
 from .spec import ExperimentSpec, Pairs
 
@@ -104,7 +105,12 @@ class DriftPlan:
     drift: object                    # the DriftSpec
     sys: object                      # repro_torch.core.LSMSystem
     design: object = None            # DesignSpace re-tunes solve in
-    scenario: object = None          # scenario generator; None (classic)
+    #: scenario generator (repro_torch.scenarios) for scenario drift kinds;
+    #: None for the classic kinds.  The executor consults it for
+    #: per-segment session shaping / arrival volume, and — for the
+    #: adversary — the live inner-max mix choice (schedules then hold its
+    #: placeholder).
+    scenario: object = None
 
 
 @dataclasses.dataclass
@@ -127,15 +133,22 @@ class MemoryPlan:
     memory: object                   # the MemorySpec (budget semantics)
     sys: object                      # equal-split base LSMSystem
     design: object = None            # DesignSpace re-tunes solve in
-    scenario: object = None          # scenario generator; None (classic)
+    #: scenario generator for scenario drift kinds (never the adversary —
+    #: the spec rejects it on the memory axis); None for classic kinds
+    scenario: object = None
 
 
 def drift_schedule(expected: np.ndarray, drift) -> np.ndarray:
-    """Materialize a classic drift spec's per-segment true mixes, (S, 4).
-    (Scenario kinds never get here: the spec refuses them.)"""
+    """Materialize a drift spec's per-segment true mixes, (S, 4).
+
+    Scenario kinds delegate to their generator (for the adversary the
+    result is a placeholder — its mixes are chosen live per segment)."""
     S = int(drift.segments)
     w0 = np.asarray(expected, np.float64)
     w0 = w0 / w0.sum()
+    sc = get_scenario(drift)
+    if sc is not None:
+        return sc.schedule(w0)
     if drift.kind == "schedule":
         sched = np.asarray(drift.schedule, np.float64)
         return sched / sched.sum(axis=1, keepdims=True)
@@ -416,7 +429,8 @@ class CompiledExperiment:
                               for i in range(len(self.W))])
         return DriftPlan(arms=arms, expected=np.asarray(self.W, np.float64),
                          schedules=schedules, drift=dr, sys=self.sys,
-                         design=self.primary_design)
+                         design=self.primary_design,
+                         scenario=get_scenario(dr))
 
     # -- memory --------------------------------------------------------------
 
@@ -452,7 +466,8 @@ class CompiledExperiment:
                           policy_params=params, rho0=float(rho0),
                           expected=np.asarray(self.W, np.float64),
                           schedules=schedules, drift=dr, memory=me,
-                          sys=self.sys, design=self.primary_design)
+                          sys=self.sys, design=self.primary_design,
+                          scenario=get_scenario(dr))
 
 
 def compile_spec(spec: ExperimentSpec) -> CompiledExperiment:

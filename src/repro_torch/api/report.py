@@ -13,10 +13,12 @@ phase wall times, serialized in exactly the ``BENCH_<suite>.json`` schema::
 For the same report the payload is the JAX package's, byte for byte,
 checksum included.  The row layer the paper suites share (:class:`Row`,
 strict-JSON coercion, benchmark-set cost evaluation, Delta-throughput)
-lives here too; ``repro_torch.bench.run`` prints rows as CSV.
+lives here too; ``repro_torch.bench.run`` prints rows as CSV.  So does
+the adversary scenario's regret trace (``Report.regret``, one
+``{name}_regret_w{widx}`` row per attacked workload).
 
-The adversary-regret and subprocess-shard parts of the reference's report
-are not ported yet (ROADMAP.md queues 4 and 5).
+The subprocess-shard parts of the reference's report are not ported yet
+(ROADMAP.md queue 5).
 """
 
 from __future__ import annotations
@@ -158,6 +160,11 @@ class Report:
     #: -> repro_torch.online.DriftArmResult
     drift: Dict[Tuple[int, str], Any] = dataclasses.field(
         default_factory=dict)
+    #: adversary-scenario regret trace (DriftSpec.kind="adversary"):
+    #: workload index -> per-segment records (attacked mix, its KL from the
+    #: live center, nominal/realized model cost, the independently-solved
+    #: KL dual bound, and the per-segment ``le_dual_bound`` verdict)
+    regret: Dict[int, List[dict]] = dataclasses.field(default_factory=dict)
     #: the memory-arbitration experiment (ExperimentSpec.memory):
     #: (tenant index, fleet in repro_torch.online.MEMORY_ARMS) ->
     #: DriftArmResult, plus the arbiter's division event log (initial
@@ -255,6 +262,25 @@ class Report:
                 final_rho=round(float(last.rho_live), 4),
                 segment_io=[round(r.avg_io_per_query, 3)
                             for r in res.records],
+            ))
+        for widx, recs in sorted(self.regret.items()):
+            out.append(Row(
+                f"{name}_regret_w{widx}", 0.0,
+                segments=len(recs),
+                defender=recs[-1]["defender"],
+                max_regret=round(max(r["regret"] for r in recs), 6),
+                max_kl_adv=round(max(r["kl_adv"] for r in recs), 6),
+                # the robustness claim: on EVERY attacked segment the
+                # realized model cost stayed under the KL dual bound
+                claim_regret_le_dual_bound=bool(
+                    all(r["le_dual_bound"] for r in recs)),
+                trace=[{"segment": r["segment"], "rho": round(r["rho"], 4),
+                        "kl_adv": round(r["kl_adv"], 5),
+                        "cost_nominal": round(r["cost_nominal"], 5),
+                        "cost_adv": round(r["cost_adv"], 5),
+                        "dual_bound": round(r["dual_bound"], 5),
+                        "measured_io": round(r["measured_io"], 4)}
+                       for r in recs],
             ))
         for (widx, fleet), res in sorted(self.memory.items()):
             last = res.records[-1]

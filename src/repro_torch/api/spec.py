@@ -15,10 +15,9 @@ unchanged.  The execution *backend* (``inline`` | ``sharded``, see
 :mod:`repro_torch.api.backends`) and the failure process (``faults``, a
 tuple of :class:`repro_torch.faults.FaultSpec`) are axes of the spec too.
 
-What the port does not run yet is refused, never accepted unchecked: a
-scenario-kind :class:`DriftSpec` raises ``NotImplementedError`` (ROADMAP.md
-queue 4: scenarios).  The classic drift kinds and :class:`MemorySpec`
-validate here, and ``run_experiment`` runs them.
+Every drift kind validates here (the classic ones and the scenario
+kinds of :mod:`repro_torch.scenarios`), and so does :class:`MemorySpec`;
+``run_experiment`` runs them all.
 """
 
 from __future__ import annotations
@@ -28,15 +27,9 @@ import json
 from typing import Any, Dict, Optional, Tuple
 
 from ..faults import FaultSpec
+from ..scenarios import SCENARIO_KINDS, get_scenario
 
 Pairs = Tuple[Tuple[str, Any], ...]
-
-#: the drift kinds this module validates itself
-CLASSIC_DRIFT_KINDS = ("gradual", "flip", "cyclic", "schedule")
-#: the JAX package's scenario generators (``repro/scenarios``), which the
-#: port has not ported yet: a drift of one of these kinds is refused
-SCENARIO_KINDS = frozenset({"zipf_migrate", "burst_storm", "tombstone_churn",
-                            "scan_heavy", "adversary"})
 
 
 def _tupled(x):
@@ -197,17 +190,15 @@ class TrialSpec:
 class DriftSpec:
     """An online drift experiment: the executed workload moves away from
     the expected one over ``segments`` equal segments of ``n_queries``
-    queries, and per-arm deployments react (or don't) — the JAX
-    package's ``repro.online`` loop as a declarative schedule.  The port
-    validates and runs the classic kinds and refuses the scenario kinds
-    (ROADMAP.md queue 4: scenarios).
+    queries, and per-arm deployments react (or don't) — the
+    :mod:`repro_torch.online` loop as a declarative schedule.
 
     **Schedule** — ``kind`` generates the per-segment true mixes from the
     workload's expected mix and ``target``: ``"gradual"`` (linear rotation
     expected -> target), ``"flip"`` (abrupt switch at mid-schedule),
     ``"cyclic"`` (alternate expected / target per segment), or
     ``"schedule"`` (take ``schedule`` rows verbatim, one per segment).
-    Scenario kinds (:data:`SCENARIO_KINDS`:
+    Scenario kinds (:data:`repro_torch.scenarios.SCENARIO_KINDS`:
     ``zipf_migrate`` / ``burst_storm`` / ``tombstone_churn`` /
     ``scan_heavy`` / ``adversary``) delegate the schedule — and session
     shaping like Zipf skew, burst volume, delete fraction, scan span — to
@@ -238,7 +229,7 @@ class DriftSpec:
     target: Optional[Tuple[float, ...]] = None
     schedule: Optional[Tuple[Tuple[float, ...], ...]] = None
     #: scenario-kind knobs as (name, value) pairs, validated against the
-    #: generator's declared PARAMS (the JAX package's repro.scenarios)
+    #: generator's declared PARAMS (see repro_torch.scenarios)
     scenario_params: Pairs = ()
     arms: Tuple[str, ...] = ("stale_nominal", "static_robust", "online",
                              "oracle")
@@ -277,13 +268,8 @@ class DriftSpec:
     retune_seed: int = 0
 
     def __post_init__(self):
-        if self.kind in SCENARIO_KINDS:
-            raise NotImplementedError(
-                f"drift kind {self.kind!r} is a scenario kind; the port has "
-                "no scenario generators yet (ROADMAP.md queue 4: "
-                "scenarios)")
-        classic = CLASSIC_DRIFT_KINDS
-        if self.kind not in classic:
+        classic = ("gradual", "flip", "cyclic", "schedule")
+        if self.kind not in classic and self.kind not in SCENARIO_KINDS:
             raise ValueError(f"unknown drift kind {self.kind!r}; classic "
                              f"kinds {classic} or scenario kinds "
                              f"{sorted(SCENARIO_KINDS)}")
@@ -293,10 +279,16 @@ class DriftSpec:
                                  "per segment")
             if any(len(row) != 4 for row in self.schedule):
                 raise ValueError("schedule rows must be 4-class mixes")
+        elif self.kind in SCENARIO_KINDS:
+            # target overrides the scenario's default drift target; the
+            # generator's constructor validates knob names and ranges
+            if self.target is not None and len(self.target) != 4:
+                raise ValueError("target must be a 4-class mix")
+            get_scenario(self)
         elif self.target is None or len(self.target) != 4:
             raise ValueError(f"kind={self.kind!r} needs a 4-class target "
                              "mix")
-        if self.scenario_params:
+        if self.scenario_params and self.kind not in SCENARIO_KINDS:
             raise ValueError(f"scenario_params only apply to scenario "
                              f"kinds {sorted(SCENARIO_KINDS)}, not "
                              f"{self.kind!r}")

@@ -5,7 +5,7 @@
     PYTHONPATH=src python -m repro_torch.bench.run fig7_8 fig9 fig19
     PYTHONPATH=src python -m repro_torch.bench.run fig6 tab5 api online
     PYTHONPATH=src python -m repro_torch.bench.run compaction memory \\
-        robust_sharding
+        robust_sharding scenarios
     PYTHONPATH=src python -m repro_torch.bench.run fig4 --device cpu
     PYTHONPATH=src python -m repro_torch.bench.run tuner --json out/ \\
         --baseline .
@@ -54,10 +54,11 @@ from .common import committed_starts, own_starts
 
 #: suite key -> module of this package; all but fig4, fig10, tuner and
 #: robust_sharding run through the experiment API
-#: (``repro_torch.api.run_experiment``), online through its drift axis and
-#: memory through its memory axis
+#: (``repro_torch.api.run_experiment``), online and scenarios through its
+#: drift axis and memory through its memory axis
 SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19", "fig6", "tab5",
-          "api", "online", "compaction", "robust_sharding", "memory")
+          "api", "online", "compaction", "robust_sharding", "memory",
+          "scenarios")
 #: a held float lies within ABS_TOL + REL_TOL * |committed| of the
 #: committed value: tuned costs move with the starts
 ABS_TOL, REL_TOL = 0.01, 0.01

@@ -111,14 +111,17 @@ def materialize_session(existing_keys: np.ndarray, w: np.ndarray,
                         key_space: int = 2 ** 48,
                         range_fraction: float = 2e-5,
                         zipf_a: Optional[float] = None,
+                        hot_offset: int = 0,
                         delete_fraction: float = 0.0) -> SessionPlan:
     """Draw every query of a session up front, with the JAX package's exact
     rng call sequence (kinds, then the fresh-key block, then one draw per
     read/range query in stream order, then the optional delete retarget),
     so a seed gives the same plan in both packages.  Non-empty reads sample
-    existing keys (optionally Zipfian-ranked); empty reads miss; range queries use a small span; writes insert fresh
-    keys, a ``delete_fraction`` of them retargeted as tombstones for the
-    oldest live keys."""
+    existing keys (optionally Zipfian-ranked, the rank->key mapping rotated
+    by ``hot_offset``: a post-draw modular shift, so the rng sequence is
+    untouched); empty reads miss; range queries use a small span; writes
+    insert fresh keys, a ``delete_fraction`` of them retargeted as
+    tombstones for the oldest live keys."""
     rng = np.random.default_rng(seed)
     w = np.asarray(w, np.float64)
     w = w / w.sum()
@@ -139,6 +142,8 @@ def materialize_session(existing_keys: np.ndarray, w: np.ndarray,
                 idx = min(len(existing) - 1, rng.zipf(zipf_a) - 1)
             else:
                 idx = int(rng.integers(0, len(existing)))
+            if hot_offset:
+                idx = (idx + int(hot_offset)) % len(existing)
             point_keys.append(int(existing[idx]))
         elif kind == 2:      # short range query
             lo = int(rng.integers(0, key_space - span))

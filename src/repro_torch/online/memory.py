@@ -287,13 +287,9 @@ def execute_memory_fleet(plan, device=None, starts=None
     segment loop is a feedback system and inherently sequential; every
     backend runs this same inline driver.  The trees live on ``device``
     (``None``: the card) and every storm runs there from the starts
-    ``starts(design, n_starts, seed)`` gives; scenario kinds are refused
-    (ROADMAP.md queue 4)."""
+    ``starts(design, n_starts, seed)`` gives.  The trace-shaped scenario
+    kinds shape each segment's session as in :func:`execute_drift`."""
     from ..lsm import LSMTree, draw_keys, materialize_session, populate
-    if getattr(plan, "scenario", None) is not None:
-        raise NotImplementedError(
-            "scenario drift kinds are not ported yet (ROADMAP.md queue 4: "
-            "scenarios)")
     d, m = plan.drift, plan.memory
     S = int(d.segments)
     F = len(plan.expected)
@@ -360,13 +356,21 @@ def execute_memory_fleet(plan, device=None, starts=None
     arb_tunings = list(tunings)
 
     # -- the segment loop --------------------------------------------------
+    scenario = getattr(plan, "scenario", None)   # trace-shaped kinds only:
+    # the spec rejects the adversary on the memory axis (no defender arm)
     for s in range(S):
         for f in range(F):
             mix = plan.schedules[f][s]
+            nq = d.n_queries
+            extra = {}
+            if scenario is not None:
+                nq = int(scenario.segment_queries(s))
+                extra = dict(scenario.session_kwargs(s, len(keys[f])))
+            rf = float(extra.pop("range_fraction", d.range_fraction))
             splan = materialize_session(
-                keys[f], mix, n_queries=d.n_queries,
+                keys[f], mix, n_queries=nq,
                 seed=d.session_seed + f * S + s, key_space=d.key_space,
-                range_fraction=d.range_fraction)
+                range_fraction=rf, **extra)
             for arm in MEMORY_ARMS:
                 sessions[(f, arm)].execute_segment(splan, mix, s)
             keys[f] = np.concatenate([keys[f], splan.insert_keys])

@@ -195,24 +195,31 @@ class OnlineSession:
 def execute_drift(plan, device=None, starts=None):
     """Run a compiled drift experiment (:class:`repro_torch.api.compile
     .DriftPlan`); returns ``(results, regret)`` where ``results`` is
-    ``{(workload index, arm): DriftArmResult}`` and ``regret`` is the
-    adversary scenario's per-segment regret trace, empty for the classic
-    kinds (scenario kinds are refused, ROADMAP.md queue 4).
+    ``{(workload index, arm): DriftArmResult}`` and ``regret`` is
+    ``{workload index: [per-segment regret record, ...]}`` — non-empty only
+    under an adversary scenario, where each record carries the attacked
+    mix, the model costs, and the KL dual bound it must stay under.
 
     Inherently sequential across segments (the loop is a feedback system),
     so every execution backend runs this same inline driver; within a
     segment boundary all fired re-tunes are one storm.  The trees live on
-    ``device`` (``None``: the card) and every storm runs there;
-    ``starts(design, n_starts, seed)`` (``repro_torch.bench.common``) gives
-    the storms' starts, None the tuners' own draw."""
+    ``device`` (``None``: the card), and every storm and every adversary
+    solve runs there; ``starts(design, n_starts, seed)``
+    (``repro_torch.bench.common``) gives the storms' starts, None the
+    tuners' own draw.  Scenario kinds (:mod:`repro_torch.scenarios`) hook
+    in at three points: the compiled schedule (already lowered by
+    :func:`repro_torch.api.compile.drift_schedule`), the per-segment
+    session shaping (query volume, skew/rotation, deletes, scan width),
+    and — for the adversary — the per-segment mix itself, re-solved inside
+    the defender's live rho-ball."""
     from ..core import DesignSpace
     from ..lsm import LSMTree, draw_keys, materialize_session, populate
-    if getattr(plan, "scenario", None) is not None:
-        raise NotImplementedError(
-            "scenario drift kinds are not ported yet (ROADMAP.md queue 4: "
-            "scenarios)")
+    from ..scenarios.adversary import DEFENDER_ORDER
     d = plan.drift
     S = int(d.segments)
+    scenario = getattr(plan, "scenario", None)
+    adversary = scenario if scenario is not None and scenario.is_adversary \
+        else None
     policy = DriftPolicy(kl_threshold=d.kl_threshold,
                          budget_slack=d.budget_slack,
                          min_windows=d.min_windows, cooldown=d.cooldown,
@@ -265,6 +272,7 @@ def execute_drift(plan, device=None, starts=None):
             capacity=d.capacity, f_a=d.f_a, f_seq=d.f_seq)
 
     # -- the segment loop ---------------------------------------------------
+    regret: Dict[int, List[dict]] = {w: [] for w in keys}
     for s in range(S):
         if s > 0:
             for a in oracle_arms:
@@ -274,13 +282,37 @@ def execute_drift(plan, device=None, starts=None):
                     reason="oracle")
         for widx in sorted(keys):
             mix = plan.schedules[widx][s]
+            rec = None
+            if adversary is not None:
+                # attack the preferred deployed arm's live state; every arm
+                # then executes the attacked mix (the comparison stays
+                # paired — same keys, same session plan)
+                defender_arm = next(arm for arm in DEFENDER_ORDER
+                                    if (widx, arm) in sessions)
+                defender = sessions[(widx, defender_arm)]
+                mix, rec = adversary.attack(defender.phi, defender.expected,
+                                            defender.rho, plan.sys,
+                                            device=device)
+            nq = d.n_queries
+            extra = {}
+            if scenario is not None:
+                nq = int(scenario.segment_queries(s))
+                extra = dict(scenario.session_kwargs(s, len(keys[widx])))
+            rf = float(extra.pop("range_fraction", d.range_fraction))
             splan = materialize_session(
-                keys[widx], mix, n_queries=d.n_queries,
+                keys[widx], mix, n_queries=nq,
                 seed=d.session_seed + widx * S + s, key_space=d.key_space,
-                range_fraction=d.range_fraction)
+                range_fraction=rf, **extra)
             for a in plan.arms:
                 if a.widx == widx:
                     sessions[(widx, a.arm)].execute_segment(splan, mix, s)
+            if rec is not None:
+                rec["segment"] = s
+                rec["widx"] = widx
+                rec["defender"] = defender_arm
+                rec["measured_io"] = float(
+                    defender.records[-1].avg_io_per_query)
+                regret[widx].append(rec)
             keys[widx] = np.concatenate([keys[widx], splan.insert_keys])
         fired = [(key, req) for key, sess in sessions.items()
                  for req in [sess.take_request()] if req is not None]
@@ -294,4 +326,4 @@ def execute_drift(plan, device=None, starts=None):
     results = {key: DriftArmResult(widx=key[0], arm=key[1],
                                    records=sess.records)
                for key, sess in sessions.items()}
-    return results, {}
+    return results, {w: r for w, r in regret.items() if r}

@@ -1,6 +1,6 @@
 """Write ``src/repro_torch/bench/jax_starts.npz``: the multi-starts the
 committed ``BENCH_{fig4,fig10,tuner,fig7_8,fig9,fig19,fig6,tab5,api,
-online}.json`` were made from.
+online,memory,scenarios}.json`` were made from.
 
 The JAX suites draw their Adam starts with
 ``repro.core.designs.random_inits(jax.random.PRNGKey(seed), n, design)``.
@@ -31,7 +31,8 @@ OUT = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
 #: (26) at 192, all from seed 0; fig6, tab5 and online's first tunings
 #: CLASSIC at 64 from seed 0; the api suite CLASSIC and lazy leveling at 16
 #: from seed 0; every re-tune storm of the drift loop (its oracle's and the
-#: online arm's) CLASSIC at 32 from seed 0
+#: online arm's) CLASSIC at 32 from seed 0, and of the scenarios suite's
+#: drift loops CLASSIC at 16 from seed 0
 DRAWS = [(2, 64, 0), (3, 64, 0), (4, 64, 0), (26, 192, 0),
          (26, 128, 0), (26, 128, 1), (26, 128, 2), (26, 128, 3),
          (2, 64, 1), (2, 32, 1), (2, 16, 0), (2, 32, 0)]

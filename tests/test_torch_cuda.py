@@ -788,15 +788,16 @@ def test_launch_inside_a_device_guard_stays_on_its_device(dev, kernel):
     ("api", {}), ("online", dict(N_KEYS=20_000, SEGMENTS=4,
                                   SEG_QUERIES=500)),
     ("memory", dict(N_KEYS=20_000, SEGMENTS=4, SEG_QUERIES=500)),
-    ("compaction", dict(N_KEYS=20_000, QUERIES=1000))])
+    ("compaction", dict(N_KEYS=20_000, QUERIES=1000)),
+    ("scenarios", dict(N_KEYS=20_000, SEGMENTS=4, SEG_QUERIES=300))])
 def test_cpu_held_suites_launch_their_kernels(dev, monkeypatch, suite,
                                               sizes):
-    """fig6, tab5, api, online, memory and compaction through the runner
-    on the card (all but fig6 and api cut in size): every committed row
-    and key present, one ``dual_solve`` launch per robust Adam step plus
-    one per robust grid (and per robust re-tune storm of the drift loop
-    or the memory arbiter; compaction runs no tuner), and the engine
-    suites' trees on ``merge`` and ``point_read``."""
+    """fig6, tab5, api, online, memory, compaction and scenarios through
+    the runner on the card (all but fig6 and api cut in size): every
+    committed row and key present, one ``dual_solve`` launch per robust
+    Adam step plus one per robust grid (and per robust re-tune storm of
+    the drift loop or the memory arbiter; compaction runs no tuner), and
+    the engine suites' trees on ``merge`` and ``point_read``."""
     import importlib
 
     from repro_torch.bench import run
@@ -821,10 +822,11 @@ def test_cpu_held_suites_launch_their_kernels(dev, monkeypatch, suite,
     assert all(got is not None and want is not None
                for _, got, want in cmp["missed"])
     grids = {"fig6": 1, "tab5": 1, "api": 2, "online": 3, "memory": 3,
-             "compaction": 0}[suite]
+             "compaction": 0, "scenarios": 5}[suite]
     steps = 120 if suite == "api" else 250
+    storm_steps = 120 if suite == "scenarios" else 200
     assert launches["dual_solve"] == grids * (steps + 1) \
-        + sum(robust_storms) * 201
+        + sum(robust_storms) * (storm_steps + 1)
     assert (launches["merge"] > 0) == (launches["point_read"] > 0) \
         == (suite != "fig6")
 
@@ -891,6 +893,45 @@ def test_drift_on_card_matches_cpu_from_the_same_tunings(dev, monkeypatch):
                 np.testing.assert_array_equal(np.asarray(ra[k]),
                                               np.asarray(rb[k]))
         assert len(a) == len(b) == 4
+
+
+def test_adversary_on_card_matches_cpu_from_the_same_tunings(dev,
+                                                            monkeypatch):
+    """The scenarios suite's adversary (20,000 keys, 4 segments of 300
+    queries, a small first tuning) on the card, each window's attack
+    recorded with the defender state it read; the same attack on the CPU
+    from that state gives the card's regret record to rel 1e-5,
+    ``le_dual_bound`` equal, and the claim holds on every window."""
+    import dataclasses
+
+    import repro_torch.api as api
+    from repro_torch.bench import scenarios
+    from repro_torch.scenarios import AdversaryScenario
+    from repro_torch.scenarios.adversary import record_mismatches
+    args, = [a for a in scenarios.SCENARIOS if a[0] == "adversary"]
+    spec = scenarios.make_spec(*args, 20_000, 4, 300)
+    spec = dataclasses.replace(
+        spec, design=api.DesignSpec(n_starts=16, steps=60, seed=0),
+        drift=dataclasses.replace(spec.drift, retune_starts=8,
+                                  retune_steps=40))
+    attacks = []
+    real = AdversaryScenario.attack
+
+    def record(self, phi, w_center, rho_live, sys, device=None):
+        out = real(self, phi, w_center, rho_live, sys, device=device)
+        attacks.append((self, phi, np.array(w_center), rho_live, sys,
+                        device, dict(out[1])))
+        return out
+
+    monkeypatch.setattr(AdversaryScenario, "attack", record)
+    report = api.run_experiment(spec, device="cuda")
+    monkeypatch.setattr(AdversaryScenario, "attack", real)
+    assert len(attacks) == len(report.regret[0]) == 4
+    for scen, phi, w, rho, sys, device, card in attacks:
+        assert device == "cuda"
+        _, cpu = scen.attack(phi, w, rho, sys, device="cpu")
+        assert card["le_dual_bound"] is True
+        assert record_mismatches(cpu, card) == [], (cpu, card)
 
 
 def test_memory_on_card_matches_cpu_from_the_same_tunings(dev, monkeypatch):

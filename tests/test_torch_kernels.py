@@ -413,6 +413,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    assert {"base.py", "library.py", "adversary.py"} <= {
+        p.name for p in files if p.parent.name == "scenarios"}
     for path in files:
         roots = set(_imported_roots(path))
         bad = roots & {"jax", "jaxlib", "repro", "flax", "optax",

@@ -17,7 +17,8 @@ the API's memory axis against the JAX package's (``repro.online.memory``,
   ``execute_drift``'s ``static_robust`` arm, record for record.
 * The API: ``run_experiment`` with a memory spec runs on the inline and
   the sharded backend (three ``"cpu"`` devices) to the same report; a
-  scenario plan is refused, naming ROADMAP.md queue 4.
+  scenario plan (``tombstone_churn``) runs, bit for bit with the
+  reference's tunings carried across.
 """
 
 import dataclasses
@@ -30,7 +31,6 @@ import torch
 import repro.api as R
 import repro.online as RO
 import repro_torch.api as T
-import repro_torch.core as TC
 import repro_torch.online as TO
 from repro.api import compile as rcompile
 from repro.lsm import LSMTree as RTree
@@ -335,17 +335,25 @@ def test_run_experiment_memory_on_the_inline_and_sharded_backends():
             "memory_skew_flip_memory_w1_arbitrated"} <= names
 
 
-def test_scenario_plans_are_refused_naming_queue_4():
-    from repro_torch.api import compile as tcompile
-    spec = _small_spec()
-    plan = tcompile.MemoryPlan(
-        tunings=[], policies=[], policy_params=[], rho0=0.5,
-        expected=np.zeros((1, 4)), schedules=np.zeros((1, 1, 4)),
-        drift=spec.drift, memory=spec.memory, sys=TC.LSMSystem(),
-        scenario=object())
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 4: scenarios"):
-        TO.execute_memory_fleet(plan, device="cpu")
+def test_scenario_plan_runs_and_matches_the_reference():
+    """The small spec under the ``tombstone_churn`` scenario (after a calm
+    first segment, half of every session's writes delete the oldest live
+    keys), with the reference's tunings carried across and every storm
+    replayed: every segment record and division event bit for bit."""
+    spec = dataclasses.replace(
+        _small_spec(), drift=dataclasses.replace(_small_spec().drift,
+                                                 kind="tombstone_churn"))
+    rspec = R.ExperimentSpec.from_json(spec.to_json())
+    with jax.threefry_partitionable(False), \
+            carry.recorded_storms(rmemory) as storms:
+        ref = R.run_experiment(rspec)
+    plan = carry.port_memory_plan(
+        rcompile.compile_spec(rspec).build_memory(ref), rspec)
+    assert plan.scenario.kind == "tombstone_churn"
+    with carry.replayed_storms(tmem, storms):
+        results, events = TO.execute_memory_fleet(plan, device="cpu")
+    assert carry.drift_records(results) == carry.drift_records(ref.memory)
+    assert events == ref.memory_events
 
 
 def test_memory_suite_spec_is_the_reference_text():

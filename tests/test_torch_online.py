@@ -16,7 +16,8 @@
   tunings carried across (every storm replayed) gives the reference's
   segment records, its re-tunes and its ``LSMTree.retune`` calls bit for
   bit, through the port's ``run_drift`` and ``Report.drift`` rows too;
-  the sharded backend's drift equals the inline one's.
+  the sharded backend's drift equals the inline one's; so does a
+  scenario plan (``burst_storm``).
 * The tuner's step: tab5's w7 nominal lanes in float64 follow the
   reference's trajectories to 1e-9 for 34 Adam steps from a first
   difference of one ulp, and end on the same integral tunings; the
@@ -470,14 +471,30 @@ def test_run_drift_on_the_inline_and_sharded_backends():
         f"online_flip_drift_w0_{arm}" for arm in TO.ARMS}
 
 
-def test_scenario_plans_are_refused():
-    from repro_torch.api import compile as tcompile
-    plan = tcompile.DriftPlan(arms=[], expected=np.zeros((1, 4)),
-                              schedules=np.zeros((1, 1, 4)),
-                              drift=_small_spec(T).drift,
-                              sys=TC.LSMSystem(), scenario=object())
-    with pytest.raises(NotImplementedError, match="queue 4: scenarios"):
-        TO.execute_drift(plan, device="cpu")
+def test_scenario_plan_runs_and_matches_the_reference():
+    """The small spec as a ``burst_storm`` scenario under the Page-Hinkley
+    detector (bursts of 3x the volume every second segment), with the
+    reference's tunings carried across and every storm replayed: the
+    port's drift gives the reference's segment records, bit for bit."""
+    text = _small_spec(T).to_json().replace(
+        '"kind": "flip"', '"kind": "burst_storm"').replace(
+        '"scenario_params": []',
+        '"scenario_params": [["amplitude", 3.0], ["period", 2]]').replace(
+        '"detector": "kl"', '"detector": "page_hinkley"')
+    spec = R.ExperimentSpec.from_json(text)
+    assert spec.drift.kind == "burst_storm"
+    with jax.threefry_partitionable(False), \
+            carry.recorded_storms(rsession) as storms:
+        ref = R.run_experiment(spec)
+    plan = carry.port_drift_plan(rcompile.compile_spec(spec).build_drift(ref),
+                                 spec)
+    assert plan.scenario.kind == "burst_storm"
+    with carry.replayed_storms(tsession, storms):
+        results, regret = TO.execute_drift(plan, device="cpu")
+    assert carry.drift_records(results) == carry.drift_records(ref.drift)
+    assert regret == {} == ref.regret
+    assert [r.queries for r in results[(0, "online")].records] \
+        == [500, 1500, 500, 1500]
 
 
 # ---------------------------------------------------------------------------

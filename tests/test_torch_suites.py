@@ -14,18 +14,20 @@ shares with the JAX package, on the CPU.
   it at its printed precision; so do the API suites fig7_8, fig9 and
   fig19, every held field within the runner's tolerance, and compaction
   (no tuner: the exact engine) in all 32 held fields.
-* fig6, tab5, api and memory run at their committed sizes from those starts in
-  both packages, and the port's rows are held against the JAX package's
-  live reading within the runner's tolerance.  fig6 matches it in every
-  held field, and so does memory.  The JAX package no longer reproduces
-  the committed fig6, tab5 and memory (``LIVE_COMMITTED_MISSES``), and the
-  port misses the same fields.  Where a float32 tuner lands a cell's starts on another
+* fig6, tab5, api, memory and scenarios run at their committed sizes from
+  those starts in both packages, and the port's rows are held against the
+  JAX package's live reading within the runner's tolerance.  fig6 matches
+  it in every held field, and so does memory.  The JAX package no longer
+  reproduces the committed fig6, tab5, memory and scenarios
+  (``LIVE_COMMITTED_MISSES``), and the port misses the same fields.  Where a float32 tuner lands a cell's starts on another
   integral tuning in the port (tab5's w7 nominal) or on other filter bits
   (api's w4 nominal), the fields that cell feeds part from the live
   reading (``PORT_LIVE_MISSES``); with the reference's tunings carried
   across, the port's trial gives its ``IOStats`` bit for bit and its rows
   exactly, and the memory suite's arbiter, its storms replayed, every
-  segment record and division event (ROADMAP.md section 3).
+  segment record and division event; the scenarios suite's drift, its
+  storms and the adversary's mixes replayed, every segment record and the
+  reference's rows (ROADMAP.md section 3).
 """
 
 import json
@@ -39,7 +41,7 @@ import torch
 import repro.api as RA
 import repro.core as R
 from benchmarks import bench_api, bench_memory_fleet, \
-    bench_robust_vs_nominal, bench_system_eval
+    bench_robust_vs_nominal, bench_scenarios, bench_system_eval
 from repro.api import compile as jcompile
 from repro.api import report as jreport
 from repro.faults import artifacts as jartifacts
@@ -49,14 +51,17 @@ from repro_torch.api import compile_spec
 from repro_torch.api import backends as tbackends
 from repro_torch.api import run_experiment
 from repro_torch.bench import api, common, compaction, fig4, fig6, fig7_8, \
-    fig9, fig10, fig19, memory, online, robust_sharding, run, tab5, tuner
+    fig9, fig10, fig19, memory, online, robust_sharding, run, scenarios, \
+    tab5, tuner
 from repro_torch.faults import artifacts as tartifacts
+import repro_torch.scenarios as tscenarios
 
 import torch_carry as carry
 
 REPO = Path(__file__).resolve().parents[1]
 SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19", "fig6",
-          "tab5", "api", "online", "compaction", "robust_sharding", "memory")
+          "tab5", "api", "online", "compaction", "robust_sharding", "memory",
+          "scenarios")
 #: the suites that run through the experiment API, with the specs their
 #: run_experiment calls take, and the held fields of their committed files
 API_SUITES = {"fig7_8": ((fig7_8.make_spec,), 27),
@@ -153,6 +158,7 @@ SHRINK = {
     "memory": (memory, dict(N_KEYS=4000, SEGMENTS=3, SEG_QUERIES=200,
                             DISABLED_SIZES=dict(n_keys=3000, segments=2,
                                                 seg_queries=100))),
+    "scenarios": (scenarios, dict(N_KEYS=2500, SEGMENTS=3, SEG_QUERIES=150)),
 }
 
 
@@ -171,6 +177,8 @@ _COMPACTION_ROWS = [f"compaction_{p}" for p in compaction.POLICIES] \
     + ["compaction_summary", "compaction_fleet"]
 _MEMORY_ROWS = [f"memory_{k}" for k, _ in memory.SCENARIOS] \
     + ["memory_fleet", "memory_summary"]
+_SCENARIOS_ROWS = [f"scenarios_{k}" for k, *_ in scenarios.SCENARIOS] \
+    + ["scenarios_fleet", "scenarios_summary"]
 #: what the runner does not compare: (time-derived, start-dependent)
 UNCOMPARED = {
     "fig4": ({"wall_time_s", "fig4_nominal_designs_w7.us_per_call",
@@ -216,6 +224,8 @@ UNCOMPARED = {
                                 for a in robust_sharding.ARCHS]), set()),
     "memory": (_times(_MEMORY_ROWS, "memory_fleet.tuning_s",
                       "memory_fleet.engine_s"), set()),
+    "scenarios": (_times(_SCENARIOS_ROWS, "scenarios_fleet.tuning_s",
+                         "scenarios_fleet.engine_s"), set()),
 }
 
 
@@ -329,8 +339,8 @@ def test_committed_starts_file_holds_the_jax_draws():
     np.testing.assert_array_equal(
         common.committed_starts(T.DesignSpace.KLSM, 128, 3)[0].numpy(), ref)
     # every tuning plan of the API suites finds its draw there, and so does
-    # every re-tune storm of the online suite's drift loop and of the
-    # memory suite's arbiter
+    # every re-tune storm of the online and scenarios suites' drift loops
+    # and of the memory suite's arbiter
     specs = [make() for makes, _ in API_SUITES.values() for make in makes]
     specs += [fig6.SPEC, tab5.make_spec(), api.SPEC, compaction.make_spec()]
     specs += [online.make_spec(kind, w, target)
@@ -339,6 +349,7 @@ def test_committed_starts_file_holds_the_jax_draws():
               for kind, target in memory.SCENARIOS]
     specs += [memory.make_spec("skew_flip", memory.SCENARIOS[0][1],
                                enabled=False, **memory.DISABLED_SIZES)]
+    specs += [spec for _, spec in scenarios.specs()]
     with np.load(common.STARTS_FILE) as f:
         for spec in specs:
             cx = compile_spec(spec)
@@ -418,6 +429,14 @@ LIVE_COMMITTED_MISSES = {
     "api": {"api_w0.measured_io", "api_w0.agreement_ratio"},
     # skew_flip's static fleet: segment 5 reads 1.304 against 1.266
     "memory": {"memory_skew_flip.segment_io_static"},
+    # every field fed by w4's nominal cell (the stale arm) or by the
+    # oracle's nominal storms: zipf_migrate's stale throughput reads 1.1236
+    # against 1.1673, its oracle 1.2814 against 1.2301
+    "scenarios": {"scenarios_zipf_migrate.tp_stale_nominal",
+                  "scenarios_zipf_migrate.tp_oracle",
+                  "scenarios_zipf_migrate.segment_io_stale",
+                  "scenarios_burst_storm.segment_io_stale",
+                  "scenarios_adversary.segment_io_stale"},
 }
 #: the held fields where the port's reading parts from the JAX package's
 #: live one, each fed by one nominal cell whose float32 Adam trajectories
@@ -435,12 +454,26 @@ PORT_LIVE_MISSES = {
     # every first tuning and storm lands on the reference's integral
     # tunings, so the memory suite reads the JAX package's live reading
     "memory": set(),
+    # w4's nominal cell has the reference's T and K with filter bits 0.14%
+    # apart (256,067 against 255,702), as the online suite's does, so the
+    # stale arm's buffer and flushes differ (every scenario with w4
+    # expected) and so do the oracle's nominal storms (zipf_migrate); w11's
+    # robust cell, the same T and K, filter bits 0.6% apart (80,053
+    # against 79,550), moves tombstone_churn's robust segment I/O
+    "scenarios": {"scenarios_zipf_migrate.tp_stale_nominal",
+                  "scenarios_zipf_migrate.tp_oracle",
+                  "scenarios_zipf_migrate.segment_io_stale",
+                  "scenarios_burst_storm.segment_io_stale",
+                  "scenarios_scan_heavy.segment_io_stale",
+                  "scenarios_adversary.segment_io_stale",
+                  "scenarios_tombstone_churn.segment_io_robust"},
 }
 LIVE = {"fig6": (bench_robust_vs_nominal, lambda: fig6.SPEC,
                  lambda report: fig6.rows_of(report, 0.0)),
         "tab5": (bench_system_eval, tab5.make_spec, tab5.rows_of),
         "api": (bench_api, lambda: api.SPEC, api.rows_of),
-        "memory": (bench_memory_fleet, None, memory.rows_of)}
+        "memory": (bench_memory_fleet, None, memory.rows_of),
+        "scenarios": (bench_scenarios, None, scenarios.rows_of)}
 
 
 def _jax_reading(bench):
@@ -518,6 +551,72 @@ def _memory_live():
         == [(r.name, r.derived) for r in ref_rows if r.name not in timed]
 
 
+def _scenarios_live():
+    """The scenarios suite: five ``run_experiment`` calls, each held as
+    fig6's report is; then each reference report's ``DriftPlan`` with its
+    tunings carried across, its storms replayed and (the adversary) its
+    attacked mixes carried across: the port's ``execute_drift`` gives every
+    segment record bit for bit, its own attack on each defender state the
+    reference's regret record to rel 1e-5, and the rows the reference
+    printed.  No attacked cost vector is flat."""
+    from repro.online import session as rsession
+    from repro.scenarios import AdversaryScenario
+    from repro_torch.online import execute_drift
+    from repro_torch.online import session as tsession
+    runs = []
+    real = bench_scenarios.run_experiment
+
+    def recorded(spec, *a, **kw):
+        with carry.recorded_storms(rsession) as storms, \
+                carry.recorded_attacks(AdversaryScenario) as attacks:
+            runs.append((spec, real(spec, *a, **kw), storms, attacks))
+        return runs[-1][1]
+
+    bench_scenarios.run_experiment = recorded
+    try:
+        with jax.threefry_partitionable(False):
+            ref_rows = bench_scenarios.run()
+    finally:
+        bench_scenarios.run_experiment = real
+    with carry.recorded_attacks(tscenarios.AdversaryScenario) as attacks:
+        reports = scenarios.scenario_reports(device="cpu",
+                                             starts=common.committed_starts)
+    assert [r.spec.to_json() for _, r in reports] \
+        == [spec.to_json() for spec, *_ in runs]
+    committed = run.load_baseline("scenarios", REPO)
+    assert _missed(ref_rows, committed) == LIVE_COMMITTED_MISSES["scenarios"]
+    rows = scenarios.rows_of(reports)
+    assert _missed(rows, carry.baseline_of(ref_rows)) \
+        == PORT_LIVE_MISSES["scenarios"]
+    assert _missed(rows, committed) == LIVE_COMMITTED_MISSES["scenarios"] \
+        | PORT_LIVE_MISSES["scenarios"]
+    summary = rows[-1].derived
+    assert summary["claim_robust_ge_stale"] is True
+    assert summary["claim_regret_le_dual_bound"] is True
+    sys = compile_spec(reports[-1][1].spec).sys
+    for (T_, mfilt, K, _, _), _ in attacks + runs[-1][3]:
+        c = T.cost_vector(T.Phi(T=torch.as_tensor(T_),
+                                mfilt_bits=torch.as_tensor(mfilt),
+                                K=torch.as_tensor(K)), sys).numpy()
+        assert c.max() - c.min() > 1e-3 * c.max(), c
+    assert len(attacks) == len(runs[-1][3]) == scenarios.SEGMENTS
+    carried = []
+    for (spec, ref, storms, ref_attacks), (kind, _) in zip(runs, reports):
+        plan = carry.port_drift_plan(
+            jcompile.compile_spec(spec).build_drift(ref), spec)
+        with carry.replayed_storms(tsession, storms), \
+                carry.replayed_attacks(ref_attacks):
+            results, regret = execute_drift(plan, device="cpu")
+        assert carry.drift_records(results) == carry.drift_records(ref.drift)
+        assert regret == ref.regret
+        carried.append((kind, carry.port_report(ref, drift=results,
+                                                regret=regret)))
+    timed = {"scenarios_fleet"}
+    assert [(r.name, r.derived) for r in scenarios.rows_of(carried)
+            if r.name not in timed] \
+        == [(r.name, r.derived) for r in ref_rows if r.name not in timed]
+
+
 @pytest.mark.parametrize("suite", sorted(LIVE))
 def test_suite_matches_the_jax_package_s_live_reading(suite):
     """At the committed sizes, from the committed starts, on the CPU: the
@@ -529,6 +628,8 @@ def test_suite_matches_the_jax_package_s_live_reading(suite):
     reports (:func:`_memory_live`)."""
     if suite == "memory":
         return _memory_live()
+    if suite == "scenarios":
+        return _scenarios_live()
     bench, make_spec, rows_of = LIVE[suite]
     ref_rows, ref = _jax_reading(bench)
     report = run_experiment(make_spec(), device="cpu",

@@ -8,7 +8,10 @@ or the loop against the reference runs both from the SAME tunings: the
 reference's, converted here, with every re-tune storm replayed in order.
 Storms come from two modules: ``online.session`` (the drift loop) and
 ``online.memory`` (the memory arbiter, whose storms also differ by the
-system they solve against: the granted share).
+system they solve against: the granted share).  Under the adversary
+scenario the attacked mixes are carried across too: the port's own attack
+on the same defender is held to the reference's record to rel 1e-5, and
+the reference's mix is executed, so the sessions stay bit for bit.
 """
 
 import contextlib
@@ -21,6 +24,8 @@ import repro_torch.api as T
 import repro_torch.core as TC
 from repro_torch.api import compile as tcompile
 from repro_torch.convert import phi_from_numpy
+from repro_torch.scenarios import AdversaryScenario, get_scenario
+from repro_torch.scenarios.adversary import record_mismatches
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -62,11 +67,13 @@ def port_drift_plan(ref_plan, spec):
                                   policy=a.policy,
                                   policy_params=a.policy_params)
             for a in ref_plan.arms]
+    drift = port_spec(spec).drift
     return tcompile.DriftPlan(
         arms=arms, expected=np.asarray(ref_plan.expected),
-        schedules=np.asarray(ref_plan.schedules),
-        drift=port_spec(spec).drift, sys=port_sys(ref_plan.sys),
-        design=TC.DesignSpace(ref_plan.design.value))
+        schedules=np.asarray(ref_plan.schedules), drift=drift,
+        sys=port_sys(ref_plan.sys),
+        design=TC.DesignSpace(ref_plan.design.value),
+        scenario=get_scenario(drift))
 
 
 def port_memory_plan(ref_plan, spec):
@@ -81,7 +88,8 @@ def port_memory_plan(ref_plan, spec):
         expected=np.asarray(ref_plan.expected),
         schedules=np.asarray(ref_plan.schedules), drift=tspec.drift,
         memory=tspec.memory, sys=port_sys(ref_plan.sys),
-        design=TC.DesignSpace(ref_plan.design.value))
+        design=TC.DesignSpace(ref_plan.design.value),
+        scenario=get_scenario(tspec.drift))
 
 
 @contextlib.contextmanager
@@ -135,6 +143,69 @@ def replayed_storms(session_module, storms, convert=port_tuning):
 
 
 @contextlib.contextmanager
+def recorded_attacks(adversary_cls):
+    """Record every ``adversary_cls.attack`` (the reference's or the
+    port's ``AdversaryScenario``): a list of ``(inputs, (mix, record))``,
+    the inputs as ``(T, mfilt_bits, K, w_center, rho_live)`` in numpy."""
+    attacks = []
+    real = adversary_cls.attack
+
+    def record(self, phi, w_center, rho_live, sys, **kw):
+        out = real(self, phi, w_center, rho_live, sys, **kw)
+        attacks.append((attack_inputs(phi, w_center, rho_live),
+                        (np.array(out[0]), dict(out[1]))))
+        return out
+
+    adversary_cls.attack = record
+    try:
+        yield attacks
+    finally:
+        adversary_cls.attack = real
+
+
+def attack_inputs(phi, w_center, rho_live):
+    return (np.asarray(phi.T, np.float32).copy(),
+            np.asarray(phi.mfilt_bits, np.float32).copy(),
+            np.asarray(phi.K, np.float32).copy(),
+            np.array(w_center, np.float64), float(rho_live))
+
+
+def assert_records_close(got, want, rtol=1e-5):
+    """Two regret records agree by the port's one rule
+    (:func:`repro_torch.scenarios.adversary.record_mismatches`)."""
+    bad = record_mismatches(got, want, rtol)
+    assert not bad, {k: (got.get(k), want.get(k)) for k in bad}
+
+
+@contextlib.contextmanager
+def replayed_attacks(attacks, rtol=1e-5):
+    """Answer the port's attacks with recorded ones, in order: each attack
+    must come from the recorded defender state (its tuning, center and
+    budget bit for bit); the port's own attack is computed on it and held
+    to the recorded record to ``rtol``, and the recorded mix and record
+    are returned.  Yields the port's own ``(mix, record)`` per attack."""
+    real = AdversaryScenario.attack
+    own = []
+
+    def replay(self, phi, w_center, rho_live, sys, device=None):
+        inputs, (mix, rec) = attacks[len(own)]
+        for a, b in zip(attack_inputs(phi, w_center, rho_live), inputs):
+            np.testing.assert_array_equal(a, b)
+        got = real(self, phi, w_center, rho_live, sys, device=device)
+        assert_records_close(got[1], rec, rtol)
+        np.testing.assert_allclose(got[0], mix, rtol=rtol, atol=1e-7)
+        own.append(got)
+        return np.array(mix), dict(rec)
+
+    AdversaryScenario.attack = replay
+    try:
+        yield own
+    finally:
+        AdversaryScenario.attack = real
+    assert len(own) == len(attacks), "a recorded attack was not replayed"
+
+
+@contextlib.contextmanager
 def retune_calls(tree_cls):
     """Record every ``tree_cls.retune`` call (the reference's or the
     port's ``LSMTree``), noop or not: a list of (tree label, engine config
@@ -167,11 +238,12 @@ def drift_records(results):
 
 
 def port_report(ref, fleet=None, drift=None, memory=None,
-                memory_events=None):
+                memory_events=None, regret=None):
     """The port's ``Report`` holding the reference report's tunings, arms,
     costs and walls, with the port's own ``fleet`` (trial results),
-    ``drift`` (drift results) or ``memory`` and ``memory_events`` (memory
-    results) when given, else the reference's fleet."""
+    ``drift`` (drift results) and ``regret`` or ``memory`` and
+    ``memory_events`` (memory results) when given, else the reference's
+    fleet."""
     from repro_torch.api import report as treport
     return treport.Report(
         spec=port_spec(ref.spec), sys=port_sys(ref.sys), cells=ref.cells,
@@ -182,6 +254,7 @@ def port_report(ref, fleet=None, drift=None, memory=None,
         bench_set=ref.bench_set,
         fleet=ref.fleet if fleet is None else fleet,
         drift={} if drift is None else drift,
+        regret={} if regret is None else regret,
         memory={} if memory is None else memory,
         memory_events=[] if memory_events is None else memory_events,
         walls=dict(ref.walls))
