@@ -120,7 +120,13 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    ``dual_solve`` launches, its ``merge`` and ``point_read`` ones
    printed) and ``robust_sharding`` (its three skip rows: the repository
    holds no dry-run records) are held against the committed file like
-   fig4.  The ``tuner`` suite runs only under
+   fig4, and so are ``faults`` (11 held fields: its trials on the
+   subprocess backend, whose workers run on the card, and the
+   supervision's overhead against bare launches) and ``obs`` (18: five
+   runs of a four-policy fleet of 50,000 keys, traced and not, and the
+   calibration); each launches no ``dual_solve`` and some ``merge`` and
+   ``point_read`` (for faults, its inline runs' and its workers', which
+   the parent adds up).  The ``tuner`` suite runs only under
    ``--suites`` (below): its seed-style row alone takes about 1,000 s on
    the H100.
 7. ``api`` — ``run_experiment`` on the card for the spec of the API
@@ -148,6 +154,24 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 10. ``robust_sharding`` — ``robust_layout_sweep`` over 64 seeded
    synthetic layout candidates x the rho grid on the card and the CPU:
    the same picks, the worst-case grids within rel 1e-5.
+11. ``faults`` — the subprocess backend with its workers on the card,
+   over the faults suite's spec (4 trees of 30,000 keys, 1,500 queries, 2
+   workers): the suite's chaos schedule (a crash on shard 0, a corrupt
+   result on shard 1) with 2 retries and no failed tree, and the same
+   shards run in this process on the card, each trial the CPU's inline
+   trial in every ``IOStats``, I/O per query and ``TreeProbe``; the
+   workers' ``merge`` and ``point_read`` launches of the accepted attempts
+   (added to the parent's counts) equal to the in-process ones; a hung
+   worker killed at ``HANG_TIMEOUT_S`` (45 s) and retried, identical, each
+   attempt's latency printed; and a resume from a temporary run directory
+   whose shard-0 job file the first run tore: it loads only the valid
+   job, re-runs one shard, and gives the identical result.
+12. ``obs`` — the obs suite's traced leg on the card, exported with
+   ``write_trace``: one thread lane per tree label, 16
+   ``session.execute`` spans, the ``kernel.dispatch.merge.cuda`` and
+   ``kernel.dispatch.point_read.cuda`` counters; its calibration artifact
+   validates its checksum and reads ``all_fitted_ge_hand`` true; and the
+   faults and obs suites' ``overhead_ratio``, printed as times.
 
 The build's ``ptxas`` report (registers and spills) for the bf16
 ``rwkv6`` kernel is printed on a line of its own.
@@ -155,8 +179,8 @@ The build's ``ptxas`` report (registers and spills) for the bf16
     python3 chip_smoke.py --suites [--src DIR]
 
 runs only the suites phase, over ``fig4``, ``fig10``, ``tuner``,
-``fig7_8``, ``fig9``, ``fig19``, ``compaction``, ``robust_sharding`` and
-the six held against the CPU, on the ``repro_torch`` under ``DIR``: one
+``fig7_8``, ``fig9``, ``fig19``, ``compaction``, ``robust_sharding``,
+``faults``, ``obs`` and the six held against the CPU, on the ``repro_torch`` under ``DIR``: one
 JSON line per suite, then the card's name and power limit.
 
     python3 chip_smoke.py --merge [--src DIR] [--sizes FILE]
@@ -223,15 +247,20 @@ FLEET_POLICIES = ("klsm", "lazy_leveling")
 # on the H100, most of it its seed-style row) runs under --suites, with the
 # others
 SUITES = ("fig4", "fig10", "fig7_8", "fig9", "fig19", "compaction",
-          "robust_sharding")
+          "robust_sharding", "faults", "obs")
 ALL_SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19",
-              "compaction", "robust_sharding")
+              "compaction", "robust_sharding", "faults", "obs")
 # the held fields of each committed BENCH_<suite>.json
 SUITE_HELD = {"fig4": 18, "fig10": 12, "tuner": 11, "fig7_8": 27, "fig9": 4,
-              "fig19": 16, "compaction": 32, "robust_sharding": 3}
+              "fig19": 16, "compaction": 32, "robust_sharding": 3,
+              "faults": 11, "obs": 18}
 # the suites that run the engine (every compaction a merge, every read
-# batch a point_read) and no tuner
-ENGINE_SUITES = ("compaction",)
+# batch a point_read) and no tuner; the faults suite's trials run in the
+# subprocess backend's workers too, whose launches the parent adds up
+ENGINE_SUITES = ("compaction", "obs", "faults")
+# the faults phase: the hung worker's per-attempt deadline (s), sized for a
+# healthy attempt's start-up (import torch, a CUDA context) and its shard
+HANG_TIMEOUT_S = 45.0
 # the suites that run through the experiment API, each with one robust grid
 API_SUITES = ("fig7_8", "fig9", "fig19")
 # the suites whose committed file the JAX package itself no longer
@@ -1381,14 +1410,19 @@ def read_path_replay(torch, np, ops, reads) -> dict:
             ops.point_read_level(q, keys, vals, layout)
 
     # the launches' kernels differ in name (their KMAX), so a trace is
-    # whole when it holds one point_read kernel a launch
+    # whole when it holds one point_read kernel a launch; a trace may miss
+    # the first launch of a kernel in it, so each one is launched once
+    # (``lead``) before the kept replay
     name = CUDA_NAMES["point_read"]
-    for _ in range(3):
-        wall, events = cuda_events(torch, replay, tries=1)
-        if sum(name in n for n, _ in events) == len(reads):
+    tries = 5
+    for attempt in range(tries):
+        wall, events = cuda_events(torch, replay, tries=1, lead=replay)
+        got = sum(name in n for n, _ in events)
+        if got == len(reads):
             break
-    check(sum(name in n for n, _ in events) == len(reads),
-          "point_read replay: traces miss launches")
+        log(f"point_read replay: trace {attempt + 1} of {tries} holds "
+            f"{got} of {len(reads)} launches")
+    check(got == len(reads), "point_read replay: traces miss launches")
     path_ms = sum(us for n, us in events if name in n) / 1e3
     return {"path_launches": len(reads),
             "path_keys": sum(q.numel() for q, *_ in reads),
@@ -1848,11 +1882,12 @@ def fig10_profiled_launches(torch, core, build, fig10, starts) -> dict:
     in a profiler trace: the ``dual_solve`` kernels the trace records and
     the wrapper's count, each of which must be its steps + 1.  A trace
     that records fewer than the wrapper counted (late in this script a
-    trace can drop a launch) is taken again, up to three times."""
+    trace can drop a launch) is taken again, up to five times."""
     sys_e = core.LSMSystem(entry_bits=float(fig10.ENTRY_BITS[0]))
     fig10.robust_tunings(sys_e, DEVICE, starts)          # warm
     name = CUDA_NAMES["dual_solve"]
-    for attempt in range(3):
+    tries = 5
+    for attempt in range(tries):
         build.reset_launches()
         _, events = cuda_events(torch, lambda: fig10.robust_tunings(
             sys_e, DEVICE, starts), tries=1)
@@ -1860,8 +1895,8 @@ def fig10_profiled_launches(torch, core, build, fig10, starts) -> dict:
         traced = sum(name in n for n, _ in events)
         if traced == wrapper:
             break
-        log(f"suites: fig10 trace {attempt + 1} holds {traced} of "
-            f"{wrapper} dual_solve launches")
+        log(f"suites: fig10 trace {attempt + 1} of {tries} holds "
+            f"{traced} of {wrapper} dual_solve launches")
     check(wrapper == traced == fig10.STEPS + 1, f"one fig10 robust call: "
           f"{wrapper} dual_solve launches counted, {traced} traced, "
           f"expected {fig10.STEPS + 1}")
@@ -2496,6 +2531,189 @@ def phase_robust_sharding(torch) -> dict:
             "card_grid_s": card["grid_s"], "cpu_grid_s": cpu["grid_s"]}
 
 
+def phase_faults(torch, build) -> dict:
+    """The hardened subprocess backend with its workers on the card, over
+    the faults suite's spec (4 trees of 30,000 keys, 1,500 queries, 2
+    workers): the chaos schedule (a crash on shard 0, a corrupt result on
+    shard 1) through the subprocess backend, 2 retries, no failed tree;
+    the same shards run in this process on the card, their trial (the
+    inline card trial) and the chaos trial each the CPU's inline trial in
+    every ``IOStats``, I/O per query and ``TreeProbe``, and the workers'
+    ``merge`` and ``point_read`` launches of the accepted attempts, which
+    the parent adds to its own counts, equal to the in-process ones; a
+    hung worker (shard 1) killed at ``HANG_TIMEOUT_S`` and retried,
+    identical, each attempt's latency printed; and a resume: a first run
+    whose shard-0 job file is torn, then ``resume`` loads only the valid
+    job, re-runs the torn shard and gives the identical result.  (The
+    suites phase's faults suite has already held the whole inline card
+    trial against the chaos one: ``identical_to_inline``.)"""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import repro_torch.api as api
+    from repro_torch.api import backends
+    from repro_torch.bench import faults
+    from repro_torch.bench.faults import trial_signature as _trial_of
+    spec = faults.make_spec()
+    out = {"phase": "faults", "trees": len(spec.workload.indices),
+           "n_keys": spec.trial.n_keys, "n_queries": spec.trial.n_queries,
+           "hang_timeout_s": HANG_TIMEOUT_S}
+
+    def timed(what, fn):
+        log(f"faults: {what}")
+        t0 = time.time()
+        result = fn()
+        torch.cuda.synchronize()
+        out[f"{what}_s"] = time.time() - t0
+        return result
+
+    cpu = timed("cpu_inline", lambda: api.run_experiment(spec,
+                                                         device="cpu"))
+    want = _trial_of(cpu)
+    build.reset_launches()
+    chaos = timed("chaos", lambda: api.run_experiment(
+        faults.chaos_spec(spec), device=DEVICE))
+    workers = {k: build.LAUNCHES[k] for k in ("merge", "point_read",
+                                               "dual_solve")}
+    out.update(chaos_walls=chaos.walls, chaos_attempts=chaos.shard_attempts,
+               worker_launches=workers)
+    check(_trial_of(chaos) == want, "faults: the chaos trial on the card "
+          "differs from the CPU's inline trial")
+    check(chaos.walls["shard_retries"] == 2
+          and chaos.walls["failed_trees"] == 0, f"faults: chaos walls "
+          f"{chaos.walls}")
+    check(workers["merge"] > 0 and workers["point_read"] > 0
+          and workers["dual_solve"] == 0, f"faults: the workers launched "
+          f"{workers}")
+
+    cx = api.compile_spec(spec)
+    inline = cx.select_arms({})
+    plan = cx.build_trial(inline)
+    shards = backends.SubprocessBackend(workers=2)._partition(plan)
+    build.reset_launches()
+
+    def in_process():
+        for shard in shards:
+            builds = [plan.trees[t] for t in shard]
+            results, probes, _, _ = api.execute_trial(plan, builds,
+                                                      device=DEVICE)
+            backends._attach_trial(inline, builds, results, probes)
+
+    timed("shards_in_process", in_process)
+    own = {k: build.LAUNCHES[k] for k in workers}
+    out["in_process_launches"] = own
+    check(_trial_of(inline) == want, "faults: the inline card trial "
+          "differs from the CPU's")
+    check(own == workers, f"faults: the workers' launches {workers} != the "
+          f"same shards in this process {own}")
+
+    def sub(**params):
+        base = dict(workers=2, max_retries=2, backoff_s=0.05,
+                    timeout_s=HANG_TIMEOUT_S)
+        base.update(params)
+        return tuple(base.items())
+
+    hang = timed("hang", lambda: api.run_experiment(dataclasses.replace(
+        spec, backend="subprocess", backend_params=sub(),
+        faults=(api.FaultSpec(kind="hang", shards=(1,), max_hits=1),)),
+        device=DEVICE))
+    out.update(hang_walls=hang.walls, hang_attempts=hang.shard_attempts)
+    log(f"faults: hang attempts {hang.shard_attempts}")
+    check(_trial_of(hang) == want and hang.walls["shard_retries"] == 1
+          and hang.walls["failed_trees"] == 0, f"faults: the hung worker's "
+          f"run: walls {hang.walls}")
+    check([(a["shard"], a["attempt"]) for a in hang.shard_attempts
+           if not a["ok"]] == [(1, 0)], f"faults: attempts "
+          f"{hang.shard_attempts}")
+
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_faults_")
+    try:
+        # shard 0's job file: its name ends with a tag of the shard's trees
+        tag = backends._job_tag(shards[0])
+        torn = timed("torn", lambda: api.run_experiment(dataclasses.replace(
+            spec, backend="subprocess", backend_params=sub(run_dir=run_dir),
+            faults=(api.FaultSpec(kind="torn_write", match=tag),)),
+            device=DEVICE))
+        resumed = timed("resume", lambda: api.run_experiment(
+            dataclasses.replace(spec, backend="subprocess",
+                                backend_params=sub(run_dir=run_dir,
+                                                   resume=True)),
+            device=DEVICE))
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    out.update(torn_walls=torn.walls, resume_walls=resumed.walls,
+               resume_attempts=resumed.shard_attempts)
+    check(torn.walls.get("persist_failures") == 1
+          and _trial_of(torn) == want, f"faults: the torn run's walls "
+          f"{torn.walls}")
+    check(resumed.walls["resumed_trees"] == len(shards[1])
+          and resumed.walls["shards_run"] == 1
+          and _trial_of(resumed) == want, f"faults: the resumed run's walls "
+          f"{resumed.walls}")
+    out["identical"] = True
+    return out
+
+
+def phase_obs(build, suite_lines) -> dict:
+    """Trace export and calibration on the card: the obs suite's traced leg
+    (its four-policy fleet) captured with ``write_trace``: the document
+    parses, holds one thread lane per tree label, 16 ``session.execute``
+    spans and the ``kernel.dispatch.merge.cuda`` and
+    ``kernel.dispatch.point_read.cuda`` counters; the calibration artifact
+    written by ``write_calibration`` validates its checksum and reads
+    ``all_fitted_ge_hand`` true.  The leg must launch ``merge`` and
+    ``point_read`` and no ``dual_solve``.  Prints the faults and obs
+    suites' ``overhead_ratio`` from the suites phase, as times."""
+    import tempfile
+
+    from repro_torch.bench import obs as obs_suite
+    from repro_torch.faults import load_checked_json
+    from repro_torch.obs.calibrate import write_calibration
+    from repro_torch.obs.trace import write_trace
+    log("obs: a traced leg on the card")
+    build.reset_launches()
+    t0 = time.time()
+    report, engine_s, tel = obs_suite.run_leg(True, DEVICE)
+    leg_s = time.time() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(launches.get("merge", 0) > 0 and launches.get("point_read", 0) > 0
+          and not launches.get("dual_solve"), f"obs: the traced leg "
+          f"launched {launches}")
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "trace_obs.json")
+        n = write_trace(path, tel)
+        doc = load_checked_json(path)
+        cal = obs_suite.calibration(tel.events_snapshot(), report, DEVICE)
+        cal_path = str(Path(d) / "calibration_obs.json")
+        write_calibration(cal_path, cal)
+        cal_doc = load_checked_json(cal_path)
+    tev = doc["traceEvents"]
+    lanes = {e["args"]["name"] for e in tev
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    labels = {f"w0.rhoNone/{p}" for p in obs_suite.POLICIES}
+    spans = sum(e["ph"] == "X" and e["name"] == "session.execute"
+                for e in tev)
+    counters = {e["name"]: e["args"]["value"] for e in tev if e["ph"] == "C"}
+    check(labels <= lanes, f"obs: lanes {sorted(lanes)}")
+    check(spans == 16, f"obs: {spans} session.execute spans")
+    check(all(counters.get(f"kernel.dispatch.{k}.cuda", 0) > 0
+              for k in ("merge", "point_read")), f"obs: counters "
+          f"{sorted(counters)}")
+    check(cal_doc["all_fitted_ge_hand"] is True, "obs: calibration "
+          f"{cal_doc}")
+    overhead = {line["suite"]: {r: d["overhead_ratio"]
+                                for r, d in line["rows"].items()
+                                if "overhead_ratio" in d}
+                for line in suite_lines if line["suite"] in ("faults", "obs")}
+    return {"phase": "obs", "leg_s": leg_s, "engine_s": engine_s,
+            "events": n, "lanes": sorted(lanes), "session_spans": spans,
+            "dispatch_counters": {k: v for k, v in counters.items()
+                                  if k.startswith("kernel.dispatch.")},
+            "launches": launches, "calibration": cal_doc["policies"],
+            "overhead_ratio": overhead}
+
+
 def suites_main(torch) -> int:
     """``--suites``: the suites phase over ``ALL_SUITES`` and
     ``CPU_HELD_SUITES`` on the ``repro_torch`` under ``--src``: one JSON
@@ -2642,13 +2860,15 @@ def main(argv=None) -> int:
         k["launches"] = launches[k["name"]]
     emit({"phase": "kernels", "launch_floor_ms": launch_floor_ms(torch),
           "kernels": kernels})
-    phase_suites(torch, core, build)
+    suite_lines = phase_suites(torch, core, build)
     for suite in CPU_HELD_SUITES:
         emit(suite_against_cpu(torch, build, suite))
     emit(phase_api(torch, build))
     emit(phase_drift(torch, build))
     emit(phase_memory())
     emit(phase_robust_sharding(torch))
+    emit(phase_faults(torch, build))
+    emit(phase_obs(build, suite_lines))
     keyset = ("name", "route", "source", "replaces", "launches",
               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")

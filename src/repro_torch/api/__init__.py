@@ -21,9 +21,10 @@ JAX package's text.
 
 A drift spec of any kind runs, the scenario kinds of
 :mod:`repro_torch.scenarios` included (the adversary's regret trace lands
-in ``Report.regret``).  Not ported yet, and refused with
-``NotImplementedError``: the subprocess and remote backends (ROADMAP.md
-queue 5).
+in ``Report.regret``).  Every backend of the JAX package is here:
+``inline``, ``sharded``, ``subprocess`` (fleet shards in worker processes
+on the caller's device, with retries, re-sharding and resume) and the
+``remote`` scheduling stub.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ import time
 
 from ..faults import FaultPlan, FaultSpec
 from .backends import (BACKENDS, ExecutionBackend, InlineBackend,
-                       ShardedBackend, execute_trial, get_backend)
+                       RemoteBackend, ShardedBackend, SubprocessBackend,
+                       execute_trial, get_backend)
 from .compile import (CompiledExperiment, DriftPlan, MemoryPlan, TrialPlan,
                       TuningPlan, compile_spec, drift_schedule)
 from .report import (Report, Row, TreeProbe, costs_over_benchmark, delta_tp,
@@ -48,7 +50,7 @@ __all__ = [
     "compile_spec", "CompiledExperiment", "TuningPlan", "TrialPlan",
     "DriftPlan", "MemoryPlan", "drift_schedule",
     "BACKENDS", "ExecutionBackend", "InlineBackend", "ShardedBackend",
-    "get_backend", "execute_trial",
+    "SubprocessBackend", "RemoteBackend", "get_backend", "execute_trial",
     "costs_over_benchmark", "delta_tp", "timed", "fmt", "jsonable",
 ]
 

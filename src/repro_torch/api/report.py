@@ -15,10 +15,9 @@ checksum included.  The row layer the paper suites share (:class:`Row`,
 strict-JSON coercion, benchmark-set cost evaluation, Delta-throughput)
 lives here too; ``repro_torch.bench.run`` prints rows as CSV.  So does
 the adversary scenario's regret trace (``Report.regret``, one
-``{name}_regret_w{widx}`` row per attacked workload).
-
-The subprocess-shard parts of the reference's report are not ported yet
-(ROADMAP.md queue 5).
+``{name}_regret_w{widx}`` row per attacked workload), and the subprocess
+backend's recovery (``Report.failed_cells``, ``Report.shard_attempts``:
+the ``{name}_failed`` and ``{name}_shards`` rows).
 """
 
 from __future__ import annotations
@@ -173,6 +172,17 @@ class Report:
     memory: Dict[Tuple[int, str], Any] = dataclasses.field(
         default_factory=dict)
     memory_events: List[dict] = dataclasses.field(default_factory=list)
+    #: graceful degradation: trial trees whose shard exhausted every retry
+    #: and re-shard attempt, keyed like ``fleet``, valued with the final
+    #: error (worker stderr included) — the sweep completes with explicit
+    #: holes instead of crashing.
+    failed_cells: Dict[Tuple[Cell, str], str] = dataclasses.field(
+        default_factory=dict)
+    #: SubprocessBackend per-attempt log: one dict per worker launch
+    #: ({"shard", "attempt", "ok", "latency_s"}), successes included — a
+    #: shard that flapped (failed, then succeeded on retry) is visible
+    #: here even though the sweep reported no failure.
+    shard_attempts: List[dict] = dataclasses.field(default_factory=list)
     walls: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     # -- accessors ----------------------------------------------------------
@@ -308,6 +318,33 @@ class Report:
                          "shares": [round(s, 3) for s in e["shares"]],
                          "retuned": e["retuned"]}
                         for e in self.memory_events],
+            ))
+        if self.failed_cells:
+            out.append(Row(
+                f"{name}_failed", 0.0,
+                failed=len(self.failed_cells),
+                cells=[f"w{w}" + ("" if rho is None else f"_rho{rho:g}")
+                       + f":{pol}"
+                       for (w, rho), pol in sorted(
+                           self.failed_cells, key=str)],
+                errors=[err.splitlines()[-1][:200] if err else ""
+                        for _, err in sorted(self.failed_cells.items(),
+                                             key=lambda kv: str(kv[0]))],
+            ))
+        if self.shard_attempts:
+            lat = [a["latency_s"] for a in self.shard_attempts]
+            failed = {a["shard"] for a in self.shard_attempts if not a["ok"]}
+            flapping = sorted(
+                failed & {a["shard"] for a in self.shard_attempts
+                          if a["ok"]})
+            out.append(Row(
+                f"{name}_shards", 0.0,
+                attempts=len(self.shard_attempts),
+                failed_attempts=sum(not a["ok"]
+                                    for a in self.shard_attempts),
+                flapping_shards=flapping,
+                max_attempt_latency=round(max(lat), 4),
+                mean_attempt_latency=round(sum(lat) / len(lat), 4),
             ))
         out.append(Row(f"{name}_walls", self.wall_time_s * 1e6,
                        **{k: round(v, 3) for k, v in self.walls.items()},

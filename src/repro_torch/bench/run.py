@@ -18,8 +18,9 @@ kinds (:func:`field_kind`):
 
 * **time** — the card's own, printed and not compared (the committed
   ones are another machine's): ``us_per_call``, ``wall_time_s``,
-  ``*_us``, ``*_s``, ``speedup_*``, ``tunings_per_sec`` and
-  ``claim_speedup_ge_10x``;
+  ``*_us``, ``*_s``, ``speedup_*``, ``tunings_per_sec``,
+  ``claim_speedup_ge_10x``, and the faults and obs suites'
+  ``overhead_ratio`` and ``overhead_pct`` (ratios of two wall times);
 * **spread** — start-dependent, printed beside the committed value and
   not held (the port's starts come from a ``torch.Generator``, not
   ``jax.random``): ``jax_spread``, ``slsqp_spread``,
@@ -36,6 +37,16 @@ A held field that misses, or a committed row or key the port lacks, is
 printed by name with both values, and the runner exits 1.  ``--json DIR``
 writes ``BENCH_torch_<suite>.json`` in the committed schema, stamped with
 its checksum, atomically.  The suites run on the card unless ``--device cpu``.
+
+``--trace DIR`` turns telemetry on (``repro_torch.obs``) and sets
+``REPRO_OBS_OUT``; after each suite it writes ``trace_<suite>.json``
+(Chrome/Perfetto) and ``metrics_<suite>.json`` into DIR (the obs suite
+also writes its calibration artifact there).  ``--spec FILE.json`` runs
+one declarative experiment (``repro_torch.api.ExperimentSpec`` JSON, the
+JAX package's text) and prints its report's rows; ``--run-dir DIR`` and
+``--resume`` set the subprocess backend's persistence (the CLI wins over
+the spec's ``backend_params``), so one spec file serves a fresh run and a
+resume.
 """
 
 from __future__ import annotations
@@ -58,12 +69,12 @@ from .common import committed_starts, own_starts
 #: drift axis and memory through its memory axis
 SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19", "fig6", "tab5",
           "api", "online", "compaction", "robust_sharding", "memory",
-          "scenarios")
+          "scenarios", "faults", "obs")
 #: a held float lies within ABS_TOL + REL_TOL * |committed| of the
 #: committed value: tuned costs move with the starts
 ABS_TOL, REL_TOL = 0.01, 0.01
 TIME_FIELDS = {"us_per_call", "wall_time_s", "tunings_per_sec",
-               "claim_speedup_ge_10x"}
+               "claim_speedup_ge_10x", "overhead_ratio", "overhead_pct"}
 SPREAD_FIELDS = {"jax_spread", "slsqp_spread"}
 REPO_ROOT = Path(__file__).resolve().parents[3]
 
@@ -154,21 +165,39 @@ def payload(suite: str, rows: List[Row], wall_s: float) -> dict:
                   "derived": jsonable(r.derived)} for r in rows]})
 
 
+def write_trace_files(trace_dir: str, name: str) -> int:
+    """``trace_<name>.json`` and ``metrics_<name>.json`` of the live
+    telemetry into ``trace_dir``; returns the events exported."""
+    from .. import obs
+    from ..obs.trace import write_trace
+    n = write_trace(os.path.join(trace_dir, f"trace_{name}.json"))
+    atomic_write_json(os.path.join(trace_dir, f"metrics_{name}.json"),
+                      jsonable(obs.metrics_snapshot()))
+    return n
+
+
 def run_suite(suite: str, device=None, baseline_dir=REPO_ROOT,
-              json_dir: Optional[str] = None, starts=own_starts) -> dict:
+              json_dir: Optional[str] = None, starts=own_starts,
+              trace_dir: Optional[str] = None) -> dict:
     """Run one suite and hold it against its committed file (validated
     before the suite starts).  ``starts`` says where its tunings' starts
-    come from (``common.py``).  Returns the rows, the wall time and the
-    comparison (:func:`compare`)."""
+    come from (``common.py``).  With ``trace_dir`` (telemetry on), the
+    ring is cleared first and the suite's trace and metrics written after.
+    Returns the rows, the wall time and the comparison (:func:`compare`)."""
     if suite not in SUITES:
         raise ValueError(f"unknown suite {suite!r}; known: {SUITES}")
     base = load_baseline(suite, baseline_dir)
     mod = importlib.import_module(f".{suite}", __package__)
+    if trace_dir is not None:
+        from .. import obs
+        obs.clear()             # per-suite trace files, not one giant ring
     t0 = time.time()
     rows = mod.run(device=device, starts=starts)
     wall = time.time() - t0
     result = {"suite": suite, "rows": rows, "wall_s": wall,
               "comparison": compare(rows, wall, base)}
+    if trace_dir is not None:
+        result["trace_events"] = write_trace_files(trace_dir, suite)
     if json_dir is not None:
         os.makedirs(json_dir, exist_ok=True)
         path = os.path.join(json_dir, f"BENCH_torch_{suite}.json")
@@ -190,6 +219,9 @@ def report(result: dict) -> List[str]:
                      "not held)")
     for field, got, _ in cmp["time"]:
         lines.append(f"# time {field}: {got}")
+    if "trace_events" in result:
+        lines.append(f"# trace {result['suite']}: "
+                     f"{result['trace_events']} events")
     lines.append(f"# {result['suite']} done in {result['wall_s']:.1f}s: "
                  f"{len(cmp['held'])} held fields matched, "
                  f"{len(cmp['missed'])} missed")
@@ -206,9 +238,62 @@ def _device_name(device) -> str:
     return str(dev)
 
 
+def run_spec(args, starts) -> int:
+    """``--spec FILE.json``: run one declarative experiment end to end and
+    print its report's rows, its recovery walls and any unrecovered cell.
+    ``--run-dir``/``--resume`` override the subprocess backend's
+    persistence knobs."""
+    from ..api import ExperimentSpec, get_backend, run_experiment
+    with open(args.spec) as f:
+        spec = ExperimentSpec.from_json(f.read())
+    backend = None
+    if args.run_dir or args.resume:
+        params = dict(spec.backend_params)
+        params["run_dir"] = args.run_dir
+        params["resume"] = args.resume
+        backend = get_backend(spec.backend, tuple(params.items()))
+    print(f"# spec {args.spec!r} -> experiment {spec.name!r} "
+          f"(backend={spec.backend}"
+          + (f", run_dir={args.run_dir!r}" if args.run_dir else "")
+          + (", resume" if args.resume else "") + ")", flush=True)
+    print("name,us_per_call,derived", flush=True)
+    report = run_experiment(spec, backend=backend, device=args.device,
+                            starts=starts)
+    rows = report.rows()
+    for row in rows:
+        print(row.csv(), flush=True)
+    recovery = {k: int(v) for k, v in report.walls.items()
+                if k in ("resumed_trees", "shards_run", "shard_retries",
+                         "reshard_trees", "failed_trees")}
+    if recovery:
+        print("# recovery: " + " ".join(f"{k}={v}"
+                                        for k, v in sorted(recovery.items())),
+              flush=True)
+    for a in report.shard_attempts:
+        print(f"# shard {a['shard']} attempt {a['attempt']}: "
+              f"{'ok' if a['ok'] else 'failed'} in {a['latency_s']} s",
+              flush=True)
+    for (cell, pol), err in sorted(report.failed_cells.items(),
+                                   key=lambda kv: str(kv[0])):
+        print(f"# WARNING unrecovered cell {cell} arm {pol!r}: "
+              + (err.splitlines()[-1][:200] if err else "?"), flush=True)
+    print(f"# {spec.name} done in {report.wall_time_s:.1f}s", flush=True)
+    if args.trace:
+        n = write_trace_files(args.trace, spec.name)
+        print(f"# trace {spec.name}: {n} events -> "
+              f"{args.trace}/trace_{spec.name}.json", flush=True)
+    if args.json:
+        os.makedirs(args.json, exist_ok=True)
+        path = os.path.join(args.json, f"BENCH_{spec.name}.json")
+        report.write_bench_json(path, rows)
+        print(f"# wrote {path}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("suites", nargs="+", choices=SUITES)
+    ap.add_argument("suites", nargs="*", choices=SUITES,
+                    help="suites to run (optional with --spec)")
     ap.add_argument("--json", metavar="DIR", default=None,
                     help="write BENCH_torch_<suite>.json into DIR")
     ap.add_argument("--baseline", metavar="DIR", default=str(REPO_ROOT),
@@ -220,14 +305,42 @@ def main(argv=None) -> int:
                     help="start every tuning from the starts the committed "
                     "files were made from (bench/jax_starts.npz), not from "
                     "the port's own torch.Generator draws")
+    ap.add_argument("--spec", metavar="FILE.json", default=None,
+                    help="run one declarative ExperimentSpec and print its "
+                    "report (honors --json and --trace)")
+    ap.add_argument("--run-dir", metavar="DIR", default=None,
+                    help="with --spec: persist per-shard results into DIR "
+                    "(atomic, checksummed) as they complete")
+    ap.add_argument("--resume", action="store_true",
+                    help="with --spec --run-dir: reuse valid persisted "
+                    "shard results, execute only the remainder")
+    ap.add_argument("--trace", metavar="DIR", default=None,
+                    help="enable telemetry and write trace_<suite>.json "
+                    "(Chrome/Perfetto) and metrics_<suite>.json into DIR")
     args = ap.parse_args(argv)
+    if args.resume and not args.run_dir:
+        ap.error("--resume requires --run-dir (the directory holding the "
+                 "persisted shard results)")
+    if (args.run_dir or args.resume) and not args.spec:
+        ap.error("--run-dir/--resume only apply to --spec runs")
+    if args.spec and args.suites:
+        ap.error("--spec runs one experiment; name no suites beside it")
+    if not (args.spec or args.suites):
+        ap.error("name at least one suite, or --spec FILE.json")
     starts = committed_starts if args.committed_starts else own_starts
+    if args.trace:
+        from .. import obs
+        os.makedirs(args.trace, exist_ok=True)
+        os.environ["REPRO_OBS_OUT"] = args.trace
+        obs.configure(enabled=True, clock="wall")
     print(f"# device: {_device_name(args.device)}", flush=True)
+    if args.spec:
+        return run_spec(args, starts)
     print("name,us_per_call,derived", flush=True)
     missed: Dict[str, int] = {}
     for suite in args.suites:
         result = run_suite(suite, args.device, args.baseline, args.json,
-                           starts)
+                           starts, args.trace)
         for line in report(result):
             print(line, flush=True)
         missed[suite] = len(result["comparison"]["missed"])

@@ -1,22 +1,24 @@
 """Crash-safe artifacts: atomic writes plus content checksums (stdlib only).
 
-The port's copy of ``repro/faults/artifacts.py``, the part its reports
-need.  Two defenses, used together:
+The port's copy of ``repro/faults/artifacts.py``.  Two defenses, used
+together everywhere the port persists results (``BENCH_<suite>.json``,
+the subprocess backend's per-shard job pickles, trace and calibration
+artifacts):
 
 * **atomic replace** — the payload lands in a same-directory temp file,
   fsynced, then :func:`os.replace`'d over the destination, so a crash
   mid-write leaves either the old file or the new one, never a torn one;
 * **content checksum** — a sha256 over the canonical serialization travels
   with the payload, and a loader validates it before trusting the content,
-  so a torn, truncated or hand-edited ``BENCH_<suite>.json`` is detected
-  instead of consumed.  The digests equal the JAX package's for the same
+  so a torn, truncated or hand-edited artifact is detected instead of
+  consumed.  The digests equal the JAX package's for the same
   payload.
 
 ``fault`` threads the chaos schedule (:class:`repro_torch.faults.FaultPlan`)
 through the write path: a ``torn_write`` fault leaves a truncated payload
 at the final path and raises :class:`TornWriteError`.  The checksummed
-job pickles of the subprocess backend (``dump_job``/``load_job``) are not
-ported yet (ROADMAP.md queue 5).
+job pickles (:func:`dump_job`/:func:`load_job`) have the JAX package's
+format: ``sha256-hexdigest \n pickle``.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import pickle
 import tempfile
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 #: checksum field/prefix conventions shared by every artifact schema.
 CHECKSUM_KEY = "checksum"
@@ -112,3 +115,31 @@ def load_checked_json(path: str) -> Dict[str, Any]:
     if not checksum_ok(payload):
         raise ValueError(f"{path}: checksum mismatch (corrupt or torn file)")
     return payload
+
+
+# ---------------------------------------------------------------------------
+# Checksummed pickle jobs (per-shard sweep results)
+# ---------------------------------------------------------------------------
+
+def dump_job(path: str, obj: Any, fault=None) -> None:
+    """Persist one pickled job result: ``sha256-hexdigest \\n payload``,
+    written atomically (or torn, under an injected fault)."""
+    payload = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    header = hashlib.sha256(payload).hexdigest().encode() + b"\n"
+    atomic_write_bytes(path, header + payload, fault=fault)
+
+
+def load_job(path: str) -> Optional[Any]:
+    """Load a checksummed job pickle; ``None`` for anything invalid —
+    missing, torn, checksum-mismatched, or unpicklable (a corrupt shard
+    artifact is re-executed, never trusted)."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+        header, _, payload = data.partition(b"\n")
+        if hashlib.sha256(payload).hexdigest().encode() != header:
+            return None
+        return pickle.loads(payload)
+    except (OSError, pickle.UnpicklingError, EOFError, AttributeError,
+            ValueError, IndexError):
+        return None

@@ -20,8 +20,8 @@ Fault taxonomy (``FaultSpec.kind``):
 * ``"torn_write"`` — an artifact write is cut short mid-file *at the final
   path*, exercising the checksum validation every artifact loader performs.
 
-The worker kinds fire in the subprocess backend, which the port does not
-have yet (ROADMAP.md queue 5); the schedule itself is complete.
+The worker kinds fire in the subprocess backend
+(:class:`repro_torch.api.SubprocessBackend`), inside its worker processes.
 """
 
 from __future__ import annotations

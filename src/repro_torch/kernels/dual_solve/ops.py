@@ -12,6 +12,12 @@
   ``dc`` and its backward is ``g_val[:, None] * dc``.  The new log lambda
   is not differentiable (the reference's ``stop_gradient``).  The TPU
   kernel has no backward kernel either.
+
+While telemetry is on, a call of :func:`dual_solve_warm` counts
+``kernel.dispatch.dual_solve.<device type>`` and a call of
+:func:`dual_solve_warm_batch` ``kernel.dispatch.dual_solve_batch.<device
+type>``, as the merge and read paths count theirs (the reference counts
+the same names by its mode, once per jit trace; the port counts calls).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from ... import obs
 from .. import _build
 from .._build import F32, I32, I64, P
 from .ref import dual_solve_warm_ref
@@ -39,6 +46,13 @@ def dual_solve_warm_batch(C: torch.Tensor, W: torch.Tensor,
     """(values (L,), new log lam* (L,)), and with ``grad`` the envelope
     gradient (L, n), for C (L, n), W (L, n) or (n,), rho/llam (L,), all
     float32 on one device."""
+    if obs.enabled():
+        obs.count("kernel.dispatch.dual_solve_batch." + C.device.type)
+    return _solve(C, W, rho, llam, half_width, n_local, n_golden, grad)
+
+
+def _solve(C, W, rho, llam, half_width, n_local, n_golden, grad):
+    """:func:`dual_solve_warm_batch`, uncounted."""
     if C.dim() != 2:
         raise ValueError(f"C must be (L, n), got {tuple(C.shape)}")
     L, n = C.shape
@@ -87,8 +101,8 @@ class DualSolveWarm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, C, W, rho, llam, half_width, n_local, n_golden):
-        val, lnew, dc = dual_solve_warm_batch(C, W, rho, llam, half_width,
-                                              n_local, n_golden, grad=True)
+        val, lnew, dc = _solve(C, W, rho, llam, half_width, n_local,
+                               n_golden, True)
         ctx.save_for_backward(dc)
         ctx.mark_non_differentiable(lnew)
         return val, lnew
@@ -105,8 +119,10 @@ def dual_solve_warm(C: torch.Tensor, W: torch.Tensor, rho: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable (in C) lane-batched warm solve; the tuner's call.
     Without a gradient to take, the kernel writes no ``dc``."""
+    if obs.enabled():
+        obs.count("kernel.dispatch.dual_solve." + C.device.type)
     if not (torch.is_grad_enabled() and C.requires_grad):
-        return dual_solve_warm_batch(C, W, rho, llam, half_width, n_local,
-                                     n_golden)
+        return _solve(C, W, rho, llam, half_width, n_local, n_golden,
+                      False)
     return DualSolveWarm.apply(C, W, rho, llam.detach(), half_width,
                                n_local, n_golden)

@@ -5,8 +5,9 @@
   build (the suites', the API checklist's, one with faults, one with a
   classic drift), and ``from_json`` of the reference's text gives an equal
   spec; every spec the reference rejects, the port rejects.
-* Refusals: what the port has not ported (the subprocess and remote
-  backends) raises ``NotImplementedError`` naming its ROADMAP.md queue.
+* Backends: every backend of the reference is the port's own class; the
+  remote stub refuses to execute with the reference's
+  ``NotImplementedError``.
 * ``FaultPlan``: the same firings over a grid of shards, attempts and
   basenames.
 * Tunings and arms: from the same starts, ``run_experiment`` matches the
@@ -273,19 +274,27 @@ def test_refusals_name_their_roadmap_queue():
         == ref_report.memory_fleet_throughput("static")
     assert T.compile_spec(specs["drift"]).build_memory(None) is None
     assert T.compile_spec(specs["direct"]).build_drift(None) is None
-    for name in ("subprocess", "remote"):
-        with pytest.raises(NotImplementedError, match="queue 5"):
-            T.get_backend(name, (("workers", 2),))
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        T.run_experiment(specs["subprocess"], device="cpu")
+    assert isinstance(T.get_backend("subprocess", (("workers", 2),)),
+                      T.SubprocessBackend)
+    remote = T.get_backend("remote", (("queue", "gpu"),))
+    assert isinstance(remote, T.RemoteBackend)
+    with pytest.raises(NotImplementedError, match="scheduling stub"):
+        T.run_experiment(dataclasses.replace(specs["subprocess"],
+                                             backend="remote"),
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="scheduling stub"):
+        remote.run_trial(None, report)
     with pytest.raises(ValueError, match="unknown backend"):
         T.get_backend("carrier_pigeon")
     assert set(T.BACKENDS) == set(R.BACKENDS)
+    assert {n: c.__name__ for n, c in T.BACKENDS.items()} \
+        == {n: c.__name__ for n, c in R.BACKENDS.items()}
+    assert all(c.__module__ == "repro_torch.api.backends"
+               for c in T.BACKENDS.values())
 
 
 def test_api_exports_what_the_reference_exports_but_the_queued_backends():
-    assert set(T.__all__) == set(R.__all__) - {"SubprocessBackend",
-                                               "RemoteBackend"}
+    assert T.__all__ == R.__all__
     assert all(hasattr(T, name) for name in T.__all__)
     assert tcompile.ARM_DESIGNS == rcompile.ARM_DESIGNS
     assert tcompile.MODEL_ONLY_PARAMS == rcompile.MODEL_ONLY_PARAMS
@@ -620,6 +629,23 @@ def test_report_helpers_are_the_reference_module_s():
     assert treport.Cell == rreport.Cell
     assert [f.name for f in dataclasses.fields(treport.TreeProbe)] \
         == [f.name for f in dataclasses.fields(rreport.TreeProbe)]
-    kept = {f.name for f in dataclasses.fields(treport.Report)}
-    assert kept == {f.name for f in dataclasses.fields(rreport.Report)} \
-        - {"failed_cells", "shard_attempts"}
+    assert [f.name for f in dataclasses.fields(treport.Report)] \
+        == [f.name for f in dataclasses.fields(rreport.Report)]
+    # the subprocess backend's recovery rows, text for text
+    failed = {((0, None), "klsm"): "Traceback\nshard 0 attempt 1: worker "
+              "exited 17; stderr: InjectedWorkerCrash: chaos",
+              ((1, 0.5), "lazy_leveling"): ""}
+    attempts = [{"shard": 0, "attempt": 0, "ok": False, "latency_s": 2.5},
+                {"shard": 0, "attempt": 1, "ok": True, "latency_s": 3.25},
+                {"shard": 1, "attempt": 0, "ok": True, "latency_s": 3.0}]
+    rows = []
+    for m, rep in ((T, treport), (R, rreport)):
+        report = rep.Report(spec=_checklist_specs(m)["direct"], sys=None,
+                            cells=[], tunings={}, arm_costs={}, chosen={},
+                            model_costs={}, failed_cells=dict(failed),
+                            shard_attempts=list(attempts),
+                            walls={"shard_retries": 1.0})
+        rows.append([r.csv() for r in report.rows()])
+    assert rows[0] == rows[1]
+    assert [r.split(",")[0] for r in rows[0]] == ["t_failed", "t_shards",
+                                                  "t_walls"]

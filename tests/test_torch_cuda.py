@@ -1047,3 +1047,48 @@ def test_retune_storm_on_card_pads_without_moving_results(dev):
         assert torch.equal(a.phi.K, b.phi.K)
         assert torch.equal(a.phi.mfilt_bits, b.phi.mfilt_bits)
         assert a.cost == b.cost
+
+
+def _chaos_spec():
+    """The faults suite's spec at a small size, on the subprocess backend
+    under its chaos schedule (a crash on shard 0, a corrupt result on
+    shard 1)."""
+    import dataclasses
+
+    from repro_torch.bench import faults
+    spec = dataclasses.replace(
+        faults.make_spec(),
+        trial=dataclasses.replace(faults.make_spec().trial, n_keys=6000,
+                                  n_queries=400))
+    return spec, faults.chaos_spec(spec)
+
+
+def test_subprocess_chaos_on_card_matches_inline_and_cpu(dev):
+    """Workers on the card: the chaos trial's IOStats, I/O per query and
+    probes are the inline card trial's and the CPU trial's, and the
+    workers' merge and point_read launches reach the parent's counts,
+    equal to the same shards run in this process on the card."""
+    import repro_torch.api as api
+    from repro_torch.api import backends
+    from repro_torch.bench.faults import trial_signature as trial
+    spec, chaos_spec = _chaos_spec()
+
+    inline = api.run_experiment(spec, device=dev)
+    cpu = api.run_experiment(spec, device="cpu")
+    _build.reset_launches()
+    chaos = api.run_experiment(chaos_spec, device=dev)
+    worker_launches = {k: _build.LAUNCHES[k]
+                       for k in ("merge", "point_read", "dual_solve")}
+    print("attempt latencies:", chaos.shard_attempts)
+    assert chaos.walls["shard_retries"] == 2 and not chaos.failed_cells
+    assert trial(chaos) == trial(inline) == trial(cpu)
+    assert worker_launches["dual_solve"] == 0
+    assert worker_launches["merge"] > 0 and worker_launches["point_read"] > 0
+    cx = api.compile_spec(spec)
+    plan = cx.build_trial(cx.select_arms({}))
+    sub = backends.SubprocessBackend(workers=2)
+    _build.reset_launches()
+    for shard in sub._partition(plan):
+        api.execute_trial(plan, [plan.trees[t] for t in shard], device=dev)
+    assert {k: _build.LAUNCHES[k] for k in worker_launches} \
+        == worker_launches

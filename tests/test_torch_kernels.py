@@ -415,11 +415,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 20
     assert {"base.py", "library.py", "adversary.py"} <= {
         p.name for p in files if p.parent.name == "scenarios"}
+    by_dir = {}
+    for p in files:
+        by_dir.setdefault(p.parent.name, set()).add(p.name)
+    assert {"retry.py", "artifacts.py", "spec.py"} <= by_dir["faults"]
+    assert {"core.py", "trace.py", "calibrate.py"} <= by_dir["obs"]
+    assert {"faults.py", "obs.py"} <= by_dir["bench"]
     for path in files:
         roots = set(_imported_roots(path))
         bad = roots & {"jax", "jaxlib", "repro", "flax", "optax",
                        "benchmarks"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+    # the subprocess backend's worker command is code too
+    from repro_torch.api import backends
+    flag, code = backends.WORKER_CMD
+    assert flag == "-c"
+    tree = ast.parse(code)
+    assert {n.module for n in ast.walk(tree)
+            if isinstance(n, ast.ImportFrom)} == {"repro_torch.api.backends"}
+    assert not any(isinstance(n, ast.Import) for n in ast.walk(tree))
 
 
 def test_wrappers_refuse_other_devices():

@@ -30,6 +30,7 @@ shares with the JAX package, on the CPU.
   reference's rows (ROADMAP.md section 3).
 """
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -50,9 +51,9 @@ from repro_torch.api import report as treport
 from repro_torch.api import compile_spec
 from repro_torch.api import backends as tbackends
 from repro_torch.api import run_experiment
-from repro_torch.bench import api, common, compaction, fig4, fig6, fig7_8, \
-    fig9, fig10, fig19, memory, online, robust_sharding, run, scenarios, \
-    tab5, tuner
+from repro_torch.bench import api, common, compaction, faults, fig4, fig6, \
+    fig7_8, fig9, fig10, fig19, memory, obs, online, robust_sharding, run, \
+    scenarios, tab5, tuner
 from repro_torch.faults import artifacts as tartifacts
 import repro_torch.scenarios as tscenarios
 
@@ -61,7 +62,7 @@ import torch_carry as carry
 REPO = Path(__file__).resolve().parents[1]
 SUITES = ("fig4", "fig10", "tuner", "fig7_8", "fig9", "fig19", "fig6",
           "tab5", "api", "online", "compaction", "robust_sharding", "memory",
-          "scenarios")
+          "scenarios", "faults", "obs")
 #: the suites that run through the experiment API, with the specs their
 #: run_experiment calls take, and the held fields of their committed files
 API_SUITES = {"fig7_8": ((fig7_8.make_spec,), 27),
@@ -159,6 +160,8 @@ SHRINK = {
                             DISABLED_SIZES=dict(n_keys=3000, segments=2,
                                                 seg_queries=100))),
     "scenarios": (scenarios, dict(N_KEYS=2500, SEGMENTS=3, SEG_QUERIES=150)),
+    "faults": (faults, dict(N_KEYS=3000, QUERIES=300, REPS=1)),
+    "obs": (obs, dict(N_KEYS=4000, QUERIES=400, REPS=1)),
 }
 
 
@@ -226,11 +229,23 @@ UNCOMPARED = {
                       "memory_fleet.engine_s"), set()),
     "scenarios": (_times(_SCENARIOS_ROWS, "scenarios_fleet.tuning_s",
                          "scenarios_fleet.engine_s"), set()),
+    "faults": (_times(["faults_recovery", "faults_overhead"],
+                      "faults_overhead.overhead_ratio",
+                      "faults_overhead.overhead_pct",
+                      "faults_overhead.supervised_s",
+                      "faults_overhead.bare_s"), set()),
+    "obs": (_times(["obs_overhead", "obs_identity", "obs_calibration",
+                    "obs_trace", "obs_fleet"],
+                   "obs_overhead.overhead_ratio",
+                   "obs_overhead.enabled_engine_s",
+                   "obs_overhead.disabled_engine_s",
+                   "obs_fleet.engine_s"), set()),
 }
 
 
 @pytest.mark.parametrize("suite", SUITES)
 def test_suite_runs_through_the_runner_on_cpu(suite, monkeypatch, tmp_path):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")      # the faults workers'
     mod, sizes = SHRINK[suite]
     for name, value in sizes.items():
         assert hasattr(mod, name)
@@ -295,6 +310,11 @@ def test_runner_cli_prints_every_field_and_exits_on_a_miss(monkeypatch,
 
 def test_field_kinds_and_tolerance():
     assert run.field_kind("claim_speedup_ge_10x") == "time"
+    # the faults and obs suites' ratios of two wall times
+    assert run.field_kind("overhead_ratio") == "time"
+    assert run.field_kind("overhead_pct") == "time"
+    assert run.field_kind("overhead_bound") == "held"
+    assert run.field_kind("supervised_s") == "time"
     assert run.field_kind("claim_costs_match_1pct") == "held"
     assert run.field_kind("klsm_best") == "held"
     assert run.field_kind("max_rel_cost_diff_vs_anything") == "spread"
@@ -411,6 +431,34 @@ def test_compaction_reproduces_the_committed_file():
     assert cmp["missed"] == [] and cmp["spread"] == []
     assert len(cmp["held"]) == 32
     assert {f for f, *_ in cmp["time"]} == UNCOMPARED["compaction"][0]
+
+
+def test_obs_and_faults_recovery_reproduce_the_committed_files(monkeypatch):
+    """obs at its committed size on the CPU matches every one of its 18
+    held fields (no tuner: the exact engine, and calibration in float64
+    over it), and the faults suite's recovery leg at its committed size
+    (four trees of 30,000 keys, a crash and a corrupt result through two
+    CPU workers) every held field of its row; their specs are the JAX
+    package's, text for text."""
+    from benchmarks import bench_faults, bench_obs
+    assert faults.make_spec().to_json() == bench_faults.SPEC.to_json()
+    ref_chaos = dataclasses.replace(
+        bench_faults.SPEC, backend="subprocess",
+        backend_params=(("workers", 2), ("max_retries", 2),
+                        ("timeout_s", 300.0)), faults=bench_faults.CHAOS)
+    assert faults.chaos_spec(faults.make_spec()).to_json() \
+        == ref_chaos.to_json()
+    assert obs.make_spec().to_json() == bench_obs.SPEC.to_json()
+    result = run.run_suite("obs", device="cpu")
+    cmp = result["comparison"]
+    assert cmp["missed"] == [] and cmp["spread"] == []
+    assert len(cmp["held"]) == 18
+    assert {f for f, *_ in cmp["time"]} == UNCOMPARED["obs"][0]
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    row = faults.recovery_row(device="cpu")
+    base = _committed("faults")
+    cmp = run.compare([row], 0.0, dict(base, rows=base["rows"][:1]))
+    assert cmp["missed"] == [] and len(cmp["held"]) == 8
 
 
 # ---------------------------------------------------------------------------
