@@ -172,6 +172,23 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    ``kernel.dispatch.point_read.cuda`` counters; its calibration artifact
    validates its checksum and reads ``all_fitted_ge_hand`` true; and the
    faults and obs suites' ``overhead_ratio``, printed as times.
+13. ``train`` — the trainer (``repro_torch.launch.train``, which runs
+   ``attention_impl="plain"``: the prefill kernels have no backward, so
+   it must launch none of them): ``rwkv6-3b`` at its published width and
+   depth through ``train_loop`` and ``qwen3-14b`` at its published width
+   with its first 4 of 40 layers (full depth's training state is 177 GB)
+   through ``make_train_step``, each bf16 with ``remat="full"``, batch 8
+   x 512 tokens, 4 steps from the pipeline (each step's loss and gradient
+   norm finite, the walls after the first, tokens/s, peak memory, a
+   snapshotted weight moved; one profiled step: busy share, top kernels);
+   the reduced float32 models' 3 train steps on the card and the CPU
+   from the same weights and batches (losses rel 1e-5, gradient norms
+   rel 1e-4, parameters within 6 lr); and a checkpointed ``train_loop``
+   (reduced ``qwen3-14b``, 24 steps, a save every 2) with a restore of
+   the last save (bit for bit), whose manifest's ``dual_solve`` launches
+   must be one storm's 251 and whose ``merge`` and ``point_read``
+   launches, ``IOStats`` and shape must equal a CPU replay of its
+   operations.
 
 The build's ``ptxas`` report (registers and spills) for the bf16
 ``rwkv6`` kernel is printed on a line of its own.
@@ -290,6 +307,14 @@ CUDA_NAMES = {"dual_solve": "dual_solve_warm_kernel",
               "bloom_probe": "bloom_probe_kernel"}
 SERVE_REDUCED = False
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# the train phase: batch, sequence and steps of the full-width runs;
+# qwen3-14b's layers (of 40: its full depth's training state is 177 GB);
+# the card-against-CPU steps; the checkpointed run's steps and interval
+TRAIN_REDUCED = False
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
+TRAIN_QWEN_LAYERS = 4
+TRAIN_CHECK_STEPS = 3
+TRAIN_CKPT_STEPS, TRAIN_CKPT_INTERVAL = 24, 2
 CHECK_LAYERS, CHECK_PROMPT = 2, 256
 # the bloom phase: RocksDB's format_version=5 cache-local Bloom filter
 # (512-bit blocks, its default 10 bits per key) over 10 M keys, k from
@@ -942,6 +967,349 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
                           "f32_kernel_launches": f32_launches,
                           "max_abs_diff": diff, "max_abs_logit": top,
                           "rel": diff / top}}
+
+
+# -- phase 13: training (run last) ---------------------------------------------
+
+def _train_fields(mets, step_s, peak, tokens) -> dict:
+    """Per-step losses and gradient norms, the walls after the first, the
+    tokens a second over them, and the peak memory; checks each loss and
+    norm is finite."""
+    import math
+    losses = [m["loss"] for m in mets]
+    norms = [m["grad_norm"] for m in mets]
+    check(all(math.isfinite(v) for v in losses + norms),
+          f"a train loss or gradient norm is not finite: {losses} {norms}")
+    walls = step_s[1:]
+    return {"losses": losses, "grad_norms": norms, "step_s": step_s,
+            "tokens_per_s": tokens * len(walls) / sum(walls),
+            "peak_allocated_gb": peak / 1e9}
+
+
+def _moved(before: dict, params) -> dict:
+    """The share of each snapshotted leaf's entries that training changed
+    (a bf16 weight moves only where the update passes half its ulp)."""
+    out = {}
+    for name, b in before.items():
+        layer, part, leaf = name.split(".")
+        a = params["layers"][int(layer)][part][leaf]
+        out[name] = float((a.detach() != b).float().mean())
+    check(all(v > 0 for v in out.values()), f"parameters did not move: "
+          f"{out}")
+    return out
+
+
+SNAPSHOT = {"rwkv6-3b": ("0.mixer.wr", "0.mlp.wk"),
+            "qwen3-14b": ("0.mixer.wq", "0.mlp.wi_up")}
+
+
+def _snapshot(params, names) -> dict:
+    out = {}
+    for name in names:
+        layer, part, leaf = name.split(".")
+        out[name] = params["layers"][int(layer)][part][leaf].detach().clone()
+    return out
+
+
+def train_rwkv_full(torch, build, TT, adamw, DataConfig, shard_batch_at):
+    """``rwkv6-3b`` at its published width and depth through
+    ``train_loop`` (its init snapshotted for the moved check), then one
+    profiled step."""
+    arch = "rwkv6-3b"
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    log(f"train: {arch}, batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps")
+    before = {}
+    real = TT.build_model
+
+    def build_model(*args, **kw):
+        model = real(*args, **kw)
+        before.update(_snapshot(model.params, SNAPSHOT[arch]))
+        return model
+
+    TT.build_model = build_model
+    try:
+        out = TT.train_loop(arch, TRAIN_REDUCED, TRAIN_STEPS,
+                            seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                            tc=TT.TrainConfig(log_interval=1),
+                            device=DEVICE)
+    finally:
+        TT.build_model = real
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    kernels = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(not kernels, f"the trainer launched {kernels}: it runs 'plain'")
+    model, params, opt = out["api"], out["params"], out["opt_state"]
+    cfg = model.cfg
+    moved = _moved(before, params)
+    fields = _train_fields(out["metrics"], out["step_s"], peak,
+                           TRAIN_BATCH * TRAIN_SEQ)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batch = TT._prep_batch(shard_batch_at(dcfg, TRAIN_STEPS, 0, 1), model,
+                           DEVICE)
+    step = TT.make_train_step(model, adamw.AdamWConfig(), cfg)
+    log(f"train: {arch}, one profiled step")
+    prof = profile_device(torch, lambda: step(params, opt, batch))
+    n_params = sum(p.numel() for p in model.parameters())
+    del out, model, params, opt, batch, step, before
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "published_layers": cfg.num_layers, "d_model": cfg.d_model,
+            "params": n_params, "remat": cfg.remat,
+            "attention_impl": cfg.attention_impl, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "through": "train_loop",
+            "moved_share": moved, **fields, "profiled_step": prof}
+
+
+def train_qwen_cut(torch, build, TT, adamw, models, DataConfig,
+                   shard_batch_at):
+    """``qwen3-14b`` at its published width with its first
+    ``TRAIN_QWEN_LAYERS`` layers, through ``make_train_step`` on the
+    pipeline's batches, then one profiled step."""
+    arch = "qwen3-14b"
+    cfg = TT.train_config(arch, TRAIN_REDUCED)
+    published = cfg.num_layers
+    cfg = cfg.replace(num_layers=min(TRAIN_QWEN_LAYERS, published))
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    log(f"train: {arch}, {cfg.num_layers} of {published} layers")
+    model = models.build_model(cfg, DEVICE, seed=0)
+    model.requires_grad_(True)
+    params = model.params
+    before = _snapshot(params, SNAPSHOT[arch])
+    opt = adamw.init(params)
+    step = TT.make_train_step(model, adamw.AdamWConfig(
+        schedule=adamw.cosine_schedule(10, TRAIN_STEPS)), cfg)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    mets, step_s = [], []
+    for s in range(TRAIN_STEPS):
+        batch = TT._prep_batch(shard_batch_at(dcfg, s, 0, 1), model, DEVICE)
+        t0 = time.time()
+        params, opt, m = step(params, opt, batch)
+        mets.append({k: float(v) for k, v in m.items()})
+        step_s.append(time.time() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    kernels = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(not kernels, f"the trainer launched {kernels}: it runs 'plain'")
+    moved = _moved(before, params)
+    check(peak < 75e9, f"{arch} at {cfg.num_layers} layers peaks at "
+          f"{peak / 1e9:.1f} GB")
+    fields = _train_fields(mets, step_s, peak,
+                           TRAIN_BATCH * TRAIN_SEQ)
+    batch = TT._prep_batch(shard_batch_at(dcfg, TRAIN_STEPS, 0, 1), model,
+                           DEVICE)
+    log(f"train: {arch}, one profiled step")
+    prof = profile_device(torch, lambda: step(params, opt, batch))
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, params, opt, batch, step, before
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "published_layers": published,
+            "cut": "full depth needs 14.77 B params x 12 bytes (bf16 "
+                   "weights and gradients, float32 AdamW moments) = 177 GB "
+                   "of training state against the card's 80 GB",
+            "d_model": cfg.d_model, "params": n_params, "remat": cfg.remat,
+            "attention_impl": cfg.attention_impl, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+            "through": "make_train_step", "moved_share": moved,
+            **fields, "profiled_step": prof}
+
+
+def train_card_vs_cpu(torch, TT, adamw, models, DataConfig, shard_batch_at,
+                      tree):
+    """The reduced float32 model's ``TRAIN_CHECK_STEPS`` steps on the card
+    and on the CPU from the same weights and batches."""
+    out = {}
+    for arch in ("rwkv6-3b", "qwen3-14b"):
+        cfg = TT.train_config(arch, reduced=True)
+        init = models.build_model(cfg, "cpu", seed=0).params
+        runs = {}
+        for dev in ("cpu", DEVICE):
+            params = tree.tree_map(lambda t: t.detach().to(dev).clone(),
+                                   init)
+            model = models.LM(cfg, params, torch.device(dev))
+            model.requires_grad_(True)
+            params = model.params
+            opt = adamw.init(params)
+            step = TT.make_train_step(model, adamw.AdamWConfig(
+                schedule=adamw.cosine_schedule(10, 30)), cfg)
+            dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                              global_batch=8)
+            mets = []
+            for s in range(TRAIN_CHECK_STEPS):
+                batch = TT._prep_batch(shard_batch_at(dcfg, s, 0, 1), model,
+                                       dev)
+                params, opt, m = step(params, opt, batch)
+                mets.append({k: float(v) for k, v in m.items()})
+            runs[dev] = (mets, [p.detach().cpu()
+                                for p in tree.leaves(params)])
+        (cm, cp), (dm, dp) = runs["cpu"], runs[DEVICE]
+        loss_rel = max(abs(b["loss"] - a["loss"]) / abs(a["loss"])
+                       for a, b in zip(cm, dm))
+        norm_rel = max(abs(b["grad_norm"] - a["grad_norm"]) / a["grad_norm"]
+                       for a, b in zip(cm, dm))
+        param_abs = max(float((a - b).abs().max()) for a, b in zip(cp, dp))
+        # the tolerances of tests/test_torch_train.py (losses rel 1e-5,
+        # gradient norms rel 1e-4: sums in another order); AdamW normalises
+        # each coordinate, so a gradient near 0 that rounds differently on
+        # the two devices moves its weight by up to 2 lr a step: 3 steps,
+        # 6 lr
+        lr = adamw.AdamWConfig().lr
+        check(loss_rel <= 1e-5 and norm_rel <= 1e-4
+              and param_abs <= 2 * TRAIN_CHECK_STEPS * lr,
+              f"{arch} reduced train steps, card vs CPU: loss rel "
+              f"{loss_rel}, grad norm rel {norm_rel}, params {param_abs}")
+        out[arch] = {"steps": TRAIN_CHECK_STEPS, "loss_rel": loss_rel,
+                     "grad_norm_rel": norm_rel, "param_max_abs": param_abs,
+                     "param_tol": 2 * TRAIN_CHECK_STEPS * lr,
+                     "losses": [m["loss"] for m in dm]}
+    return out
+
+
+@contextlib.contextmanager
+def _manifest_ops():
+    """While open, record every manifest operation of the
+    ``CheckpointStore`` (each put's name and value, each get's name and
+    answer, each save's closing flush), in order."""
+    from repro_torch.checkpoint.store import CheckpointStore
+    ops = []
+    put, get, save = (CheckpointStore._mput, CheckpointStore._mget,
+                      CheckpointStore.save)
+
+    def mput(self, name, value):
+        ops.append(("put", name, value))
+        put(self, name, value)
+
+    def mget(self, name):
+        v = get(self, name)
+        ops.append(("get", name, v))
+        return v
+
+    def msave(self, *args, **kw):
+        save(self, *args, **kw)
+        ops.append(("flush",))
+
+    CheckpointStore._mput, CheckpointStore._mget, CheckpointStore.save = \
+        mput, mget, msave
+    try:
+        yield ops
+    finally:
+        CheckpointStore._mput, CheckpointStore._mget, CheckpointStore.save = \
+            put, get, save
+
+
+def _replay_manifest(cfg, ops) -> tuple:
+    """The recorded operations on a CPU manifest of the same tuning:
+    (the tree, the engine calls it made, whether every get answered as
+    the card's did)."""
+    import json
+
+    from repro_torch.checkpoint.store import _key_of
+    from repro_torch.lsm import LSMTree
+    tree = LSMTree(cfg, device="cpu")
+    same = True
+    with _engine_calls() as calls:
+        for op in ops:
+            if op[0] == "put":
+                tree.put(_key_of(op[1]), json.dumps(op[2]))
+            elif op[0] == "get":
+                v = tree.get(_key_of(op[1]))
+                same &= (None if v is None else json.loads(v)) == op[2]
+            else:
+                tree.flush()
+    return tree, dict(calls), same
+
+
+def train_checkpointed(torch, build, TT, convert, tree):
+    """The reduced ``qwen3-14b`` through ``train_loop`` on the card with a
+    checkpoint every ``TRAIN_CKPT_INTERVAL`` steps, then a restore of the
+    last one; the manifest's launches and state against a CPU replay of
+    its operations."""
+    import tempfile
+    arch = "qwen3-14b"
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as d, \
+            _manifest_ops() as ops:
+        build.reset_launches()
+        t0 = time.time()
+        out = TT.train_loop(arch, True, TRAIN_CKPT_STEPS, ckpt_dir=d,
+                            tc=TT.TrainConfig(
+                                ckpt_interval=TRAIN_CKPT_INTERVAL,
+                                log_interval=100), device=DEVICE)
+        cfg, store = out["api"].cfg, out["store"]
+        saved = convert.lm_params_to_reference(cfg, out["params"])
+        saved_opt = convert.adamw_state_to_reference(cfg, out["opt_state"])
+        back, meta = store.restore(saved)
+        back_opt = store.restore_opt_state(saved_opt)
+        hb = store.heartbeats(1)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: build.LAUNCHES[k] for k in ("dual_solve", "merge",
+                                                   "point_read")}
+    same_back = all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(saved) + tree.leaves(saved_opt),
+        tree.leaves(back) + tree.leaves(back_opt)))
+    check(same_back, "restore / restore_opt_state differ from the last "
+          "save")
+    check(meta["step"] == TRAIN_CKPT_STEPS - 1 and hb[0]["step"]
+          == TRAIN_CKPT_STEPS - 1, f"restore meta {meta}, heartbeats {hb}")
+    man = store.manifest
+    replay, calls, answers = _replay_manifest(man.cfg, ops)
+    check(answers, "the CPU replay's gets answered otherwise than the "
+          "card's")
+    check(replay.stats.as_dict() == man.stats.as_dict()
+          and replay.shape() == man.shape(),
+          f"manifest IOStats/shape, card {man.stats.as_dict()} "
+          f"{man.shape()} vs CPU {replay.stats.as_dict()} "
+          f"{replay.shape()}")
+    check(launches["dual_solve"] == STEPS + 1, f"dual_solve launched "
+          f"{launches['dual_solve']} times, one storm is {STEPS + 1}")
+    for k in ("merge", "point_read"):
+        check(launches[k] == calls[k] and calls[k] > 0, f"{k} launched "
+              f"{launches[k]} times, the CPU replay calls {calls[k]}")
+    saves = sum(op[0] == "flush" for op in ops)
+    return {"arch": cfg.name, "steps": TRAIN_CKPT_STEPS,
+            "ckpt_interval": TRAIN_CKPT_INTERVAL, "saves": saves,
+            "wall_s": wall, "launches": launches, "cpu_replay_calls": calls,
+            "manifest_ops": len(ops),
+            "puts": man.stats.queries["w"],
+            "pages_written": man.stats.comp_pages_written,
+            "shape": man.shape(), "io_stats_equal_cpu": True,
+            "tuning": {"T": man.cfg.T, "K": list(man.cfg.K),
+                       "buf_entries": man.cfg.buf_entries,
+                       "filter_bits_per_entry":
+                           man.cfg.mfilt_bits_per_entry},
+            "restore_bit_identical": True,
+            "final_loss": out["losses"][-1]}
+
+
+def phase_train(torch, build, models) -> dict:
+    """The trainer on the card: full-width ``rwkv6-3b`` and a 4-layer
+    ``qwen3-14b``, the reduced models card against CPU, and a
+    checkpointed run whose manifest runs the engine's kernels."""
+    from repro_torch import convert
+    from repro_torch.data.pipeline import DataConfig, shard_batch_at
+    from repro_torch.launch import train as TT
+    from repro_torch.optim import adamw
+    from repro_torch.utils import tree
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    rwkv = train_rwkv_full(torch, build, TT, adamw, DataConfig,
+                           shard_batch_at)
+    qwen = train_qwen_cut(torch, build, TT, adamw, models, DataConfig,
+                          shard_batch_at)
+    log("train: reduced models, card vs CPU")
+    parity = train_card_vs_cpu(torch, TT, adamw, models, DataConfig,
+                               shard_batch_at, tree)
+    log("train: checkpointed run")
+    ckpt = train_checkpointed(torch, build, TT, convert, tree)
+    return {"phase": "train", "wall_s": time.time() - t0,
+            "runs": [rwkv, qwen], "card_vs_cpu": parity,
+            "checkpointed": ckpt}
 
 
 # -- phase 4: the blocked-Bloom probe ------------------------------------------
@@ -2869,6 +3237,9 @@ def main(argv=None) -> int:
     emit(phase_robust_sharding(torch))
     emit(phase_faults(torch, build))
     emit(phase_obs(build, suite_lines))
+    # last, so that its tens of thousands of launches precede no timed
+    # trace of the phases above
+    emit(phase_train(torch, build, models))
     keyset = ("name", "route", "source", "replaces", "launches",
               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")

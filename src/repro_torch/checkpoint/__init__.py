@@ -1,9 +1,9 @@
-"""ENDURE-tuned manifests and the batched re-tune storm (the port of
-``repro.checkpoint``, its tuning half; ``CheckpointStore`` waits for the
-trainer, ROADMAP.md queue 6)."""
+"""Checkpointing with ENDURE-tuned manifests and the batched re-tune
+storm (the port of ``repro.checkpoint``)."""
 
-from .store import (framework_storage_workload, retune_storm,
-                    tuned_manifest_tree, tuned_manifest_trees)
+from .store import (CheckpointStore, framework_storage_workload,
+                    retune_storm, tuned_manifest_tree,
+                    tuned_manifest_trees)
 
-__all__ = ["framework_storage_workload", "retune_storm",
-           "tuned_manifest_tree", "tuned_manifest_trees"]
+__all__ = ["CheckpointStore", "framework_storage_workload",
+           "retune_storm", "tuned_manifest_tree", "tuned_manifest_trees"]

@@ -1,5 +1,5 @@
-"""ENDURE-tuned LSM manifests and the storm-batched re-tune path: the tuning
-half of ``repro/checkpoint/store.py``.
+"""Checkpointing with an ENDURE-tuned LSM manifest, and the storm-batched
+re-tune path: the port of ``repro/checkpoint/store.py``.
 
 The framework derives an expected storage workload mix from a run's
 behaviour (checkpoint writes vs. restore reads vs. manifest scans) and an
@@ -9,22 +9,43 @@ path, :func:`retune_storm`: the online drift loop's triggers
 (:mod:`repro_torch.online.retune`) and a fleet of manifests re-deriving
 their tunings alike.
 
-``CheckpointStore`` — tensor shards written as ``.npy`` files with their
-metadata in a tuned manifest tree, restored elastically — saves a trainer's
-state; it waits for the trainer it serves (ROADMAP.md queue 6: the rest of
-the LM tier).
+:class:`CheckpointStore` saves a trainer's state: tensors as flat
+``.npy`` files (the optimizer state as one ``opt_state.npz``) and all
+metadata (per-tensor entries, the step registry, the data cursor,
+heartbeats) in a :func:`tuned_manifest_tree` on the caller's device, so
+every save's flush runs the engine's ``merge`` and every lookup its
+``point_read`` there.  Its files, their names and bytes, and its manifest
+entries are the reference's for the same tree: a leaf is named as
+``jax.tree_util.keystr`` names its path (:mod:`repro_torch.utils.tree`),
+``opt_state.npz``'s ``s<i>`` follow the reference's leaf order, bfloat16
+is widened to float32 on save and cast back on restore, and each file is
+written atomically before the ``latest`` pointer flips.
+
+Like the reference, a new store starts with an empty, in-memory manifest:
+``CheckpointStore.create`` on a directory that holds checkpoints sees none
+(``latest_step()`` is None), so a trainer that "resumes" through a new
+store starts from step 0.  The port keeps that semantics on purpose
+(persisting the manifest would be a feature the JAX package lacks).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
-from typing import Any, Dict, Sequence
+import io
+import json
+import pathlib
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .. import obs
 from ..core import LSMSystem, tune_robust_many
+from ..faults import atomic_write_bytes
+from ..kernels._compat import resolve_device
 from ..lsm import LSMTree
+from ..utils.tree import leaves, leaves_with_path, unflatten_like
 
 
 def _key_of(name: str) -> int:
@@ -149,3 +170,155 @@ def tuned_manifest_tree(expected_entries: int = 50_000,
                                       ckpt_interval=ckpt_interval,
                                       restore_prob=restore_prob, rho=rho)],
                                 seed=seed, device=device)[0]
+
+
+_STORED = ("float32", "float64", "int32", "int64", "uint32", "uint64",
+           "bool")
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    """A leaf (a tensor on any device, or an array) as a host numpy array,
+    bfloat16 widened to float32 (numpy has no bfloat16)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(leaf)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
+def _restored(arr: np.ndarray, like, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, order="C")).to(
+        device=device, dtype=_torch_dtype(like.dtype))
+
+
+@dataclasses.dataclass
+class CheckpointStore:
+    root: pathlib.Path
+    manifest: LSMTree
+
+    @classmethod
+    def create(cls, root: str, device=None,
+               **tuning_kw) -> "CheckpointStore":
+        """A store at ``root`` with a new ENDURE-tuned manifest on
+        ``device`` (the card unless ``"cpu"``); ``tuning_kw`` are
+        :func:`tuned_manifest_tree`'s."""
+        p = pathlib.Path(root)
+        p.mkdir(parents=True, exist_ok=True)
+        dev = resolve_device(device)
+        return cls(root=p, manifest=tuned_manifest_tree(device=dev,
+                                                        **tuning_kw))
+
+    # -- manifest KV helpers --------------------------------------------
+
+    def _mput(self, name: str, value: Dict[str, Any]) -> None:
+        self.manifest.put(_key_of(name), json.dumps(value))
+
+    def _mget(self, name: str) -> Optional[Dict[str, Any]]:
+        v = self.manifest.get(_key_of(name))
+        return None if v is None else json.loads(v)
+
+    # -- save / restore ----------------------------------------------------
+
+    @staticmethod
+    def _write_array(path: pathlib.Path, arr: np.ndarray) -> None:
+        """One tensor file, atomically: serialize to memory, then temp +
+        ``os.replace`` — a crash mid-save can leave an *unreferenced* file,
+        never a torn ``.npy`` at a path the manifest points to."""
+        buf = io.BytesIO()
+        np.save(buf, arr)
+        atomic_write_bytes(str(path), buf.getvalue())
+
+    @staticmethod
+    def _write_npz(path: pathlib.Path, arrays: Dict[str, np.ndarray]) -> None:
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        atomic_write_bytes(str(path), buf.getvalue())
+
+    def save(self, step: int, params: Any, opt_state: Any = None,
+             data_state: Optional[Dict[str, int]] = None) -> None:
+        """Write one checkpoint crash-safely.
+
+        Every tensor file and per-step manifest entry lands *before* the
+        ``latest`` pointer flips, and each file write is atomic — so a save
+        interrupted anywhere leaves ``latest_step()`` on the previous fully
+        written checkpoint.  ``params`` and ``opt_state`` are trees of
+        tensors or arrays; a trainer passes the reference's layout
+        (``convert.lm_params_to_reference``)."""
+        ckdir = self.root / f"step_{step:08d}"
+        ckdir.mkdir(parents=True, exist_ok=True)
+        names = []
+        for name, leaf in leaves_with_path(params):
+            arr = _to_numpy(leaf)
+            if arr.dtype.name not in _STORED:
+                arr = arr.astype(np.float32)  # bf16 etc: store widened
+            fname = hashlib.md5(name.encode()).hexdigest() + ".npy"
+            self._write_array(ckdir / fname, arr)
+            self._mput(f"tensor/{step}/{name}", {
+                "file": fname, "shape": list(arr.shape),
+                "dtype": str(arr.dtype)})
+            names.append(name)
+        extras: Dict[str, Any] = {"names": names, "step": step}
+        if data_state is not None:
+            extras["data_state"] = data_state
+        self._mput(f"ckpt/{step}", extras)
+        if opt_state is not None:
+            self._write_npz(ckdir / "opt_state.npz", {
+                f"s{i}": _to_numpy(leaf)
+                for i, leaf in enumerate(leaves(opt_state))})
+        # the commit point: everything above must already be durable
+        self._mput("latest", {"step": step})
+        self.manifest.flush()
+
+    def latest_step(self) -> Optional[int]:
+        v = self._mget("latest")
+        return None if v is None else int(v["step"])
+
+    def restore(self, params_like: Any, step: Optional[int] = None,
+                device=None) -> Tuple[Any, Dict[str, Any]]:
+        """The checkpoint of ``step`` (default: the latest) in
+        ``params_like``'s structure, each leaf a tensor of its ``like``'s
+        shape and dtype (a torch or numpy dtype) on ``device`` (default:
+        the manifest's), and the step's metadata.  ``device`` stands in for
+        the reference's ``shardings``: one card holds every leaf whole."""
+        step = self.latest_step() if step is None else step
+        assert step is not None, "no checkpoint found"
+        meta = self._mget(f"ckpt/{step}")
+        assert meta is not None, f"manifest missing ckpt/{step}"
+        dev = self.manifest.device if device is None else device
+        ckdir = self.root / f"step_{step:08d}"
+        out = []
+        for name, like in leaves_with_path(params_like):
+            info = self._mget(f"tensor/{step}/{name}")
+            assert info is not None, f"manifest missing {name}"
+            arr = np.load(ckdir / info["file"])
+            assert list(arr.shape) == list(like.shape), (name, arr.shape,
+                                                         like.shape)
+            out.append(_restored(arr, like, dev))
+        return unflatten_like(params_like, out), meta
+
+    def restore_opt_state(self, opt_like: Any, step: Optional[int] = None,
+                          device=None) -> Any:
+        step = self.latest_step() if step is None else step
+        dev = self.manifest.device if device is None else device
+        z = np.load(self.root / f"step_{step:08d}" / "opt_state.npz")
+        out = [_restored(z[f"s{i}"], like, dev) if hasattr(like, "dtype")
+               else z[f"s{i}"] for i, like in enumerate(leaves(opt_like))]
+        return unflatten_like(opt_like, out)
+
+    # -- health / straggler bookkeeping (elastic.py reads these) -----------
+
+    def heartbeat(self, worker: int, step: int, t: float) -> None:
+        self._mput(f"hb/{worker}", {"step": step, "t": t})
+
+    def heartbeats(self, workers: int) -> Dict[int, Dict[str, Any]]:
+        out = {}
+        for w in range(workers):
+            v = self._mget(f"hb/{w}")
+            if v is not None:
+                out[w] = v
+        return out

@@ -16,7 +16,14 @@ field) and passes them in.
   its stacked layers split into the port's list of per-layer dicts; every
   leaf keeps its dtype (RWKV's float32 ``w_base`` and ``u`` in a bfloat16
   model stay float32) and every sub-dict (``mixer``, ``mlp``) comes
-  along.
+  along.  :func:`lm_params_from_reference` does the same from the
+  reference's layout in torch tensors.
+* :func:`lm_params_to_reference` and :func:`lm_params_to_numpy` — the
+  way back: the port's per-layer list stacked into the reference's
+  ``{"layers": {"sub<j>": ...}}`` tree, as tensors or as numpy arrays
+  (bfloat16 widened to float32, as the reference's checkpoints store it).
+* :func:`adamw_state_from_numpy` / :func:`adamw_state_to_reference` — an
+  ``AdamWState`` (step, ``mu``, ``nu``) carried across the same way.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from .core.lsm_cost import Phi
 from .kernels._compat import resolve_device
 from .lsm.engine import EngineConfig, IOStats, LSMTree
 from .lsm.store import LevelStore, RunData
+from .optim.adamw import AdamWState
+from .utils.tree import tree_map
 from .utils.u64 import to_device_keys
 
 
@@ -116,16 +125,88 @@ def lm_params_from_numpy(cfg: ModelConfig, params_np: Mapping[str, Any],
     leading axis of ``cfg.n_repeats``) split into one dict per layer, in
     execution order (repeat r, pattern entry j -> layer r * len(pattern) +
     j).  On ``device`` (the card unless ``"cpu"``)."""
-    if params_np.get("prelude"):
+    tensors = {name: _map_tree(lambda a: _tensor(a, "cpu"), params_np[name])
+               for name in ("embed", "final_norm", "lm_head", "layers")
+               if name in params_np}
+    tensors["prelude"] = params_np.get("prelude")
+    return lm_params_from_reference(cfg, tensors, device)
+
+
+def lm_params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any],
+                             device=None) -> Dict[str, Any]:
+    """The port's parameter tree from the reference's layout in torch
+    tensors (a restored checkpoint): each layer's leaves a copy of its row
+    of the stacked ones, on ``device`` (the card unless ``"cpu"``)."""
+    if tree.get("prelude"):
         raise NotImplementedError("prelude layers come with DeepSeek-MoE "
                                   "(ROADMAP.md queue 1 item 6)")
     dev = resolve_device(device)
     out: Dict[str, Any] = {
-        name: _map_tree(lambda a: _tensor(a, dev), params_np[name])
-        for name in ("embed", "final_norm", "lm_head") if name in params_np}
-    groups = params_np["layers"]
+        name: _map_tree(lambda a: a.to(dev), tree[name])
+        for name in ("embed", "final_norm", "lm_head") if name in tree}
+    groups = tree["layers"]
     out["layers"] = [
-        _map_tree(lambda a, r=r: _tensor(np.asarray(a)[r], dev),
-                  groups[f"sub{j}"])
+        _map_tree(lambda a, r=r: a[r].to(dev).clone(), groups[f"sub{j}"])
         for r in range(cfg.n_repeats) for j in range(len(cfg.pattern))]
     return out
+
+
+def _stack(items: Sequence[Any]):
+    if isinstance(items[0], Mapping):
+        return {k: _stack([it[k] for it in items]) for k in items[0]}
+    return torch.stack(list(items))
+
+
+def lm_params_to_reference(cfg: ModelConfig,
+                           params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's ``init_lm`` layout of the port's parameters, in
+    torch tensors: ``embed``, ``final_norm``, ``lm_head`` as they are, an
+    empty ``prelude``, and ``layers/sub<j>/...`` stacked (layer r *
+    len(pattern) + j is row r of ``sub<j>``)."""
+    n_pat = len(cfg.pattern)
+    out: Dict[str, Any] = {name: params[name]
+                           for name in ("embed", "final_norm", "lm_head")
+                           if name in params}
+    out["prelude"] = []
+    out["layers"] = {f"sub{j}": _stack(params["layers"][j::n_pat])
+                     for j in range(n_pat)}
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_params_to_numpy(cfg: ModelConfig,
+                       params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`lm_params_from_numpy`: the reference's layout
+    in numpy arrays, bfloat16 leaves widened to float32."""
+    return tree_map(_numpy, lm_params_to_reference(cfg, params))
+
+
+def adamw_state_from_numpy(cfg, state, device=None) -> AdamWState:
+    """A reference ``AdamWState`` (``np.asarray`` on each leaf) as the
+    port's: ``step`` a 0-d int32 tensor, ``mu``/``nu`` in the port's
+    parameter layout when ``cfg`` is an LM config (else the same tree),
+    on ``device``."""
+    dev = resolve_device(device)
+    if cfg is None:
+        mu, nu = (tree_map(lambda a: _tensor(a, dev), m)
+                  for m in (state.mu, state.nu))
+    else:
+        mu, nu = (lm_params_from_numpy(cfg, m, dev)
+                  for m in (state.mu, state.nu))
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamWState(step=step, mu=mu, nu=nu)
+
+
+def adamw_state_to_reference(cfg: ModelConfig,
+                             state: AdamWState) -> AdamWState:
+    """An LM's ``AdamWState`` with ``mu``/``nu`` in the reference's layout
+    (stacked layers): the tree whose leaves, in order, a checkpoint's
+    ``opt_state.npz`` numbers."""
+    return AdamWState(step=state.step,
+                      mu=lm_params_to_reference(cfg, state.mu),
+                      nu=lm_params_to_reference(cfg, state.nu))

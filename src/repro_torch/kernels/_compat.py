@@ -21,3 +21,14 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available: pass device='cpu' to run the port's "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def refuse_gradient(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires a
+    gradient: a forward-only kernel would drop it on the card, so the CPU
+    refuses it too."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel (nor has the JAX package's "
+            "Pallas kernel): train with attention_impl='plain', the JAX "
+            "package's 'xla'")

@@ -14,6 +14,11 @@ the strides itself (no GQA expansion, no transpose):
 For CPU tensors it takes the plain version (``ref.flash_attention_ref``).
 Any other device raises, and so does a CUDA tensor that neither kernel
 takes: nothing falls back.
+
+The kernels compute the forward pass only, as the JAX package's Pallas
+kernel does, so a call that autograd would differentiate raises on every
+device (:func:`refuse_gradient`): training takes
+``attention_impl="plain"``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from .. import _build
 from .._build import F32, I32, I64, P
+from .._compat import refuse_gradient
 from .ref import flash_attention_ref
 
 # q, k, v, o; 12 strides; B, S, Sk, H, KV, d, causal, window; scale; dtype;
@@ -76,6 +82,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         "of one dtype")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
+    refuse_gradient("flash_attention", q, k, v)
     dev = q.device
     if k.device != dev or v.device != dev:
         raise ValueError("flash_attention: tensors on different devices")

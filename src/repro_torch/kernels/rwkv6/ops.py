@@ -16,7 +16,10 @@ of u, which the JAX wrapper (``ops.py:18``) makes for the TPU):
 
 For CPU tensors it takes the plain version (``ref.rwkv6_ref``, the
 per-step recurrence).  Any other device raises, and so does a CUDA tensor
-that neither kernel takes: nothing falls back.
+that neither kernel takes: nothing falls back.  Like the JAX package's
+Pallas kernel, both compute the forward pass only: a call that autograd
+would differentiate raises on every device (training takes
+``attention_impl="plain"``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from .. import _build
 from .._build import I32, I64, P
+from .._compat import refuse_gradient
 from .ref import rwkv6_ref
 
 # r, k, v, logw, u, y, state; 12 strides; B, S, H, n; stream (both entries)
@@ -78,6 +82,7 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if c < 1 or S % c:
         raise ValueError(f"rwkv6: sequence length {S} is not a multiple of "
                          f"the chunk {c}")
+    refuse_gradient("rwkv6", r, k, v, logw, u)
     dev = r.device
     if any(t.device != dev for t in (k, v, logw, u)):
         raise ValueError("rwkv6: tensors on different devices")

@@ -1,1 +1,2 @@
-"""Launchers: ``serve`` (batched prefill + greedy decode)."""
+"""Launchers: ``serve`` (batched prefill + greedy decode), ``train`` (the
+training loop) and ``elastic`` (the failure / straggler policy)."""

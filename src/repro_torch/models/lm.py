@@ -1,5 +1,5 @@
 """Decoder-only LM assembly: blocks, the layer loop, the decode cache,
-and the prefill / decode entry points.
+and the train / prefill / decode entry points.
 
 The port of the ``attn``/``rwkv`` mixer and ``dense``/``rwkv_ffn`` MLP
 branches of ``repro/models/lm.py``; any pairing of them is a block.
@@ -10,18 +10,31 @@ The cache is a list with one dict per layer: ``{"mixer": {"k", "v"}}`` for
 attention, ``{"mixer": {"state", "x_prev"}}`` for the RWKV time mix, and
 ``"mlp": {"x_prev"}`` beside it for the RWKV channel mix.
 
+Training: :func:`lm_loss` is the next-token cross entropy
+(:func:`softmax_xent`, with ``cfg.logits_chunk`` > 0 a streaming
+logsumexp over vocabulary chunks), and ``apply_stack``'s ``"train"`` mode
+wraps each layer in ``cfg.remat``: ``"none"``; ``"full"``,
+``torch.utils.checkpoint`` around the layer (the JAX package's
+``jax.checkpoint`` around the scanned group, which here is one layer a
+pattern entry); ``"dots"``, a selective checkpoint that keeps the outputs
+of plain matrix products (``aten.mm``/``aten.addmm``) and recomputes the
+rest (its ``dots_with_no_batch_dims_saveable``).
+
 The ``mamba`` and ``moe`` kinds, prelude layers and stub-embedding inputs
-raise ``NotImplementedError`` naming their ROADMAP.md item;
-``lm_loss`` and ``softmax_xent`` wait for the training slice.  Without MoE
+raise ``NotImplementedError`` naming their ROADMAP.md item.  Without MoE
 there is no auxiliary loss, so :func:`apply_block` and :func:`apply_stack`
-return none.
+return none and :func:`lm_loss`'s ``aux`` is 0.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from . import rwkv as rwkv_mod
@@ -171,16 +184,47 @@ def _unembed_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
 # Stack application
 # ---------------------------------------------------------------------------
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of plain (batch-free) matrix products."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn(x) -> x`` wrapped in ``cfg.remat``'s checkpoint policy."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return lambda x: checkpoint(fn, x, use_reentrant=False,
+                                    context_fn=ctx)
+    if cfg.remat == "full":
+        return lambda x: checkpoint(fn, x, use_reentrant=False)
+    raise ValueError(f"remat {cfg.remat!r}: none|dots|full")
+
+
 def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 mode: str, cache: Optional[List[Params]] = None,
                 pos: Optional[int] = None,
                 positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[Params]]:
-    """Every layer in order.  Returns (x, new_cache), one entry a layer."""
+    """Every layer in order.  Returns (x, new_cache), one entry a layer;
+    in ``"train"`` mode each layer runs under ``cfg.remat`` and the cache
+    is empty."""
     _check_cfg(cfg)
     kinds = tuple(cfg.pattern) * cfg.n_repeats
     new_cache: List[Params] = []
     for i, (p, kind) in enumerate(zip(params["layers"], kinds)):
+        if mode == "train":
+            def layer(h, p=p, kind=kind):
+                return apply_block(p, h, kind, cfg, mode,
+                                   positions=positions)[0]
+            x = _remat(layer, cfg)(x)
+            continue
         c = cache[i] if cache is not None else None
         x, nc = apply_block(p, x, kind, cfg, mode, c, pos, positions)
         new_cache.append(nc)
@@ -196,6 +240,59 @@ def embed_tokens(params: Params, batch: Dict[str, torch.Tensor],
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     return x, positions
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
+                 labels: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross entropy. ``cfg.logits_chunk`` > 0 computes the
+    logsumexp over vocab chunks (a running max and sum, as the JAX package
+    does) so that (B, S, V) is never materialised in one piece."""
+    B, S, d = h.shape
+    V = unembed.shape[1]
+    chunk = cfg.logits_chunk
+    labels = labels.long()
+    if chunk <= 0 or chunk >= V:
+        logits = (h @ unembed).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return torch.mean(lse - ll)
+
+    n_chunks = -(-V // chunk)
+    m = torch.full((B, S), -math.inf, dtype=torch.float32, device=h.device)
+    s = torch.zeros((B, S), dtype=torch.float32, device=h.device)
+    ll = torch.zeros((B, S), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        lo = i * chunk
+        w = unembed[:, lo:lo + chunk]
+        lg = (h @ w).float()
+        m_new = torch.maximum(m, lg.amax(-1))
+        s = s * torch.exp(m - m_new) \
+            + torch.exp(lg - m_new[..., None]).sum(-1)
+        m = m_new
+        in_chunk = (labels >= lo) & (labels < lo + w.shape[1])
+        idx = torch.clamp(labels - lo, 0, w.shape[1] - 1)
+        ll = ll + torch.where(
+            in_chunk, torch.gather(lg, -1, idx[..., None])[..., 0], 0.0)
+    lse = m + torch.log(s)
+    return torch.mean(lse - ll)
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, aux_weight: float = 0.01):
+    """Training loss (+ metrics). batch: tokens + labels (B, S).
+    Returns (loss, {"xent", "aux"}); ``aux`` is 0 (no MoE block)."""
+    x, positions = embed_tokens(params, batch, cfg)
+    x, _ = apply_stack(params, x, cfg, "train", positions=positions)
+    x = apply_norm(params["final_norm"], x, cfg)
+    xent = softmax_xent(x, _unembed_matrix(params, cfg), batch["labels"],
+                        cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    loss = xent + aux_weight * aux
+    return loss, {"xent": xent, "aux": aux}
 
 
 def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],

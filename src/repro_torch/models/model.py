@@ -3,12 +3,17 @@
 The port of ``repro/models/model.py::build_model`` for decoder-only
 configs whose blocks ``lm.py`` ports (attention or RWKV-6 time mix, dense
 or RWKV channel-mix MLPs).  :class:`LM` holds the parameters of
-``lm.init_lm``'s dict tree as (frozen) ``nn.Parameter``s, so
-``state_dict`` and ``named_parameters`` see them, and exposes the
-serving entry points ``prefill``, ``decode_step`` and ``init_cache`` over
-the functions of ``lm.py``.
-Training (``loss_fn``) and the dry run's ``input_specs`` wait for their
-slices.
+``lm.init_lm``'s dict tree as ``nn.Parameter``s, so ``state_dict`` and
+``named_parameters`` see them, and exposes the reference's entry points
+over the functions of ``lm.py``: ``loss_fn`` (``ModelAPI.loss_fn``) for
+training, and ``prefill``, ``decode_step`` and ``init_cache`` for serving.
+
+The parameters are built frozen (``requires_grad=False``); a trainer calls
+``model.requires_grad_(True)`` and takes ``model.params``, whose leaves
+then take gradients.  ``prefill`` and ``decode_step`` run under
+``torch.no_grad`` either way.  The dry run's ``input_specs`` and
+``param_specs`` (``jax.eval_shape`` stand-ins for a TPU-mesh compile) wait
+for the mesh modules (ROADMAP.md queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -59,6 +64,11 @@ class LM(nn.Module):
     def params(self) -> Params:
         """The parameters as ``lm.py``'s dict tree (the same tensors)."""
         return _tree(self.tree)
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """(loss, {"xent", "aux"}) of ``batch`` (tokens, labels (B, S))
+        under ``params`` (``lm.lm_loss``)."""
+        return lm_mod.lm_loss(params, batch, self.cfg)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):

@@ -1092,3 +1092,80 @@ def test_subprocess_chaos_on_card_matches_inline_and_cpu(dev):
         api.execute_trial(plan, [plan.trees[t] for t in shard], device=dev)
     assert {k: _build.LAUNCHES[k] for k in worker_launches} \
         == worker_launches
+
+
+def _reduced_train_state(arch, device):
+    from repro_torch.launch import train as TT
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw
+    from repro_torch.utils.tree import tree_map
+    cfg = TT.train_config(arch, reduced=True)
+    params = tree_map(lambda t: t.detach().to(device).clone(),
+                      build_model(cfg, "cpu", seed=0).params)
+    model = LM(cfg, params, torch.device(device))
+    model.requires_grad_(True)
+    opt_cfg = adamw.AdamWConfig(schedule=adamw.cosine_schedule(10, 30))
+    step = TT.make_train_step(model, opt_cfg, cfg)
+    return cfg, model, step, adamw.init(model.params)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-3b"])
+def test_reduced_train_steps_on_card_match_cpu(dev, arch):
+    """Three float32 train steps of the reduced model from the same
+    weights and batches: losses rel 1e-5, gradient norms rel 1e-4 (sums in
+    another order), parameters within 6 lr (3 steps of AdamW, which moves a
+    weight whose gradient rounds differently by up to 2 lr a step)."""
+    from repro_torch.data.pipeline import DataConfig, shard_batch_at
+    from repro_torch.launch import train as TT
+    from repro_torch.utils.tree import leaves
+    runs = {}
+    for device in ("cpu", "cuda"):
+        cfg, model, step, opt = _reduced_train_state(arch, device)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                          global_batch=4)
+        params, mets = model.params, []
+        _build.reset_launches()
+        for s in range(3):
+            batch = TT._prep_batch(shard_batch_at(dcfg, s, 0, 1), model,
+                                   device)
+            params, opt, m = step(params, opt, batch)
+            mets.append({k: float(v) for k, v in m.items()})
+        assert not any(_build.LAUNCHES.values())     # "plain": no kernel
+        runs[device] = (mets, [p.detach().cpu() for p in leaves(params)])
+    for a, b in zip(runs["cpu"][0], runs["cuda"][0]):
+        assert b["loss"] == pytest.approx(a["loss"], rel=1e-5)
+        assert b["grad_norm"] == pytest.approx(a["grad_norm"], rel=1e-4)
+    for a, b in zip(runs["cpu"][1], runs["cuda"][1]):
+        torch.testing.assert_close(b, a, atol=6 * 3e-4, rtol=0)
+
+
+def test_checkpoint_store_on_card_matches_cpu(dev, tmp_path):
+    """A store on the card (its manifest tuned and run there) and one on
+    the CPU with the card's tuning: the same saves and lookups give the
+    same ``IOStats``, shape and entries, through the card's ``merge`` and
+    ``point_read`` launches."""
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.lsm import LSMTree
+    card = CheckpointStore.create(str(tmp_path / "card"), device=dev)
+    cpu = CheckpointStore(root=tmp_path / "cpu", manifest=LSMTree(
+        card.manifest.cfg, device="cpu"))
+    cpu.root.mkdir()
+    gen = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(8, 4, generator=gen),
+            "layers": [{"a": torch.randn(3, generator=gen)}
+                       for _ in range(20)]}
+    _build.reset_launches()
+    for step in range(12):
+        for s in (card, cpu):
+            s.heartbeat(0, step, float(step))
+            s.save(step, tree, data_state={"step": step + 1})
+        assert card.manifest.stats.as_dict() == cpu.manifest.stats.as_dict()
+        assert card.manifest.shape() == cpu.manifest.shape()
+    assert _build.LAUNCHES["merge"] > 0
+    assert card.latest_step() == cpu.latest_step() == 11
+    assert _build.LAUNCHES["point_read"] > 0
+    back, meta = card.restore(tree)
+    assert meta == cpu.restore(tree)[1]
+    assert back["w"].device.type == "cuda"
+    assert torch.equal(back["w"].cpu(), tree["w"])
+    assert card.manifest.stats.as_dict() == cpu.manifest.stats.as_dict()

@@ -421,6 +421,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"retry.py", "artifacts.py", "spec.py"} <= by_dir["faults"]
     assert {"core.py", "trace.py", "calibrate.py"} <= by_dir["obs"]
     assert {"faults.py", "obs.py"} <= by_dir["bench"]
+    assert {"pipeline.py"} <= by_dir["data"]
+    assert {"adamw.py", "compression.py"} <= by_dir["optim"]
+    assert {"train.py", "elastic.py", "serve.py"} <= by_dir["launch"]
+    assert {"tree.py"} <= by_dir["utils"]
+    assert "train_lm.py" in by_dir["repro_torch"]
     for path in files:
         roots = set(_imported_roots(path))
         bad = roots & {"jax", "jaxlib", "repro", "flax", "optax",

@@ -90,10 +90,10 @@ def test_exports_are_the_reference_s_but_memory_arbitration():
         == [f.name for f in dataclasses.fields(RO.DriftPolicy)]
     assert TO.DriftPolicy() == TO.DriftPolicy(**dataclasses.asdict(
         RO.DriftPolicy()))
+    import repro.checkpoint as rcheck
     import repro_torch.checkpoint as tcheck
-    assert set(tcheck.__all__) == {"framework_storage_workload",
-                                   "retune_storm", "tuned_manifest_tree",
-                                   "tuned_manifest_trees"}
+    assert set(tcheck.__all__) == set(rcheck.__all__)
+    assert all(hasattr(tcheck, name) for name in tcheck.__all__)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
