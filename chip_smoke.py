@@ -27,17 +27,20 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    bit-identical on the CPU and the card (counting the card's ``merge``
    and ``point_read`` launches).
 3. ``serve`` — the LM server, once per architecture of ``SERVE``: the
-   dense ``qwen3-14b`` (40 layers, d_model 5120, 14.8 B parameters) and
-   the attention-free ``rwkv6-3b`` (32 layers, d_model 2560, 3.1 B), each
-   at its published width and depth in bfloat16 from the port's seeded
-   init on the card, ``serve_batch`` with batch 4, prompt 2048 and 32
-   greedy tokens, counting its prefill kernel's launches
+   dense ``qwen3-14b`` (40 layers, d_model 5120, 14.8 B parameters), the
+   attention-free ``rwkv6-3b`` (32 layers, d_model 2560, 3.1 B) and the
+   mixture-of-experts ``deepseek-moe-16b`` (28 layers: a dense prelude
+   layer, then 27 of 64 routed experts, top-6, and 2 shared ones; d_model
+   2048, 16.4 B), each at its published width and depth in bfloat16 from
+   the port's seeded init on the card, ``serve_batch`` with batch 4,
+   prompt 2048 and 32 greedy tokens, counting its prefill kernel's launches
    (``flash_attention`` or ``rwkv6``, one per layer of the prefill, each
    on the bf16 tensor-core kernel); a
    profiled prefill and four profiled decode steps (device busy share,
    kernels by device time, and the prefill kernel's share of the device
-   time); and the first 2 layers of the same weights in
-   float32 at prompt 256, whose last-position prefill logits through the
+   time); and the first 2 layers of the same weights (deepseek's prelude
+   and its first MoE layer) in float32 at prompt 256, whose last-position
+   prefill logits through the
    kernel and through the plain path (materialised attention, or the
    chunked WKV in torch ops) must agree to 1e-3 of the largest logit
    (counting the float32 kernels' launches).
@@ -135,7 +138,14 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    keys and two sessions), counting its kernels' launches; then its
    ``TrialPlan`` through ``execute_trial`` on the card and on the CPU:
    every tree's ``IOStats``, I/O per query and ``TreeProbe`` bit-identical,
-   with the card trial's ``merge`` and ``point_read`` launches.
+   with the card trial's ``merge`` and ``point_read`` launches.  Then
+   ``robust_serving``: ``python -m repro_torch.robust_serving``'s spec
+   (the port of ``examples/robust_serving.py``: ZippyDB-like, rho 0.25 /
+   1 / 2 and nominal, the klsm and lazy_leveling arms, 32 starts x 150
+   steps, the sharded backend) on the card, its wall and its
+   ``dual_solve`` launches (151 for each arm's robust grid), then on the
+   CPU from the same starts: the same picks and designs, costs within
+   the suites' band (0.01 + 0.01 x the CPU's), the largest gap printed.
 8. ``drift`` — the online drift loop: the online suite's flip scenario
    (w4, 250,000 keys, 10 segments of 1,000 queries, the stale-nominal,
    static-robust, online and oracle arms) on the card from the committed
@@ -175,14 +185,18 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 13. ``train`` — the trainer (``repro_torch.launch.train``, which runs
    ``attention_impl="plain"``: the prefill kernels have no backward, so
    it must launch none of them): ``rwkv6-3b`` at its published width and
-   depth through ``train_loop`` and ``qwen3-14b`` at its published width
-   with its first 4 of 40 layers (full depth's training state is 177 GB)
-   through ``make_train_step``, each bf16 with ``remat="full"``, batch 8
-   x 512 tokens, 4 steps from the pipeline (each step's loss and gradient
-   norm finite, the walls after the first, tokens/s, peak memory, a
+   depth through ``train_loop``, and through ``make_train_step``
+   ``qwen3-14b`` at its published width with its first 4 of 40 layers
+   (full depth's training state is 177 GB) and ``deepseek-moe-16b`` with
+   its prelude and 3 MoE layers (2.27 B parameters; full depth's state is
+   197 GB), each bf16 with ``remat="full"``, batch 8 x 512 tokens, 4
+   steps from the pipeline (each step's loss, MoE auxiliary loss and
+   gradient norm finite, the walls after the first, tokens/s, peak
+   memory, a
    snapshotted weight moved; one profiled step: busy share, top kernels);
-   the reduced float32 models' 3 train steps on the card and the CPU
-   from the same weights and batches (losses rel 1e-5, gradient norms
+   the reduced float32 models' (``rwkv6-3b``, ``qwen3-14b`` and
+   ``deepseek-moe-16b``) 3 train steps on the card and the CPU from the
+   same weights and batches (losses and aux rel 1e-5, gradient norms
    rel 1e-4, parameters within 6 lr); and a checkpointed ``train_loop``
    (reduced ``qwen3-14b``, 24 steps, a save every 2) with a restore of
    the last save (bit for bit), whose manifest's ``dual_solve`` launches
@@ -296,7 +310,8 @@ _MEMORY_RUN: dict = {}
 LAYOUT_CANDIDATES = 64
 MERGE_N, READ_BATCH = 5_000_000, 1_000_000
 # (arch, the kernel its prefill runs once per layer)
-SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"))
+SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"),
+         ("deepseek-moe-16b", "flash_attention"))
 # a part of each kernel's CUDA name, as a profiler trace records it; the
 # bf16 flash_attention kernel is the one the bf16 serving path launches
 CUDA_NAMES = {"dual_solve": "dual_solve_warm_kernel",
@@ -307,12 +322,14 @@ CUDA_NAMES = {"dual_solve": "dual_solve_warm_kernel",
               "bloom_probe": "bloom_probe_kernel"}
 SERVE_REDUCED = False
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
-# the train phase: batch, sequence and steps of the full-width runs;
-# qwen3-14b's layers (of 40: its full depth's training state is 177 GB);
-# the card-against-CPU steps; the checkpointed run's steps and interval
+# the train phase: batch, sequence and steps of the full-width runs; the
+# layers of the runs cut in depth (qwen3-14b's 4 of 40: its full depth's
+# training state is 177 GB; deepseek-moe-16b's prelude and 3 MoE layers of
+# 28: 197 GB); the card-against-CPU steps; the checkpointed run's steps and
+# interval
 TRAIN_REDUCED = False
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
-TRAIN_QWEN_LAYERS = 4
+TRAIN_CUT_LAYERS = {"qwen3-14b": 4, "deepseek-moe-16b": 4}
 TRAIN_CHECK_STEPS = 3
 TRAIN_CKPT_STEPS, TRAIN_CKPT_INTERVAL = 24, 2
 CHECK_LAYERS, CHECK_PROMPT = 2, 256
@@ -331,6 +348,7 @@ FLASH_F32_CASES = [((2, 2048, 8, 2, 64), True, 512),
 FLASH_BF16_CASES = [((2, 1531, 40, 8, 128), True, None),      # ragged S
                     ("phi3-mini-3.8b", True, None),           # d 96, H = KV
                     ("glm4-9b", True, None),                  # GQA group 16
+                    ("deepseek-moe-16b", True, None),         # its prefill
                     ((2, 2048, 40, 8, 128), True, 512)]       # window
 # rwkv6 decays, (mean, sd) of ww with logw = -exp(ww): the model's init,
 # a slow one (exp(logw) ~ 0.993) and a fast one (logw ~ -7.4, where a
@@ -972,16 +990,19 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
 # -- phase 13: training (run last) ---------------------------------------------
 
 def _train_fields(mets, step_s, peak, tokens) -> dict:
-    """Per-step losses and gradient norms, the walls after the first, the
-    tokens a second over them, and the peak memory; checks each loss and
-    norm is finite."""
+    """Per-step losses, MoE auxiliary losses and gradient norms, the walls
+    after the first, the tokens a second over them, and the peak memory;
+    checks each loss, aux and norm is finite."""
     import math
     losses = [m["loss"] for m in mets]
+    auxes = [m["aux"] for m in mets]
     norms = [m["grad_norm"] for m in mets]
-    check(all(math.isfinite(v) for v in losses + norms),
-          f"a train loss or gradient norm is not finite: {losses} {norms}")
+    check(all(math.isfinite(v) for v in losses + auxes + norms),
+          f"a train loss, aux or gradient norm is not finite: {losses} "
+          f"{auxes} {norms}")
     walls = step_s[1:]
-    return {"losses": losses, "grad_norms": norms, "step_s": step_s,
+    return {"losses": losses, "aux": auxes, "grad_norms": norms,
+            "step_s": step_s,
             "tokens_per_s": tokens * len(walls) / sum(walls),
             "peak_allocated_gb": peak / 1e9}
 
@@ -1000,7 +1021,18 @@ def _moved(before: dict, params) -> dict:
 
 
 SNAPSHOT = {"rwkv6-3b": ("0.mixer.wr", "0.mlp.wk"),
-            "qwen3-14b": ("0.mixer.wq", "0.mlp.wi_up")}
+            "qwen3-14b": ("0.mixer.wq", "0.mlp.wi_up"),
+            "deepseek-moe-16b": ("0.mlp.wi_up", "1.mlp.router",
+                                 "1.mlp.wi_gate")}
+# why a run is cut in depth: its full depth's training state (bf16 weights
+# and gradients, float32 AdamW moments: 12 bytes a parameter) on the card
+CUT_WHY = {"qwen3-14b": "full depth needs 14.77 B params x 12 bytes (bf16 "
+                        "weights and gradients, float32 AdamW moments) = "
+                        "177 GB of training state against the card's 80 GB",
+           "deepseek-moe-16b": "full depth needs 16.38 B params x 12 bytes "
+                               "(bf16 weights and gradients, float32 AdamW "
+                               "moments) = 197 GB of training state against "
+                               "the card's 80 GB"}
 
 
 def _snapshot(params, names) -> dict:
@@ -1063,15 +1095,15 @@ def train_rwkv_full(torch, build, TT, adamw, DataConfig, shard_batch_at):
             "moved_share": moved, **fields, "profiled_step": prof}
 
 
-def train_qwen_cut(torch, build, TT, adamw, models, DataConfig,
-                   shard_batch_at):
-    """``qwen3-14b`` at its published width with its first
-    ``TRAIN_QWEN_LAYERS`` layers, through ``make_train_step`` on the
-    pipeline's batches, then one profiled step."""
-    arch = "qwen3-14b"
+def train_cut(torch, build, TT, adamw, models, DataConfig, shard_batch_at,
+              arch):
+    """``arch`` at its published width with its first
+    ``TRAIN_CUT_LAYERS[arch]`` layers (deepseek-moe-16b's prelude and 3 MoE
+    layers), through ``make_train_step`` on the pipeline's batches, then
+    one profiled step."""
     cfg = TT.train_config(arch, TRAIN_REDUCED)
     published = cfg.num_layers
-    cfg = cfg.replace(num_layers=min(TRAIN_QWEN_LAYERS, published))
+    cfg = cfg.replace(num_layers=min(TRAIN_CUT_LAYERS[arch], published))
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     log(f"train: {arch}, {cfg.num_layers} of {published} layers")
@@ -1107,10 +1139,7 @@ def train_qwen_cut(torch, build, TT, adamw, models, DataConfig,
     del model, params, opt, batch, step, before
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "layers": cfg.num_layers,
-            "published_layers": published,
-            "cut": "full depth needs 14.77 B params x 12 bytes (bf16 "
-                   "weights and gradients, float32 AdamW moments) = 177 GB "
-                   "of training state against the card's 80 GB",
+            "published_layers": published, "cut": CUT_WHY[arch],
             "d_model": cfg.d_model, "params": n_params, "remat": cfg.remat,
             "attention_impl": cfg.attention_impl, "batch": TRAIN_BATCH,
             "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
@@ -1123,7 +1152,7 @@ def train_card_vs_cpu(torch, TT, adamw, models, DataConfig, shard_batch_at,
     """The reduced float32 model's ``TRAIN_CHECK_STEPS`` steps on the card
     and on the CPU from the same weights and batches."""
     out = {}
-    for arch in ("rwkv6-3b", "qwen3-14b"):
+    for arch in ("rwkv6-3b", "qwen3-14b", "deepseek-moe-16b"):
         cfg = TT.train_config(arch, reduced=True)
         init = models.build_model(cfg, "cpu", seed=0).params
         runs = {}
@@ -1149,6 +1178,9 @@ def train_card_vs_cpu(torch, TT, adamw, models, DataConfig, shard_batch_at,
         (cm, cp), (dm, dp) = runs["cpu"], runs[DEVICE]
         loss_rel = max(abs(b["loss"] - a["loss"]) / abs(a["loss"])
                        for a, b in zip(cm, dm))
+        aux_rel = max((abs(b["aux"] - a["aux"]) / abs(a["aux"])
+                       if a["aux"] else abs(b["aux"]))
+                      for a, b in zip(cm, dm))
         norm_rel = max(abs(b["grad_norm"] - a["grad_norm"]) / a["grad_norm"]
                        for a, b in zip(cm, dm))
         param_abs = max(float((a - b).abs().max()) for a, b in zip(cp, dp))
@@ -1158,11 +1190,13 @@ def train_card_vs_cpu(torch, TT, adamw, models, DataConfig, shard_batch_at,
         # the two devices moves its weight by up to 2 lr a step: 3 steps,
         # 6 lr
         lr = adamw.AdamWConfig().lr
-        check(loss_rel <= 1e-5 and norm_rel <= 1e-4
+        check(loss_rel <= 1e-5 and aux_rel <= 1e-5 and norm_rel <= 1e-4
               and param_abs <= 2 * TRAIN_CHECK_STEPS * lr,
               f"{arch} reduced train steps, card vs CPU: loss rel "
-              f"{loss_rel}, grad norm rel {norm_rel}, params {param_abs}")
+              f"{loss_rel}, aux rel {aux_rel}, grad norm rel {norm_rel}, "
+              f"params {param_abs}")
         out[arch] = {"steps": TRAIN_CHECK_STEPS, "loss_rel": loss_rel,
+                     "aux_rel": aux_rel,
                      "grad_norm_rel": norm_rel, "param_max_abs": param_abs,
                      "param_tol": 2 * TRAIN_CHECK_STEPS * lr,
                      "losses": [m["loss"] for m in dm]}
@@ -1286,9 +1320,10 @@ def train_checkpointed(torch, build, TT, convert, tree):
 
 
 def phase_train(torch, build, models) -> dict:
-    """The trainer on the card: full-width ``rwkv6-3b`` and a 4-layer
-    ``qwen3-14b``, the reduced models card against CPU, and a
-    checkpointed run whose manifest runs the engine's kernels."""
+    """The trainer on the card: full-width ``rwkv6-3b``, a 4-layer
+    ``qwen3-14b`` and ``deepseek-moe-16b`` (its prelude and 3 MoE layers),
+    the reduced models card against CPU, and a checkpointed run whose
+    manifest runs the engine's kernels."""
     from repro_torch import convert
     from repro_torch.data.pipeline import DataConfig, shard_batch_at
     from repro_torch.launch import train as TT
@@ -1300,15 +1335,15 @@ def phase_train(torch, build, models) -> dict:
     t0 = time.time()
     rwkv = train_rwkv_full(torch, build, TT, adamw, DataConfig,
                            shard_batch_at)
-    qwen = train_qwen_cut(torch, build, TT, adamw, models, DataConfig,
-                          shard_batch_at)
+    cuts = [train_cut(torch, build, TT, adamw, models, DataConfig,
+                      shard_batch_at, arch) for arch in TRAIN_CUT_LAYERS]
     log("train: reduced models, card vs CPU")
     parity = train_card_vs_cpu(torch, TT, adamw, models, DataConfig,
                                shard_batch_at, tree)
     log("train: checkpointed run")
     ckpt = train_checkpointed(torch, build, TT, convert, tree)
     return {"phase": "train", "wall_s": time.time() - t0,
-            "runs": [rwkv, qwen], "card_vs_cpu": parity,
+            "runs": [rwkv, *cuts], "card_vs_cpu": parity,
             "checkpointed": ckpt}
 
 
@@ -2314,6 +2349,71 @@ def phase_suites(torch, core, build, suites=SUITES) -> list:
     return lines
 
 
+def phase_robust_serving(torch, build) -> dict:
+    """``python -m repro_torch.robust_serving`` on the card: the example's
+    full spec (ZippyDB-like mix, rho 0.25 / 1 / 2 and nominal, the klsm
+    and lazy_leveling arms, 32 starts, 150 Adam steps, 4,000 benchmark
+    mixes, ``backend="sharded"``: one chunk on one card), the launch
+    counts set to 0 just before it: one ``dual_solve`` per robust Adam
+    step plus one, for each arm's robust grid.  Then the same spec on the
+    CPU from the same starts (the tuners' own draw, made on the host): the
+    same chosen arm and design in every cell, each arm's cost and
+    objective within the suites' band on the card (0.01 + 0.01 x the
+    CPU's: float32 Adam on the two devices ends 2.3e-4 apart in one
+    robust cell's flat region), the largest relative gap printed."""
+    import repro_torch.api as api
+    from repro_torch import robust_serving as rs
+    spec = rs.SPEC
+    log("robust_serving: the example's spec on the card")
+    build.reset_launches()
+    t0 = time.time()
+    report = rs.main(DEVICE, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    want = len(api.compile_spec(spec).tuning_plans()) \
+        * (spec.design.steps + 1)
+    check(launches.get("dual_solve", 0) == want, f"robust_serving: "
+          f"{launches.get('dual_solve', 0)} dual_solve launches, expected "
+          f"{want}")
+    check(report.walls.get("tuning_devices") == 1, f"robust_serving: "
+          f"{report.walls.get('tuning_devices')} tuning devices, one card")
+    log("robust_serving: the same spec on the CPU")
+    t0 = time.time()
+    cpu = rs.main("cpu", verbose=False)
+    cpu_s = time.time() - t0
+    cells, max_rel = {}, 0.0
+
+    def near(card, host):
+        nonlocal max_rel
+        max_rel = max(max_rel, abs(card - host) / abs(host))
+        return abs(card - host) <= 0.01 + 0.01 * abs(host)
+
+    for cell in report.cells:
+        name = "nominal" if cell[1] is None else f"rho{cell[1]:g}"
+        check(report.chosen[cell] == cpu.chosen[cell], f"robust_serving "
+              f"{name}: card picks {report.chosen[cell]}, CPU "
+              f"{cpu.chosen[cell]}")
+        for pol in spec.design.policies:
+            a, b = cpu.tuning(cell, pol), report.tuning(cell, pol)
+            check(b.design.value == a.design.value and near(b.cost, a.cost)
+                  and near(report.arm_costs[cell][pol],
+                           cpu.arm_costs[cell][pol]),
+                  f"robust_serving {name} {pol}: card "
+                  f"{b.describe(report.sys)} cost {b.cost}, CPU "
+                  f"{a.describe(cpu.sys)} cost {a.cost}")
+        rr = report.tuning(cell)
+        cells[name] = {"policy": report.chosen[cell],
+                       "tuning": rr.describe(report.sys), "cost": rr.cost}
+        if cell[1] is not None:
+            cells[name]["mean_delta_tp_vs_nominal"] = float(
+                report.delta_tp_vs_nominal(0, cell[1]).mean())
+    return {"phase": "robust_serving", "spec": spec.name,
+            "backend": spec.backend, "wall_s": wall, "cpu_wall_s": cpu_s,
+            "walls": report.walls, "launches": launches, "cells": cells,
+            "same_picks_as_cpu": True, "cost_max_rel_vs_cpu": max_rel}
+
+
 def phase_api(torch, build) -> dict:
     """The experiment API on the card: ``run_experiment`` for the API
     smoke suite's spec (``repro_torch.bench.api.SPEC``: its tunings and its
@@ -3200,10 +3300,14 @@ def main(argv=None) -> int:
         served = phase_serve(torch, np, configs, models, serve, lm, build,
                              arch, kernel)
         emit(served)
-        launches[kernel] = served["kernel_launches"]
-        launches[f"{kernel}:f32_cuda_core"] = \
-            served["f32_check"]["f32_kernel_launches"]
-    arch_of = {kernel: arch for arch, kernel in SERVE}
+        # a kernel that serves two archs: the launches of both prefills
+        for name, n in ((kernel, served["kernel_launches"]),
+                        (f"{kernel}:f32_cuda_core",
+                         served["f32_check"]["f32_kernel_launches"])):
+            launches[name] = launches.get(name, 0) + n
+    arch_of = {}                # a kernel's row takes its first arch's shape
+    for arch, kernel in SERVE:
+        arch_of.setdefault(kernel, arch)
     plane, bloom_q, bloom_in, bloom = phase_bloom(torch, np, bloom_ops,
                                                   bloom_ref, build)
     emit(bloom)
@@ -3232,6 +3336,7 @@ def main(argv=None) -> int:
     for suite in CPU_HELD_SUITES:
         emit(suite_against_cpu(torch, build, suite))
     emit(phase_api(torch, build))
+    emit(phase_robust_serving(torch, build))
     emit(phase_drift(torch, build))
     emit(phase_memory())
     emit(phase_robust_sharding(torch))

@@ -2,14 +2,15 @@
 ``repro/configs/base.py::ModelConfig``.
 
 A :class:`ModelConfig` describes one architecture: its layer pattern of
-(sequence mixer, channel mixer) blocks, the attention flavour, and the
-runtime knobs.  The fields are the JAX package's, with two differences:
+(sequence mixer, channel mixer) blocks, the attention flavour, the MoE
+settings (:class:`MoEConfig`), and the runtime knobs.  The fields are the
+JAX package's, with two differences:
 
-* ``moe`` and ``encoder`` stay ``None``: ``MoEConfig``, ``EncoderConfig``,
-  ``SHAPES`` and ``shape_applicable`` come with the families that need them
-  (ROADMAP.md queue 1 item 6); :meth:`ModelConfig.reduced` raises for a
-  config that sets either, or M-RoPE, and :meth:`ModelConfig.param_count`
-  counts ``attn``/``rwkv`` mixers and ``dense``/``rwkv_ffn`` MLPs only.
+* ``encoder`` stays ``None``: ``EncoderConfig``, ``SHAPES`` and
+  ``shape_applicable`` come with the families that need them (ROADMAP.md
+  queue 1 item 6); :meth:`ModelConfig.reduced` raises for a config with an
+  encoder tower or M-RoPE, and :meth:`ModelConfig.param_count` for a
+  ``mamba`` mixer.
 * ``attention_impl`` names the port's two prefill paths: ``"flash"`` (the
   default; the hand-written kernels on the card and their plain versions
   on the CPU: ``kernels/flash_attention`` for attention and
@@ -25,6 +26,16 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 Pair = Tuple[str, str]  # (mixer, mlp) kinds
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    d_expert: int = 0           # per-expert FFN width
+    num_shared: int = 0         # always-on shared experts (DeepSeek-MoE)
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +63,7 @@ class ModelConfig:
     mrope_sections: Optional[Tuple[int, int, int]] = None  # M-RoPE (t,h,w)
 
     # mixers
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     mamba_d_state: int = 16
     mamba_d_conv: int = 4
     mamba_expand: int = 2
@@ -88,9 +99,18 @@ class ModelConfig:
                              f"divisible by pattern {len(self.pattern)}")
         return n_scan // len(self.pattern)
 
+    def moe_param_count(self) -> int:
+        if self.moe is None:
+            return 0
+        n = self.moe.num_experts * 3 * self.d_model * self.moe.d_expert
+        n += self.d_model * self.moe.num_experts  # router
+        n += self.moe.num_shared * 3 * self.d_model * self.moe.d_expert
+        return n
+
     def param_count(self) -> int:
         """Approximate total parameter count N, the JAX package's count
-        for ``attn``/``rwkv`` mixers and ``dense``/``rwkv_ffn`` MLPs."""
+        for ``attn``/``rwkv`` mixers and ``dense``/``moe``/``rwkv_ffn``
+        MLPs."""
         d, hd = self.d_model, self.head_dim
         attn = d * (self.num_heads * hd) * 2 \
             + d * (self.num_kv_heads * hd) * 2
@@ -98,7 +118,8 @@ class ModelConfig:
             else 2 * d * self.d_ff
         rwkv = 5 * d * d + 2 * d * self.rwkv_decay_lora  # r,k,v,g,o + LoRA
         mixers = {"attn": attn, "rwkv": rwkv}
-        mlps = {"dense": dense_mlp, "rwkv_ffn": 2 * d * self.d_ff + d * d}
+        mlps = {"dense": dense_mlp, "moe": self.moe_param_count(),
+                "rwkv_ffn": 2 * d * self.d_ff + d * d}
         total = 0
         for mixer, mlp in self.prelude + tuple(self.pattern) * \
                 self.n_repeats:
@@ -110,13 +131,24 @@ class ModelConfig:
         return total + self.vocab_size * d * (
             1 if self.tie_embeddings else 2)
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        full_moe = self.moe_param_count()
+        active_moe = ((m.top_k + m.num_shared) * 3 * self.d_model *
+                      m.d_expert + self.d_model * m.num_experts)
+        n_moe_layers = sum(1 for _, mlp in self.prelude + tuple(
+            self.pattern) * self.n_repeats if mlp == "moe")
+        return self.param_count() - n_moe_layers * (full_moe - active_moe)
+
     def reduced(self, **overrides) -> "ModelConfig":
         """A smoke-test-sized config of the same family/pattern."""
-        if self.moe is not None or self.encoder is not None \
-                or self.mrope_sections is not None:
+        if self.encoder is not None or self.mrope_sections is not None:
             raise NotImplementedError(
-                f"{self.name}: MoE, encoder towers and M-RoPE are not "
-                "ported yet (ROADMAP.md queue 1 item 6)")
+                f"{self.name}: encoder towers and M-RoPE are not ported "
+                "yet (ROADMAP.md queue 1 item 6)")
         kw = dict(
             name=self.name + "-smoke",
             num_layers=len(self.prelude) + 2 * len(self.pattern),
@@ -135,6 +167,14 @@ class ModelConfig:
             remat="none",
             logits_chunk=0,
         )
+        if self.moe is not None:
+            # capacity_factor high enough that no token ever drops: keeps
+            # prefill/decode exactly consistent in the smoke tests (capacity
+            # dropping is batch-composition-dependent by design).
+            kw["moe"] = dataclasses.replace(
+                self.moe, num_experts=4, top_k=2, d_expert=32,
+                num_shared=min(self.moe.num_shared, 1),
+                capacity_factor=8.0)
         kw.update(overrides)
         return dataclasses.replace(self, **kw)
 

@@ -11,16 +11,18 @@ field) and passes them in.
   and run metadata, the value codec's intern table, the write buffer, the
   I/O counters and the flush clock.  Keys become the ordered int64 form
   of the device arenas; Bloom words, where given, are carried bit for bit.
-* :func:`lm_params_from_numpy` — an LM's parameters (dense or RWKV-6)
-  from the JAX package's ``init_lm`` tree (``np.asarray`` on each leaf),
-  its stacked layers split into the port's list of per-layer dicts; every
-  leaf keeps its dtype (RWKV's float32 ``w_base`` and ``u`` in a bfloat16
-  model stay float32) and every sub-dict (``mixer``, ``mlp``) comes
-  along.  :func:`lm_params_from_reference` does the same from the
+* :func:`lm_params_from_numpy` — an LM's parameters (dense, MoE or
+  RWKV-6) from the JAX package's ``init_lm`` tree (``np.asarray`` on each
+  leaf): its ``prelude`` list and its stacked layers become the port's one
+  list of per-layer dicts, prelude first (an expert weight stacked as
+  ``(n_rep, E, d, ef)`` becomes ``(E, d, ef)`` in each layer); every leaf
+  keeps its dtype (RWKV's float32 ``w_base`` and ``u`` and the MoE
+  router's float32 in a bfloat16 model stay float32) and every sub-dict
+  (``mixer``, ``mlp``, ``mlp/shared``) comes along.  :func:`lm_params_from_reference` does the same from the
   reference's layout in torch tensors.
 * :func:`lm_params_to_reference` and :func:`lm_params_to_numpy` — the
-  way back: the port's per-layer list stacked into the reference's
-  ``{"layers": {"sub<j>": ...}}`` tree, as tensors or as numpy arrays
+  way back: the port's per-layer list split into the reference's
+  ``prelude`` list and stacked ``{"layers": {"sub<j>": ...}}`` tree, as tensors or as numpy arrays
   (bfloat16 widened to float32, as the reference's checkpoints store it).
 * :func:`adamw_state_from_numpy` / :func:`adamw_state_to_reference` — an
   ``AdamWState`` (step, ``mu``, ``nu``) carried across the same way.
@@ -114,6 +116,8 @@ def _tensor(a, device) -> torch.Tensor:
 def _map_tree(fn, tree):
     if isinstance(tree, Mapping):
         return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -121,14 +125,16 @@ def lm_params_from_numpy(cfg: ModelConfig, params_np: Mapping[str, Any],
                          device=None) -> Dict[str, Any]:
     """The port's parameter tree (``models/lm.py``) from the JAX
     ``init_lm`` tree as numpy arrays: ``embed``, ``final_norm``,
-    ``lm_head`` as they are, and ``layers/sub<j>/...`` (stacked along a
-    leading axis of ``cfg.n_repeats``) split into one dict per layer, in
-    execution order (repeat r, pattern entry j -> layer r * len(pattern) +
-    j).  On ``device`` (the card unless ``"cpu"``)."""
+    ``lm_head`` as they are, and the ``prelude`` blocks followed by
+    ``layers/sub<j>/...`` (stacked along a leading axis of
+    ``cfg.n_repeats``) split into one dict per layer, in execution order
+    (prelude block i -> layer i; repeat r, pattern entry j -> layer
+    len(prelude) + r * len(pattern) + j).  On ``device`` (the card unless
+    ``"cpu"``)."""
     tensors = {name: _map_tree(lambda a: _tensor(a, "cpu"), params_np[name])
-               for name in ("embed", "final_norm", "lm_head", "layers")
+               for name in ("embed", "final_norm", "lm_head", "layers",
+                            "prelude")
                if name in params_np}
-    tensors["prelude"] = params_np.get("prelude")
     return lm_params_from_reference(cfg, tensors, device)
 
 
@@ -136,16 +142,19 @@ def lm_params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any],
                              device=None) -> Dict[str, Any]:
     """The port's parameter tree from the reference's layout in torch
     tensors (a restored checkpoint): each layer's leaves a copy of its row
-    of the stacked ones, on ``device`` (the card unless ``"cpu"``)."""
-    if tree.get("prelude"):
-        raise NotImplementedError("prelude layers come with DeepSeek-MoE "
-                                  "(ROADMAP.md queue 1 item 6)")
+    of the stacked ones, the prelude blocks' leaves copies, on ``device``
+    (the card unless ``"cpu"``)."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {
         name: _map_tree(lambda a: a.to(dev), tree[name])
         for name in ("embed", "final_norm", "lm_head") if name in tree}
+    prelude = list(tree.get("prelude") or ())
+    if len(prelude) != len(cfg.prelude):
+        raise ValueError(f"{len(prelude)} prelude blocks for "
+                         f"{cfg.name}'s {len(cfg.prelude)}")
     groups = tree["layers"]
     out["layers"] = [
+        _map_tree(lambda a: a.to(dev).clone(), blk) for blk in prelude] + [
         _map_tree(lambda a, r=r: a[r].to(dev).clone(), groups[f"sub{j}"])
         for r in range(cfg.n_repeats) for j in range(len(cfg.pattern))]
     return out
@@ -160,15 +169,17 @@ def _stack(items: Sequence[Any]):
 def lm_params_to_reference(cfg: ModelConfig,
                            params: Mapping[str, Any]) -> Dict[str, Any]:
     """The reference's ``init_lm`` layout of the port's parameters, in
-    torch tensors: ``embed``, ``final_norm``, ``lm_head`` as they are, an
-    empty ``prelude``, and ``layers/sub<j>/...`` stacked (layer r *
+    torch tensors: ``embed``, ``final_norm``, ``lm_head`` as they are, the
+    first ``len(cfg.prelude)`` layers as the ``prelude`` list, and the
+    rest as ``layers/sub<j>/...`` stacked (layer len(prelude) + r *
     len(pattern) + j is row r of ``sub<j>``)."""
-    n_pat = len(cfg.pattern)
+    n_pat, n_pre = len(cfg.pattern), len(cfg.prelude)
     out: Dict[str, Any] = {name: params[name]
                            for name in ("embed", "final_norm", "lm_head")
                            if name in params}
-    out["prelude"] = []
-    out["layers"] = {f"sub{j}": _stack(params["layers"][j::n_pat])
+    out["prelude"] = list(params["layers"][:n_pre])
+    scanned = params["layers"][n_pre:]
+    out["layers"] = {f"sub{j}": _stack(scanned[j::n_pat])
                      for j in range(n_pat)}
     return out
 

@@ -1,7 +1,7 @@
 """Batched serving: prefill a batch of prompts, then decode greedily.
 
-The port of ``repro/launch/serve.py`` for the dense decoders and
-RWKV-6.  The decode cache is allocated once (attention k/v at
+The port of ``repro/launch/serve.py`` for the dense and MoE decoders
+and RWKV-6.  The decode cache is allocated once (attention k/v at
 ``prompt_len + gen`` positions, the RWKV state and last rows at their
 fixed size) and the prefill's cache is written into it in place
 (:func:`write_prefill_cache`), which takes the place of the JAX package's
@@ -11,6 +11,8 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
           --reduced --device cpu
       PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
           --reduced --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve \\
+          --arch deepseek-moe-16b --reduced --device cpu
 """
 
 from __future__ import annotations

@@ -1,14 +1,23 @@
 """Decoder-only LM assembly: blocks, the layer loop, the decode cache,
 and the train / prefill / decode entry points.
 
-The port of the ``attn``/``rwkv`` mixer and ``dense``/``rwkv_ffn`` MLP
-branches of ``repro/models/lm.py``; any pairing of them is a block.
+The port of the ``attn``/``rwkv`` mixer and ``dense``/``moe``/``rwkv_ffn``
+MLP branches of ``repro/models/lm.py``; any pairing of them is a block.
 Parameters are a dict: ``embed`` (V, d), ``final_norm``, ``lm_head``
-(d, V) and ``layers``, a list with one block dict per layer (JAX stacks the
-layers along a leading axis and scans; here a Python loop walks the list).
-The cache is a list with one dict per layer: ``{"mixer": {"k", "v"}}`` for
+(d, V) and ``layers``, a list with one block dict per layer in execution
+order: the ``cfg.prelude`` blocks first (DeepSeek-MoE's dense first
+layer), then ``cfg.pattern`` repeated ``cfg.n_repeats`` times.  (JAX keeps
+the prelude blocks in a list under ``prelude`` and stacks the pattern's
+layers along a leading axis and scans; here a Python loop walks one list,
+and ``convert.py`` maps between the two layouts.)  The cache is a list with
+one dict per layer, in the same order: ``{"mixer": {"k", "v"}}`` for
 attention, ``{"mixer": {"state", "x_prev"}}`` for the RWKV time mix, and
 ``"mlp": {"x_prev"}`` beside it for the RWKV channel mix.
+
+:func:`apply_block` and :func:`apply_stack` return the MoE load-balancing
+auxiliary loss beside ``x`` and the cache, as JAX's do: 0 for a block
+without a ``moe`` MLP, summed over the layers by :func:`apply_stack` (in
+every mode), and :func:`lm_loss` is ``xent + aux_weight * aux``.
 
 Training: :func:`lm_loss` is the next-token cross entropy
 (:func:`softmax_xent`, with ``cfg.logits_chunk`` > 0 a streaming
@@ -20,10 +29,8 @@ pattern entry); ``"dots"``, a selective checkpoint that keeps the outputs
 of plain matrix products (``aten.mm``/``aten.addmm``) and recomputes the
 rest (its ``dots_with_no_batch_dims_saveable``).
 
-The ``mamba`` and ``moe`` kinds, prelude layers and stub-embedding inputs
-raise ``NotImplementedError`` naming their ROADMAP.md item.  Without MoE
-there is no auxiliary loss, so :func:`apply_block` and :func:`apply_stack`
-return none and :func:`lm_loss`'s ``aux`` is 0.
+The ``mamba`` kind and stub-embedding or encoder inputs raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from .layers import (apply_mlp, apply_norm, attention_decode,
                      attention_full, init_attention, init_mlp, init_norm,
@@ -45,10 +53,9 @@ from .layers import (apply_mlp, apply_norm, attention_decode,
 Params = Dict[str, Any]
 
 _MIXERS = ("attn", "rwkv")
-_MLPS = ("dense", "rwkv_ffn")
+_MLPS = ("dense", "moe", "rwkv_ffn")
 _NOT_PORTED = {
     "mamba": "mamba and hybrid stacks, ROADMAP.md queue 1 item 6",
-    "moe": "mixture-of-experts MLPs, ROADMAP.md queue 1 item 6",
 }
 
 
@@ -63,15 +70,18 @@ def _check_kind(kind: Tuple[str, str]) -> None:
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.prelude:
-        raise NotImplementedError("prelude layers come with DeepSeek-MoE "
-                                  "(ROADMAP.md queue 1 item 6)")
     if not cfg.embed_inputs or cfg.encoder is not None:
         raise NotImplementedError("stub-embedding and encoder inputs are "
                                   "not ported yet (ROADMAP.md queue 1 "
                                   "item 6)")
-    for kind in cfg.pattern:
+    for kind in cfg.prelude + tuple(cfg.pattern):
         _check_kind(kind)
+
+
+def layer_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, str], ...]:
+    """Every layer's (mixer, mlp) kind, in the order of ``params["layers"]``:
+    the prelude, then the pattern ``n_repeats`` times."""
+    return tuple(cfg.prelude) + tuple(cfg.pattern) * cfg.n_repeats
 
 
 # ---------------------------------------------------------------------------
@@ -82,13 +92,18 @@ def init_block(gen: torch.Generator, kind: Tuple[str, str],
                cfg: ModelConfig, device=None) -> Params:
     _check_kind(kind)
     mixer, mlp = kind
+    if mlp == "dense":
+        p_mlp = init_mlp(gen, cfg, device=device)
+    elif mlp == "moe":
+        p_mlp = moe_mod.init_moe(gen, cfg, device=device)
+    else:
+        p_mlp = rwkv_mod.init_channel_mix(gen, cfg, device=device)
     return {"norm1": init_norm(cfg, device=device),
             "norm2": init_norm(cfg, device=device),
             "mixer": (init_attention(gen, cfg, device=device)
                       if mixer == "attn" else
                       rwkv_mod.init_time_mix(gen, cfg, device=device)),
-            "mlp": (init_mlp(gen, cfg, device=device) if mlp == "dense" else
-                    rwkv_mod.init_channel_mix(gen, cfg, device=device))}
+            "mlp": p_mlp}
 
 
 def block_cache_init(kind: Tuple[str, str], cfg: ModelConfig, batch: int,
@@ -121,12 +136,13 @@ def apply_block(p: Params, x: torch.Tensor, kind: Tuple[str, str],
                 cfg: ModelConfig, mode: str, cache: Optional[Params] = None,
                 pos: Optional[int] = None,
                 positions: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Params]:
-    """Returns (x, new_cache)."""
+                ) -> Tuple[torch.Tensor, Params, torch.Tensor]:
+    """Returns (x, new_cache, aux_loss)."""
     _check_kind(kind)
     mixer, mlp = kind
     decode = mode == "decode"
     new_cache: Params = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(p["norm1"], x, cfg)
     if mixer == "attn":
         if decode:
@@ -144,13 +160,15 @@ def apply_block(p: Params, x: torch.Tensor, kind: Tuple[str, str],
     h2 = apply_norm(p["norm2"], x, cfg)
     if mlp == "dense":
         y2 = apply_mlp(p["mlp"], h2, cfg)
+    elif mlp == "moe":
+        y2, aux = moe_mod.apply_moe(p["mlp"], h2, cfg)
     elif decode:
         y2, new_cache["mlp"] = rwkv_mod.channel_mix_step(p["mlp"], h2,
                                                          cache["mlp"], cfg)
     else:
         y2, new_cache["mlp"] = rwkv_mod.channel_mix_full(p["mlp"], h2, cfg)
     x = x + y2
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -165,8 +183,8 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     dt = torch_dtype(cfg.param_dtype)
     p: Params = {"embed": init_normal(gen, (cfg.vocab_size, cfg.d_model),
                                       0.02, dt, device)}
-    kinds = tuple(cfg.pattern) * cfg.n_repeats
-    p["layers"] = [init_block(gen, kind, cfg, device) for kind in kinds]
+    p["layers"] = [init_block(gen, kind, cfg, device)
+                   for kind in layer_kinds(cfg)]
     p["final_norm"] = init_norm(cfg, device=device)
     if not cfg.tie_embeddings:
         p["lm_head"] = init_normal(gen, (cfg.d_model, cfg.vocab_size),
@@ -194,7 +212,7 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _remat(fn, cfg: ModelConfig):
-    """``fn(x) -> x`` wrapped in ``cfg.remat``'s checkpoint policy."""
+    """``fn(x) -> (x, aux)`` wrapped in ``cfg.remat``'s checkpoint policy."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "dots":
@@ -211,24 +229,28 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 mode: str, cache: Optional[List[Params]] = None,
                 pos: Optional[int] = None,
                 positions: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, List[Params]]:
-    """Every layer in order.  Returns (x, new_cache), one entry a layer;
-    in ``"train"`` mode each layer runs under ``cfg.remat`` and the cache
-    is empty."""
+                ) -> Tuple[torch.Tensor, List[Params], torch.Tensor]:
+    """Every layer in order.  Returns (x, new_cache, total_aux), the cache
+    one entry a layer; in ``"train"`` mode each layer runs under
+    ``cfg.remat`` (the checkpointed function returns its aux beside x) and
+    the cache is empty."""
     _check_cfg(cfg)
-    kinds = tuple(cfg.pattern) * cfg.n_repeats
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: List[Params] = []
-    for i, (p, kind) in enumerate(zip(params["layers"], kinds)):
+    for i, (p, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
         if mode == "train":
             def layer(h, p=p, kind=kind):
-                return apply_block(p, h, kind, cfg, mode,
-                                   positions=positions)[0]
-            x = _remat(layer, cfg)(x)
-            continue
-        c = cache[i] if cache is not None else None
-        x, nc = apply_block(p, x, kind, cfg, mode, c, pos, positions)
-        new_cache.append(nc)
-    return x, new_cache
+                y, _, aux = apply_block(p, h, kind, cfg, mode,
+                                        positions=positions)
+                return y, aux
+            x, aux = _remat(layer, cfg)(x)
+        else:
+            c = cache[i] if cache is not None else None
+            x, nc, aux = apply_block(p, x, kind, cfg, mode, c, pos,
+                                     positions)
+            new_cache.append(nc)
+        aux_total = aux_total + aux
+    return x, new_cache, aux_total
 
 
 def embed_tokens(params: Params, batch: Dict[str, torch.Tensor],
@@ -284,13 +306,13 @@ def softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, aux_weight: float = 0.01):
     """Training loss (+ metrics). batch: tokens + labels (B, S).
-    Returns (loss, {"xent", "aux"}); ``aux`` is 0 (no MoE block)."""
+    Returns (loss, {"xent", "aux"}); ``aux`` is the layers' summed MoE
+    load-balancing loss (0 without a ``moe`` block)."""
     x, positions = embed_tokens(params, batch, cfg)
-    x, _ = apply_stack(params, x, cfg, "train", positions=positions)
+    x, _, aux = apply_stack(params, x, cfg, "train", positions=positions)
     x = apply_norm(params["final_norm"], x, cfg)
     xent = softmax_xent(x, _unembed_matrix(params, cfg), batch["labels"],
                         cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     loss = xent + aux_weight * aux
     return loss, {"xent": xent, "aux": aux}
 
@@ -299,7 +321,8 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig) -> Tuple[torch.Tensor, List[Params]]:
     """Full forward returning (last-position logits (B, 1, V), cache)."""
     x, positions = embed_tokens(params, batch, cfg)
-    x, cache = apply_stack(params, x, cfg, "prefill", positions=positions)
+    x, cache, _ = apply_stack(params, x, cfg, "prefill",
+                              positions=positions)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = (x[:, -1:] @ _unembed_matrix(params, cfg)).float()
     return logits, cache
@@ -311,8 +334,8 @@ def lm_decode_step(params: Params, cache: List[Params],
     """One decode step. tokens: (B, 1); pos: the tokens' position.
     Returns (logits (B, 1, V), cache), the cache updated in place."""
     x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
-    x, new_cache = apply_stack(params, x, cfg, "decode", cache=cache,
-                               pos=pos)
+    x, new_cache, _ = apply_stack(params, x, cfg, "decode", cache=cache,
+                                  pos=pos)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = (x @ _unembed_matrix(params, cfg)).float()
     return logits, new_cache
@@ -323,4 +346,4 @@ def lm_init_cache(params_or_none, cfg: ModelConfig, batch: int, max_seq: int,
     _check_cfg(cfg)
     dtype = torch_dtype(cfg.dtype)
     return [block_cache_init(kind, cfg, batch, max_seq, dtype, device)
-            for kind in tuple(cfg.pattern) * cfg.n_repeats]
+            for kind in layer_kinds(cfg)]

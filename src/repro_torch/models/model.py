@@ -1,8 +1,9 @@
 """``build_model``: a decoder-only LM as an ``nn.Module``.
 
 The port of ``repro/models/model.py::build_model`` for decoder-only
-configs whose blocks ``lm.py`` ports (attention or RWKV-6 time mix, dense
-or RWKV channel-mix MLPs).  :class:`LM` holds the parameters of
+configs whose blocks ``lm.py`` ports (attention or RWKV-6 time mix, dense,
+mixture-of-experts or RWKV channel-mix MLPs, and DeepSeek-MoE's prelude
+layers, which lead the layer list).  :class:`LM` holds the parameters of
 ``lm.init_lm``'s dict tree as ``nn.Parameter``s, so ``state_dict`` and
 ``named_parameters`` see them, and exposes the reference's entry points
 over the functions of ``lm.py``: ``loss_fn`` (``ModelAPI.loss_fn``) for
@@ -51,7 +52,7 @@ def _tree(m: nn.Module):
 
 
 class LM(nn.Module):
-    """A decoder-only LM (dense or RWKV-6) on one device."""
+    """A decoder-only LM (dense, MoE or RWKV-6) on one device."""
 
     def __init__(self, cfg: ModelConfig, params: Params,
                  device: torch.device):
@@ -67,7 +68,8 @@ class LM(nn.Module):
 
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]):
         """(loss, {"xent", "aux"}) of ``batch`` (tokens, labels (B, S))
-        under ``params`` (``lm.lm_loss``)."""
+        under ``params`` (``lm.lm_loss``: the cross entropy plus 0.01 x the
+        layers' MoE load-balancing loss, ``aux``)."""
         return lm_mod.lm_loss(params, batch, self.cfg)
 
     @torch.no_grad()

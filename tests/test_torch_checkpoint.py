@@ -315,12 +315,13 @@ def _reference_loop_without_mesh(arch, steps, ckpt_dir, tc, seq_len,
     return store
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "deepseek-moe-16b"])
 def test_train_loop_puts_the_reference_s_manifest_keys(tmp_path,
                                                        monkeypatch, arch):
     """The port's ``train_loop`` with checkpoints (5 steps, a save every
     2 and at the end) puts the reference loop's manifest keys, in order,
-    and its checkpoints hold the reference's file names."""
+    and its checkpoints hold the reference's file names (deepseek's:
+    its ``prelude`` block's leaves and the stacked experts' too)."""
     tc = TT.TrainConfig(ckpt_interval=2, log_interval=100)
     tnames, jnames = [], []
     _recorded_puts(monkeypatch, TS.CheckpointStore, tnames)

@@ -529,6 +529,75 @@ def test_serve_batch_on_card_matches_cpu_plain_path(dev):
     np.testing.assert_array_equal(gpu["tokens"], cpu["tokens"])
 
 
+@pytest.mark.parametrize("cf", [8.0, 0.5])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x7b"])
+def test_apply_moe_on_card_matches_cpu(dev, arch, cf):
+    """One MoE layer of the reduced model (float32, 4 x 64 tokens; with
+    capacity factor 0.5 tokens drop): the same experts and kept slots,
+    the output to 1e-5 and the aux to rel 1e-5 (sums in another order);
+    in bfloat16, two runs on the card give the same bits (dispatch and
+    combine are plain indexing, no atomics)."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    cfg = get_config(arch).reduced()
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    p = build_model(cfg, "cpu", seed=2).params["layers"][len(cfg.prelude)]
+    p = p["mlp"]
+    x = torch.randn((4, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        want, waux = moe.apply_moe(p, x, cfg)
+        got, gaux = moe.apply_moe(_to(p, dev), x.to(dev), cfg)
+        _, _, e_cpu = moe.route(p, x, cfg)
+        _, _, e_dev = moe.route(_to(p, dev), x.to(dev), cfg)
+        cap = moe.capacity(cfg, 64)
+        pos_c, keep_c = moe.slots(e_cpu, cfg.moe.num_experts, cap)
+        pos_d, keep_d = moe.slots(e_dev, cfg.moe.num_experts, cap)
+        assert torch.equal(e_dev.cpu(), e_cpu)
+        assert torch.equal(keep_d.cpu(), keep_c)
+        assert torch.equal(pos_d.cpu(), pos_c)
+        assert bool(keep_c.all()) == (cf > 1)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+        assert float(gaux) == pytest.approx(float(waux), rel=1e-5)
+        def bf16(tree):
+            return {k: (bf16(v) if isinstance(v, dict) else v if k ==
+                        "router" else v.to(torch.bfloat16))
+                    for k, v in tree.items()}
+
+        pb = bf16(_to(p, dev))
+        xb = x.to(dev, torch.bfloat16)
+        a, _ = moe.apply_moe(pb, xb, cfg)
+        b, _ = moe.apply_moe(pb, xb, cfg)
+        assert torch.equal(a, b)
+
+
+def test_deepseek_prefill_kernel_path_matches_plain_on_card(dev):
+    """The reduced deepseek-moe-16b (a dense prelude layer, 2 MoE layers)
+    in float32 on the card: last-position prefill logits through the
+    float32 flash-attention kernel (one launch a layer, the prelude's
+    included) against the plain path, to 1e-4 (the dense models'
+    whole-model tolerance), and the plain path against the CPU's."""
+    from repro_torch.models import lm
+    cfg = get_config("deepseek-moe-16b").reduced()
+    params = build_model(cfg, "cpu", seed=0).params
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 48)))
+    with torch.no_grad():
+        _build.reset_launches()
+        kern, _ = lm.lm_prefill(_to(params, dev), {"tokens": toks.to(dev)},
+                                cfg)
+        assert _build.LAUNCHES["flash_attention:f32_cuda_core"] \
+            == cfg.num_layers == 3
+        plain_cfg = cfg.replace(attention_impl="plain")
+        plain, _ = lm.lm_prefill(_to(params, dev), {"tokens": toks.to(dev)},
+                                 plain_cfg)
+        cpu, _ = lm.lm_prefill(params, {"tokens": toks}, plain_cfg)
+    torch.testing.assert_close(kern.cpu(), plain.cpu(), atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(plain.cpu(), cpu, atol=1e-4, rtol=1e-4)
+
+
 # (mean, sd) of ww, logw = -exp(ww): the model's init decay, a slow one
 # (exp(logw) ~ 0.993, the state carries across the whole sequence) and a
 # fast one (logw ~ -7.4, where a one-level chunked split overflows)
@@ -1109,10 +1178,12 @@ def _reduced_train_state(arch, device):
     return cfg, model, step, adamw.init(model.params)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-3b",
+                                  "deepseek-moe-16b"])
 def test_reduced_train_steps_on_card_match_cpu(dev, arch):
     """Three float32 train steps of the reduced model from the same
-    weights and batches: losses rel 1e-5, gradient norms rel 1e-4 (sums in
+    weights and batches: losses and MoE aux rel 1e-5, gradient norms rel
+    1e-4 (sums in
     another order), parameters within 6 lr (3 steps of AdamW, which moves a
     weight whose gradient rounds differently by up to 2 lr a step)."""
     from repro_torch.data.pipeline import DataConfig, shard_batch_at
@@ -1134,6 +1205,7 @@ def test_reduced_train_steps_on_card_match_cpu(dev, arch):
         runs[device] = (mets, [p.detach().cpu() for p in leaves(params)])
     for a, b in zip(runs["cpu"][0], runs["cuda"][0]):
         assert b["loss"] == pytest.approx(a["loss"], rel=1e-5)
+        assert b["aux"] == pytest.approx(a["aux"], rel=1e-5)
         assert b["grad_norm"] == pytest.approx(a["grad_norm"], rel=1e-4)
     for a, b in zip(runs["cpu"][1], runs["cuda"][1]):
         torch.testing.assert_close(b, a, atol=6 * 3e-4, rtol=0)

@@ -25,6 +25,8 @@ Tolerances, and why:
   the output to the input dtype.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -73,23 +75,29 @@ def _cfgs(arch, **kw):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS + ("rwkv6-3b",))
+@pytest.mark.parametrize("arch", ARCHS + ("rwkv6-3b", "deepseek-moe-16b",
+                                  "mixtral-8x7b"))
 def test_configs_match_the_jax_package(arch):
     j, t = jget(arch), get_config(arch)
     shared = ("num_layers", "d_model", "num_heads", "num_kv_heads",
               "head_dim", "d_ff", "vocab_size", "pattern", "rope_theta",
               "rotary_pct", "qkv_bias", "qk_norm", "window", "norm", "act",
               "norm_eps", "dtype", "tie_embeddings", "rwkv_head_dim",
-              "rwkv_decay_lora")
+              "rwkv_decay_lora", "moe", "prelude")
+
+    def fields(c):      # MoEConfig is each package's own dataclass
+        return {f: (dataclasses.asdict(getattr(c, f))
+                    if f == "moe" and c.moe is not None else getattr(c, f))
+                for f in shared}
+
     for cj, ct in ((j, t), (j.reduced(), t.reduced())):
-        assert {f: getattr(cj, f) for f in shared} \
-            == {f: getattr(ct, f) for f in shared}
+        assert fields(cj) == fields(ct)
     assert t.param_count() == j.param_count()
 
 
 def test_unported_archs_name_the_roadmap():
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("mixtral-8x7b")
+        get_config("jamba-1.5-large-398b")
     cfg = get_config("qwen3-14b").reduced(pattern=(("mamba", "dense"),))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(cfg, "cpu")
