@@ -31,19 +31,32 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    attention-free ``rwkv6-3b`` (32 layers, d_model 2560, 3.1 B) and the
    mixture-of-experts ``deepseek-moe-16b`` (28 layers: a dense prelude
    layer, then 27 of 64 routed experts, top-6, and 2 shared ones; d_model
-   2048, 16.4 B), each at its published width and depth in bfloat16 from
-   the port's seeded init on the card, ``serve_batch`` with batch 4,
-   prompt 2048 and 32 greedy tokens, counting its prefill kernel's launches
-   (``flash_attention`` or ``rwkv6``, one per layer of the prefill, each
-   on the bf16 tensor-core kernel); a
-   profiled prefill and four profiled decode steps (device busy share,
-   kernels by device time, and the prefill kernel's share of the device
-   time); and the first 2 layers of the same weights (deepseek's prelude
-   and its first MoE layer) in float32 at prompt 256, whose last-position
-   prefill logits through the
-   kernel and through the plain path (materialised attention, or the
-   chunked WKV in torch ops) must agree to 1e-3 of the largest logit
-   (counting the float32 kernels' launches).
+   2048, 16.4 B), each at its published width and depth; then, at their
+   published widths, the hybrid ``jamba-1.5-large-398b`` cut to the first
+   5 layers of its 8-layer period (4 Mamba layers and the attention
+   layer; 2 MoE and 3 dense MLPs; d_model 8192, Mamba inner width 16384,
+   24.1 B) and ``mixtral-8x7b`` cut to 16 of its 32 layers (8 experts
+   top-2, a 4,096-token sliding window, 23.5 B) at batch 2 and prompt
+   6144, so that its prefill runs the windowed kernel and its decode
+   wraps the ring cache (``SERVE_CUT_WHY`` says why each is cut; a cut
+   keeps a prefix of the layers).  Each in bfloat16 from the port's
+   seeded init on the card, through ``serve_model`` with batch 4, prompt
+   2048 and 32 greedy tokens unless ``SERVE_SHAPE`` says otherwise,
+   counting its prefill kernel's launches (``flash_attention`` or
+   ``rwkv6``, one per layer of its mixer, each on the bf16 tensor-core
+   kernel) and checking the peak memory against 75 GB; a profiled
+   prefill (device busy share, kernels by device time, the prefill
+   kernel's share of the device time, and the device time split by the
+   PyTorch call that launched it: the Mamba scan, the MoE layer, the
+   rest, each into cuBLAS and other kernels; the port's own kernels,
+   launched outside any PyTorch op, unattributed) and four profiled
+   decode steps; and 2 layers of the same weights in float32 (the first
+   2, deepseek's prelude and its first MoE layer; jamba's Mamba layer 0
+   and its attention layer 4; ``CHECK``) at prompt 256 (mixtral: batch
+   1, prompt 4608, past its window), whose last-position prefill logits
+   through the kernel and through the plain path (materialised
+   attention, or the chunked WKV in torch ops) must agree to 1e-3 of the
+   largest logit (counting the float32 kernels' launches).
    Each architecture's weights are freed before the next one's.
 4. ``bloom`` — the blocked-Bloom probe through its own entry points (no
    path of the system calls it), at RocksDB's cache-local Bloom filter
@@ -60,10 +73,12 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    ``dual_solve`` to rel 1e-5 in value and in the envelope gradient it
    writes, with the share of lanes bit-equal to the plain version,
    ``flash_attention`` to 2e-2 in
-   bfloat16 and 2e-5 in float32, each case naming the kernel that served
-   it, ``rwkv6`` to 5e-2 in bfloat16 at the model's, a slow and a fast
-   decay and 5e-4 in float32 on y and the final state, each case naming
-   its kernel, the float32 one timed as a row of its own), with the
+   bfloat16 (jamba's 64/8 heads at its prefill and mixtral's 32/8 at
+   (2, 6144) with its 4,096 window among the cases) and 2e-5 in float32,
+   each case naming the kernel that served it, ``rwkv6`` to 5e-2 in
+   bfloat16 at the model's, a slow and a fast decay and 5e-4 in float32
+   on y and the final state, each case naming its kernel, the float32 one
+   timed as a row of its own), with the
    CUDA-event time per call
    (``ms``: what a caller waits, host launch included), the kernel's own
    device time from a profiler trace (``device_ms``; a trace without the
@@ -187,16 +202,19 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    it must launch none of them): ``rwkv6-3b`` at its published width and
    depth through ``train_loop``, and through ``make_train_step``
    ``qwen3-14b`` at its published width with its first 4 of 40 layers
-   (full depth's training state is 177 GB) and ``deepseek-moe-16b`` with
+   (full depth's training state is 177 GB), ``deepseek-moe-16b`` with
    its prelude and 3 MoE layers (2.27 B parameters; full depth's state is
-   197 GB), each bf16 with ``remat="full"``, batch 8 x 512 tokens, 4
+   197 GB) and ``jamba-1.5-large-398b`` with its first layer (Mamba and a
+   dense MLP, 2.08 B; a second layer brings a 9.66 B MoE MLP), each bf16
+   with ``remat="full"``, batch 8 x 512 tokens, 4
    steps from the pipeline (each step's loss, MoE auxiliary loss and
    gradient norm finite, the walls after the first, tokens/s, peak
-   memory, a
+   memory under 75 GB, a
    snapshotted weight moved; one profiled step: busy share, top kernels);
-   the reduced float32 models' (``rwkv6-3b``, ``qwen3-14b`` and
-   ``deepseek-moe-16b``) 3 train steps on the card and the CPU from the
-   same weights and batches (losses and aux rel 1e-5, gradient norms
+   the reduced float32 models' (``rwkv6-3b``, ``qwen3-14b``,
+   ``deepseek-moe-16b`` and one 8-layer period of
+   ``jamba-1.5-large-398b``) 3 train steps on the card and the CPU from
+   the same weights and batches (losses and aux rel 1e-5, gradient norms
    rel 1e-4, parameters within 6 lr); and a checkpointed ``train_loop``
    (reduced ``qwen3-14b``, 24 steps, a save every 2) with a restore of
    the last save (bit for bit), whose manifest's ``dual_solve`` launches
@@ -309,9 +327,29 @@ _MEMORY_RUN: dict = {}
 # the robust_sharding phase: seeded synthetic layout candidates x GRID_RHOS
 LAYOUT_CANDIDATES = 64
 MERGE_N, READ_BATCH = 5_000_000, 1_000_000
-# (arch, the kernel its prefill runs once per layer)
+# (arch, the kernel its prefill runs once per layer of its mixer)
 SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"),
-         ("deepseek-moe-16b", "flash_attention"))
+         ("deepseek-moe-16b", "flash_attention"),
+         ("jamba-1.5-large-398b", "flash_attention"),
+         ("mixtral-8x7b", "flash_attention"))
+# the mixer whose layers launch each prefill kernel
+KERNEL_MIXER = {"flash_attention": "attn", "rwkv6": "rwkv"}
+# the served archs cut in depth (the first n of their layers), and why
+SERVE_CUT_LAYERS = {"jamba-1.5-large-398b": 5, "mixtral-8x7b": 16}
+SERVE_CUT_WHY = {
+    "jamba-1.5-large-398b": "full depth is 397.5 B params (795 GB of bf16 "
+                            "weights) against the card's 80 GB; the "
+                            "period's first 5 layers (4 Mamba, the "
+                            "attention layer; 2 MoE and 3 dense MLPs) are "
+                            "24.0 B (48 GB); 6 layers (34.0 B, 68 GB) leave "
+                            "no room for the prefill and the float32 check",
+    "mixtral-8x7b": "full depth is 46.70 B params (93.4 GB of bf16 weights) "
+                    "against the card's 80 GB; 16 of 32 layers are 23.48 B "
+                    "(47.0 GB)"}
+# (batch, prompt) of the archs served at another shape: mixtral's prompt
+# is 1.5 x its 4,096-token window, so that the prefill runs the windowed
+# kernel and decode wraps the ring cache
+SERVE_SHAPE = {"mixtral-8x7b": (2, 6144)}
 # a part of each kernel's CUDA name, as a profiler trace records it; the
 # bf16 flash_attention kernel is the one the bf16 serving path launches
 CUDA_NAMES = {"dual_solve": "dual_solve_warm_kernel",
@@ -329,10 +367,21 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 # interval
 TRAIN_REDUCED = False
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
-TRAIN_CUT_LAYERS = {"qwen3-14b": 4, "deepseek-moe-16b": 4}
+TRAIN_CUT_LAYERS = {"qwen3-14b": 4, "deepseek-moe-16b": 4,
+                    "jamba-1.5-large-398b": 1}
+# the reduced models trained card against CPU, and the layers they keep
+# (jamba: one 8-layer period)
+TRAIN_CHECK_ARCHS = {"rwkv6-3b": None, "qwen3-14b": None,
+                     "deepseek-moe-16b": None, "jamba-1.5-large-398b": 8}
 TRAIN_CHECK_STEPS = 3
 TRAIN_CKPT_STEPS, TRAIN_CKPT_INTERVAL = 24, 2
 CHECK_LAYERS, CHECK_PROMPT = 2, 256
+# the float32 check's (layers of the served weights, batch, prompt) where
+# not (the first CHECK_LAYERS, SERVE_BATCH, CHECK_PROMPT): jamba's
+# Mamba/dense layer 0 and its attention layer 4; mixtral's 2 layers past
+# its window
+CHECK = {"jamba-1.5-large-398b": ((0, 4), SERVE_BATCH, CHECK_PROMPT),
+         "mixtral-8x7b": ((0, 1), 1, 4608)}
 # the bloom phase: RocksDB's format_version=5 cache-local Bloom filter
 # (512-bit blocks, its default 10 bits per key) over 10 M keys, k from
 # lsm/bloom.py::bloom_params (round(10 ln 2) = 7); 1 M probes, one read
@@ -349,7 +398,9 @@ FLASH_BF16_CASES = [((2, 1531, 40, 8, 128), True, None),      # ragged S
                     ("phi3-mini-3.8b", True, None),           # d 96, H = KV
                     ("glm4-9b", True, None),                  # GQA group 16
                     ("deepseek-moe-16b", True, None),         # its prefill
-                    ((2, 2048, 40, 8, 128), True, 512)]       # window
+                    ((2, 2048, 40, 8, 128), True, 512),       # window
+                    ("jamba-1.5-large-398b", True, None),     # its prefill
+                    ((2, 6144, 32, 8, 128), True, 4096)]      # mixtral's
 # rwkv6 decays, (mean, sd) of ww with logw = -exp(ww): the model's init,
 # a slow one (exp(logw) ~ 0.993) and a fast one (logw ~ -7.4, where a
 # one-level chunked split overflows); bf16 runs each at the prefill's shape
@@ -401,7 +452,7 @@ def time_ms(torch, fn, iters: int) -> float:
 
 
 def cuda_events(torch, fn, calls: int = 0, tries: int = 3,
-                lead=None) -> tuple:
+                lead=None, traces=None) -> tuple:
     """Host wall seconds of ``fn`` (up to a synchronise) and the CUDA
     activities a ``torch.profiler`` trace of it records, as (name, device
     µs) pairs.  Late in this script a trace does not record the first one
@@ -416,7 +467,8 @@ def cuda_events(torch, fn, calls: int = 0, tries: int = 3,
     first launch of a kernel in it (one fold step of ten, its copy kept):
     ``lead``, when given, launches ``fn``'s kernels once after the
     throwaway launches, and only the events that start after one more
-    ``spin_kernel``, launched once ``lead`` is done, are kept."""
+    ``spin_kernel``, launched once ``lead`` is done, are kept.  The
+    profiler of the trace returned is appended to ``traces`` when given."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(tries):
@@ -437,14 +489,17 @@ def cuda_events(torch, fn, calls: int = 0, tries: int = 3,
         spins = [e.time_range.start for e in device
                  if "spin_kernel" in e.name]
         after = max(spins) if lead is not None and spins else float("-inf")
+        # a SCOPES label's range shows among the device events too
         events = [(e.name, e.time_range.elapsed_us()) for e in device
-                  if "spin_kernel" not in e.name
+                  if "spin_kernel" not in e.name and e.name not in SCOPES
                   and e.time_range.start > after]
         counts = {}
         for name, _ in events:
             counts[name] = counts.get(name, 0) + 1
         short = {n[:60]: c for n, c in counts.items() if calls and c % calls}
         if events and not short:
+            if traces is not None:
+                traces.append(prof)
             return wall, events
         log(f"cuda_events: trace {attempt + 1} of {tries} holds "
             f"{len(events)} CUDA events" + (f"; for {calls} calls, counts "
@@ -491,14 +546,76 @@ def launch_floor_ms(torch) -> float:
     return per_call(torch, lambda: one.add_(1), 50, "")["device_ms"]
 
 
-def profile_device(torch, fn, kernel: str = "") -> dict:
+# where a prefill's device time goes: kernels by the call that launched
+# them (these functions, through a profiler scope) and by name
+SCOPES = {"mamba_scan": ("repro_torch.models.mamba", "_ssm"),
+          "moe": ("repro_torch.models.moe", "apply_moe")}
+CUBLAS_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")
+
+
+@contextlib.contextmanager
+def _scoped(torch):
+    """While open, each function of ``SCOPES`` runs inside a
+    ``record_function`` range of its label."""
+    import importlib
+    saved = []
+    for label, (mod, attr) in SCOPES.items():
+        m = importlib.import_module(mod)
+        real = getattr(m, attr)
+
+        def scoped(*args, _real=real, _label=label, **kw):
+            with torch.profiler.record_function(_label):
+                return _real(*args, **kw)
+
+        setattr(m, attr, scoped)
+        saved.append((m, attr, real))
+    try:
+        yield
+    finally:
+        for m, attr, real in saved:
+            setattr(m, attr, real)
+
+
+def caller_split(prof) -> dict:
+    """Device ms of a trace's kernels by the PyTorch op that launched them:
+    under a ``SCOPES`` label or not (``rest``), each into cuBLAS and other
+    kernels (``moe:cublas``, the experts' products; ``moe:other``, its
+    routing and indexing; ``mamba_scan:other``, the scan's elementwise
+    kernels).  A kernel launched outside any op (the port's own, through
+    ``ctypes``) is in none of them."""
+    split: dict = {}
+
+    def walk(evt, scope):
+        scope = evt.name if evt.name in SCOPES else scope
+        for k in evt.kernels:
+            if "spin_kernel" in k.name:
+                continue
+            kind = "cublas" if any(c in k.name for c in CUBLAS_NAMES) \
+                else "other"
+            key = f"{scope}:{kind}"
+            split[key] = split.get(key, 0.0) + k.duration / 1e3
+        for c in evt.cpu_children:
+            walk(c, scope)
+
+    for evt in prof.events():
+        if evt.cpu_parent is None:
+            walk(evt, "rest")
+    return {k: split[k] for k in sorted(split)}
+
+
+def profile_device(torch, fn, kernel: str = "",
+                   by_caller: bool = False) -> dict:
     """Host wall time of ``fn`` (up to a synchronise) and the CUDA kernels
     a ``torch.profiler`` trace records in it: their summed device time,
     its share of the wall time, their count, and the six largest by name
     (device fields None when the profiler records no device time); with
     ``kernel``, also the device time of the kernels whose name contains it,
-    their share of the device time and their count."""
-    wall, events = cuda_events(torch, fn, tries=1)
+    their share of the device time and their count; with ``by_caller``,
+    the trace is taken under ``_scoped`` and ``by_caller_ms`` splits the
+    device time by the call that launched each kernel (``caller_split``)."""
+    traces: list = []
+    with _scoped(torch) if by_caller else contextlib.nullcontext():
+        wall, events = cuda_events(torch, fn, tries=1, traces=traces)
     busy_s = sum(us for _, us in events) / 1e6
     top = {}
     for name, us in events:
@@ -512,6 +629,10 @@ def profile_device(torch, fn, kernel: str = "") -> dict:
         out[f"{kernel}_ms"] = ms
         out[f"{kernel}_share"] = ms / 1e3 / busy_s if events else None
         out[f"{kernel}_count"] = sum(kernel in name for name, _ in events)
+    if by_caller and traces:
+        split = caller_split(traces[0])
+        split["unattributed"] = busy_s * 1e3 - sum(split.values())
+        out["by_caller_ms"] = split
     return out
 
 
@@ -889,14 +1010,29 @@ def _to_f32(tree):
     return tree.detach().float()
 
 
+def cut_depth(cfg, n, lm):
+    """``cfg`` with its first ``n`` layers: a prefix of
+    ``lm.layer_kinds(cfg)`` (the prelude, then the pattern's entries)."""
+    kinds = lm.layer_kinds(cfg)
+    return cfg.replace(num_layers=n, pattern=kinds[len(cfg.prelude):n])
+
+
 def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
-    """``arch`` at full width: ``serve_batch`` on the port's seeded bf16
-    weights, counting ``kernel``'s launches, then the kernel path against
-    the plain path on 2 float32 layers of the same weights."""
+    """``arch`` at full width (cut in depth where ``SERVE_CUT_LAYERS``
+    says): ``serve_model`` on the port's seeded bf16 weights, counting
+    ``kernel``'s launches (one per layer of its mixer), then the kernel
+    path against the plain path on 2 float32 layers of the same weights
+    (``CHECK``)."""
     cfg = configs.get_config(arch)
     if SERVE_REDUCED:
         cfg = cfg.reduced()
-    log(f"serve: init {cfg.name}")
+    published = cfg.num_layers
+    if arch in SERVE_CUT_LAYERS:
+        cfg = cut_depth(cfg, min(SERVE_CUT_LAYERS[arch], published), lm)
+    kinds = lm.layer_kinds(cfg)
+    n_kernel = sum(m == KERNEL_MIXER[kernel] for m, _ in kinds)
+    batch, prompt = SERVE_SHAPE.get(arch, (SERVE_BATCH, SERVE_PROMPT))
+    log(f"serve: init {cfg.name}, {cfg.num_layers} of {published} layers")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     model = models.build_model(cfg, DEVICE, seed=0)
@@ -906,53 +1042,59 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
     n_params = sum(p.numel() for p in model.parameters())
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    args = (arch, SERVE_REDUCED, SERVE_BATCH)
     log("serve: warm-up (prompt 128, 2 tokens)")
-    serve.serve_batch(*args, 128, 2, seed=1, device=DEVICE, params=params)
-    log(f"serve: batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
-        f"gen {SERVE_GEN}")
+    serve.serve_model(model, batch, 128, 2, seed=1)
+    log(f"serve: batch {batch}, prompt {prompt}, gen {SERVE_GEN}")
     build.reset_launches()
-    out = serve.serve_batch(*args, SERVE_PROMPT, SERVE_GEN, seed=0,
-                            device=DEVICE, params=params)
+    out = serve.serve_model(model, batch, prompt, SERVE_GEN, seed=0)
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check(launches[kernel] == cfg.num_layers,
+    check(launches[kernel] == n_kernel,
           f"{kernel} launched {launches[kernel]} times in one prefill, "
-          f"expected {cfg.num_layers}")
+          f"expected {n_kernel}")
     tc = launches[f"{kernel}:bf16_tc"]
-    check(tc == cfg.num_layers, f"the bf16 tensor-core kernel served {tc} "
-          f"of the prefill's {cfg.num_layers} {kernel} launches")
+    check(tc == n_kernel, f"the bf16 tensor-core kernel served {tc} "
+          f"of the prefill's {n_kernel} {kernel} launches")
+    check(peak < 75e9, f"{cfg.name} serving peaks at {peak / 1e9:.1f} GB")
     toks = out["tokens"]
-    check(toks.shape == (SERVE_BATCH, SERVE_GEN), f"tokens {toks.shape}")
+    check(toks.shape == (batch, SERVE_GEN), f"tokens {toks.shape}")
     check(bool((toks >= 0).all() and (toks < cfg.vocab_size).all()),
           "a generated token lies outside the vocabulary")
     check(out["logits_finite"], "a logit is not finite")
 
     log("serve: profiled prefill and decode steps")
     tokens = torch.as_tensor(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=DEVICE)
+        0, cfg.vocab_size, (batch, prompt)), device=DEVICE)
     prefill_prof = profile_device(torch, lambda: model.prefill(tokens),
-                                  CUDA_NAMES[kernel])
-    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+                                  CUDA_NAMES[kernel], by_caller=True)
+    cache = model.init_cache(batch, prompt + SERVE_GEN)
+    slots = {c["mixer"]["k"].shape[1] for c in cache if "k" in c["mixer"]}
     step_tok = tokens[:, :1]
 
     def decode_steps(n=4):
         for i in range(n):
-            model.decode_step(cache, step_tok, SERVE_PROMPT + i)
+            model.decode_step(cache, step_tok, prompt + i)
 
     decode_steps(1)
     decode_prof = profile_device(torch, decode_steps)
     del cache, tokens
 
-    log(f"serve: {CHECK_LAYERS} float32 layers, kernel vs plain path")
+    layers, cbatch, cprompt = CHECK.get(
+        arch, (tuple(range(CHECK_LAYERS)), SERVE_BATCH, CHECK_PROMPT))
+    log(f"serve: float32 layers {layers}, kernel vs plain path")
     small = _to_f32({"embed": params["embed"],
                      "final_norm": params["final_norm"],
                      "lm_head": params["lm_head"],
-                     "layers": params["layers"][:CHECK_LAYERS]})
-    cfg32 = cfg.replace(num_layers=CHECK_LAYERS, dtype="float32",
-                        param_dtype="float32")
+                     "layers": [params["layers"][i] for i in layers]})
+    cfg32 = cfg.replace(num_layers=len(layers), prelude=(),
+                        pattern=tuple(kinds[i] for i in layers),
+                        dtype="float32", param_dtype="float32")
+    n_f32 = sum(m == KERNEL_MIXER[kernel] for m, _ in cfg32.pattern)
+    del model, params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     prompts = np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, CHECK_PROMPT))
+        0, cfg.vocab_size, (cbatch, cprompt))
     tokens = torch.as_tensor(prompts, dtype=torch.int64, device=DEVICE)
     build.reset_launches()
     with torch.no_grad():
@@ -960,19 +1102,27 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
         plain, _ = lm.lm_prefill(small, {"tokens": tokens},
                                  cfg32.replace(attention_impl="plain"))
     f32_launches = build.LAUNCHES[f"{kernel}:f32_cuda_core"]
-    check(f32_launches == CHECK_LAYERS, f"the float32 {kernel} kernel "
-          f"launched {f32_launches} times in {CHECK_LAYERS} float32 layers")
+    check(f32_launches == n_f32, f"the float32 {kernel} kernel "
+          f"launched {f32_launches} times in {len(layers)} float32 layers, "
+          f"expected {n_f32}")
     diff = (kern - plain).abs().max().item()
     top = plain.abs().max().item()
     check(diff <= 1e-3 * top, f"{arch} prefill logits, kernel vs plain "
           f"path: max |diff| {diff} > 1e-3 * max |logit| {top}")
-    del model, params, small, kern, plain
+    check_peak = torch.cuda.max_memory_allocated()
+    check(check_peak < 75e9, f"{cfg.name}'s float32 check peaks at "
+          f"{check_peak / 1e9:.1f} GB")
+    del small, kern, plain
     torch.cuda.empty_cache()
     return {"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+            "published_layers": published,
+            "cut": SERVE_CUT_WHY.get(arch),
+            "kinds": [list(k) for k in kinds],
             "d_model": cfg.d_model, "params": n_params,
-            "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+            "batch": batch, "prompt_len": prompt,
             "gen": SERVE_GEN, "weight_gb": weight_bytes / 1e9,
             "cache_mb": out["kv_cache_bytes"] / 1e6,
+            "kv_slots": sorted(slots), "window": cfg.window,
             "peak_allocated_gb": peak / 1e9, "init_s": t_init,
             "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
             "decode_tok_per_s": out["tok_per_s"],
@@ -981,10 +1131,12 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
             "first_tokens": toks[0, :8].tolist(),
             "prefill_profile": prefill_prof,
             "decode_profile_4_steps": decode_prof,
-            "f32_check": {"layers": CHECK_LAYERS, "prompt": CHECK_PROMPT,
+            "f32_check": {"layers": list(layers), "batch": cbatch,
+                          "prompt": cprompt,
                           "f32_kernel_launches": f32_launches,
                           "max_abs_diff": diff, "max_abs_logit": top,
-                          "rel": diff / top}}
+                          "rel": diff / top,
+                          "peak_allocated_gb": check_peak / 1e9}}
 
 
 # -- phase 13: training (run last) ---------------------------------------------
@@ -1023,7 +1175,9 @@ def _moved(before: dict, params) -> dict:
 SNAPSHOT = {"rwkv6-3b": ("0.mixer.wr", "0.mlp.wk"),
             "qwen3-14b": ("0.mixer.wq", "0.mlp.wi_up"),
             "deepseek-moe-16b": ("0.mlp.wi_up", "1.mlp.router",
-                                 "1.mlp.wi_gate")}
+                                 "1.mlp.wi_gate"),
+            "jamba-1.5-large-398b": ("0.mixer.in_proj", "0.mixer.out_proj",
+                                     "0.mlp.wi_up")}
 # why a run is cut in depth: its full depth's training state (bf16 weights
 # and gradients, float32 AdamW moments: 12 bytes a parameter) on the card
 CUT_WHY = {"qwen3-14b": "full depth needs 14.77 B params x 12 bytes (bf16 "
@@ -1032,7 +1186,13 @@ CUT_WHY = {"qwen3-14b": "full depth needs 14.77 B params x 12 bytes (bf16 "
            "deepseek-moe-16b": "full depth needs 16.38 B params x 12 bytes "
                                "(bf16 weights and gradients, float32 AdamW "
                                "moments) = 197 GB of training state against "
-                               "the card's 80 GB"}
+                               "the card's 80 GB",
+           "jamba-1.5-large-398b": "one layer (Mamba/dense) is 2.08 B params "
+                                   "x 12 bytes (bf16 weights and gradients, "
+                                   "float32 AdamW moments) = 25 GB of "
+                                   "training state; a second brings a "
+                                   "9.66 B MoE MLP: 146 GB against the "
+                                   "card's 80 GB"}
 
 
 def _snapshot(params, names) -> dict:
@@ -1099,11 +1259,12 @@ def train_cut(torch, build, TT, adamw, models, DataConfig, shard_batch_at,
               arch):
     """``arch`` at its published width with its first
     ``TRAIN_CUT_LAYERS[arch]`` layers (deepseek-moe-16b's prelude and 3 MoE
-    layers), through ``make_train_step`` on the pipeline's batches, then
-    one profiled step."""
+    layers; jamba's Mamba/dense layer), through ``make_train_step`` on the
+    pipeline's batches, then one profiled step."""
+    from repro_torch.models import lm
     cfg = TT.train_config(arch, TRAIN_REDUCED)
     published = cfg.num_layers
-    cfg = cfg.replace(num_layers=min(TRAIN_CUT_LAYERS[arch], published))
+    cfg = cut_depth(cfg, min(TRAIN_CUT_LAYERS[arch], published), lm)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     log(f"train: {arch}, {cfg.num_layers} of {published} layers")
@@ -1151,9 +1312,12 @@ def train_card_vs_cpu(torch, TT, adamw, models, DataConfig, shard_batch_at,
                       tree):
     """The reduced float32 model's ``TRAIN_CHECK_STEPS`` steps on the card
     and on the CPU from the same weights and batches."""
+    from repro_torch.models import lm
     out = {}
-    for arch in ("rwkv6-3b", "qwen3-14b", "deepseek-moe-16b"):
+    for arch, layers in TRAIN_CHECK_ARCHS.items():
         cfg = TT.train_config(arch, reduced=True)
+        if layers is not None:
+            cfg = cut_depth(cfg, layers, lm)
         init = models.build_model(cfg, "cpu", seed=0).params
         runs = {}
         for dev in ("cpu", DEVICE):
@@ -1195,7 +1359,8 @@ def train_card_vs_cpu(torch, TT, adamw, models, DataConfig, shard_batch_at,
               f"{arch} reduced train steps, card vs CPU: loss rel "
               f"{loss_rel}, aux rel {aux_rel}, grad norm rel {norm_rel}, "
               f"params {param_abs}")
-        out[arch] = {"steps": TRAIN_CHECK_STEPS, "loss_rel": loss_rel,
+        out[arch] = {"layers": cfg.num_layers,
+                     "steps": TRAIN_CHECK_STEPS, "loss_rel": loss_rel,
                      "aux_rel": aux_rel,
                      "grad_norm_rel": norm_rel, "param_max_abs": param_abs,
                      "param_tol": 2 * TRAIN_CHECK_STEPS * lr,
@@ -1321,9 +1486,10 @@ def train_checkpointed(torch, build, TT, convert, tree):
 
 def phase_train(torch, build, models) -> dict:
     """The trainer on the card: full-width ``rwkv6-3b``, a 4-layer
-    ``qwen3-14b`` and ``deepseek-moe-16b`` (its prelude and 3 MoE layers),
-    the reduced models card against CPU, and a checkpointed run whose
-    manifest runs the engine's kernels."""
+    ``qwen3-14b``, ``deepseek-moe-16b`` (its prelude and 3 MoE layers) and
+    a 1-layer ``jamba-1.5-large-398b``, the reduced models card against
+    CPU, and a checkpointed run whose manifest runs the engine's
+    kernels."""
     from repro_torch import convert
     from repro_torch.data.pipeline import DataConfig, shard_batch_at
     from repro_torch.launch import train as TT
@@ -1908,7 +2074,8 @@ def point_read_main(torch, np) -> int:
 def kernel_flash_attention(torch, configs, ops, ref, build, dev, arch):
     """The serving prefill's shape (B 4, S 2048, H 40, KV 8, d 128, bf16,
     causal) and the bf16 cases of ``FLASH_BF16_CASES`` (a ragged S, d 96
-    with H = KV, a GQA group of 16, a 512 window) to 2e-2, and the float32
+    with H = KV, a GQA group of 16, a 512 window, jamba's 64/8 heads,
+    mixtral's 4,096 window at (2, 6144)) to 2e-2, and the float32
     cases of ``FLASH_F32_CASES`` (d 64 with a 512 window, d 96 non-causal,
     a ragged S) to 2e-5; each case names the kernel whose launch count
     moved (``bf16_tc`` or ``f32_cuda_core``)."""

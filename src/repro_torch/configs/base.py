@@ -9,8 +9,7 @@ JAX package's, with two differences:
 * ``encoder`` stays ``None``: ``EncoderConfig``, ``SHAPES`` and
   ``shape_applicable`` come with the families that need them (ROADMAP.md
   queue 1 item 6); :meth:`ModelConfig.reduced` raises for a config with an
-  encoder tower or M-RoPE, and :meth:`ModelConfig.param_count` for a
-  ``mamba`` mixer.
+  encoder tower or M-RoPE.
 * ``attention_impl`` names the port's two prefill paths: ``"flash"`` (the
   default; the hand-written kernels on the card and their plain versions
   on the CPU: ``kernels/flash_attention`` for attention and
@@ -99,6 +98,10 @@ class ModelConfig:
                              f"divisible by pattern {len(self.pattern)}")
         return n_scan // len(self.pattern)
 
+    @property
+    def d_inner_mamba(self) -> int:
+        return self.mamba_expand * self.d_model
+
     def moe_param_count(self) -> int:
         if self.moe is None:
             return 0
@@ -109,24 +112,24 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Approximate total parameter count N, the JAX package's count
-        for ``attn``/``rwkv`` mixers and ``dense``/``moe``/``rwkv_ffn``
-        MLPs."""
+        for ``attn``/``mamba``/``rwkv`` mixers and ``dense``/``moe``/
+        ``rwkv_ffn`` MLPs."""
         d, hd = self.d_model, self.head_dim
+        di = self.d_inner_mamba
         attn = d * (self.num_heads * hd) * 2 \
             + d * (self.num_kv_heads * hd) * 2
         dense_mlp = 3 * d * self.d_ff if self.act == "swiglu" \
             else 2 * d * self.d_ff
+        mamba = (d * 2 * di                                   # in_proj
+                 + di * (self.mamba_d_conv + self.mamba_d_state * 2 + 2)
+                 + di * d)                                    # out_proj
         rwkv = 5 * d * d + 2 * d * self.rwkv_decay_lora  # r,k,v,g,o + LoRA
-        mixers = {"attn": attn, "rwkv": rwkv}
+        mixers = {"attn": attn, "mamba": mamba, "rwkv": rwkv}
         mlps = {"dense": dense_mlp, "moe": self.moe_param_count(),
                 "rwkv_ffn": 2 * d * self.d_ff + d * d}
         total = 0
         for mixer, mlp in self.prelude + tuple(self.pattern) * \
                 self.n_repeats:
-            if mixer not in mixers or mlp not in mlps:
-                raise NotImplementedError(
-                    f"{self.name}: ({mixer}, {mlp}) blocks are not ported "
-                    "yet (ROADMAP.md queue 1 item 6)")
             total += mixers[mixer] + mlps[mlp] + 2 * d   # + 2 norms
         return total + self.vocab_size * d * (
             1 if self.tie_embeddings else 2)

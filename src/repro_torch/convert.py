@@ -11,14 +11,17 @@ field) and passes them in.
   and run metadata, the value codec's intern table, the write buffer, the
   I/O counters and the flush clock.  Keys become the ordered int64 form
   of the device arenas; Bloom words, where given, are carried bit for bit.
-* :func:`lm_params_from_numpy` — an LM's parameters (dense, MoE or
-  RWKV-6) from the JAX package's ``init_lm`` tree (``np.asarray`` on each
-  leaf): its ``prelude`` list and its stacked layers become the port's one
-  list of per-layer dicts, prelude first (an expert weight stacked as
-  ``(n_rep, E, d, ef)`` becomes ``(E, d, ef)`` in each layer); every leaf
-  keeps its dtype (RWKV's float32 ``w_base`` and ``u`` and the MoE
-  router's float32 in a bfloat16 model stay float32) and every sub-dict
-  (``mixer``, ``mlp``, ``mlp/shared``) comes along.  :func:`lm_params_from_reference` does the same from the
+* :func:`lm_params_from_numpy` — an LM's parameters (dense, MoE, RWKV-6
+  or the Mamba hybrid) from the JAX package's ``init_lm`` tree
+  (``np.asarray`` on each leaf): its ``prelude`` list and its stacked
+  layers become the port's one list of per-layer dicts, prelude first,
+  then the pattern's ``sub<j>`` stacks interleaved in execution order
+  (Jamba's eight; an expert weight stacked as ``(n_rep, E, d, ef)``
+  becomes ``(E, d, ef)`` in each layer); every leaf keeps its dtype
+  (RWKV's float32 ``w_base`` and ``u``, Mamba's float32 ``dt_bias``,
+  ``A_log`` and ``D`` and the MoE router's float32 in a bfloat16 model
+  stay float32) and every sub-dict (``mixer``, ``mlp``, ``mlp/shared``)
+  comes along.  :func:`lm_params_from_reference` does the same from the
   reference's layout in torch tensors.
 * :func:`lm_params_to_reference` and :func:`lm_params_to_numpy` — the
   way back: the port's per-layer list split into the reference's

@@ -1,11 +1,14 @@
 """Batched serving: prefill a batch of prompts, then decode greedily.
 
-The port of ``repro/launch/serve.py`` for the dense and MoE decoders
-and RWKV-6.  The decode cache is allocated once (attention k/v at
-``prompt_len + gen`` positions, the RWKV state and last rows at their
-fixed size) and the prefill's cache is written into it in place
+The port of ``repro/launch/serve.py`` for the dense and MoE decoders,
+RWKV-6 and the Mamba hybrid.  The decode cache is allocated once
+(attention k/v at ``prompt_len + gen`` positions, or a ring of ``window``
+slots; the RWKV state and last rows and the Mamba conv window and state at
+their fixed size) and the prefill's cache is written into it in place
 (:func:`write_prefill_cache`), which takes the place of the JAX package's
-``pad_cache_to``.  Times are host wall clock up to a device synchronise.
+``pad_cache_to``.  :func:`serve_batch` builds the model by name;
+:func:`serve_model` serves one already built (a config cut in depth, say).
+Times are host wall clock up to a device synchronise.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
           --reduced --device cpu
@@ -13,6 +16,8 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
           --reduced --device cpu
       PYTHONPATH=src python -m repro_torch.launch.serve \\
           --arch deepseek-moe-16b --reduced --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve \\
+          --arch jamba-1.5-large-398b --reduced --device cpu
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..models import build_model
+from ..models import LM, build_model
 
 
 def _sync(device: torch.device) -> None:
@@ -50,7 +55,8 @@ def write_prefill_cache(cache: List[Dict[str, Any]],
                         prefill_cache: List[Dict[str, Any]]) -> None:
     """Copy every tensor of each layer's prefill cache into the decode
     cache: attention k/v along the sequence (:func:`_write_kv`), anything
-    else (the RWKV state, the time and channel mixes' ``x_prev``) whole."""
+    else (the RWKV state, the time and channel mixes' ``x_prev``, the
+    Mamba conv window and state) whole."""
     for c, pc in zip(cache, prefill_cache):
         for part, tensors in pc.items():
             for name, src in tensors.items():
@@ -68,13 +74,21 @@ def serve_batch(arch: str, reduced: bool = True, batch: int = 4,
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and decode
     ``gen`` tokens each, greedily.  ``params`` (``lm.init_lm``'s tree,
     e.g. from ``convert.lm_params_from_numpy``) replaces the seeded init.
-    ``kv_cache_bytes`` in the result counts every tensor of the decode
-    cache, the RWKV state and last rows included."""
+    See :func:`serve_model` for the result."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     model = build_model(cfg, device, seed=seed, params=params)
-    dev = model.device
+    return serve_model(model, batch, prompt_len, gen, seed)
+
+
+def serve_model(model: LM, batch: int = 4, prompt_len: int = 16,
+                gen: int = 16, seed: int = 0) -> Dict[str, Any]:
+    """:func:`serve_batch` on an already built ``model``: ``batch`` prompts
+    drawn from ``seed``, prefilled, then ``gen`` greedy tokens each.
+    ``kv_cache_bytes`` in the result counts every tensor of the decode
+    cache, the RWKV and Mamba states included."""
+    cfg, dev = model.cfg, model.device
     rng = np.random.default_rng(seed)
     max_seq = prompt_len + gen
     prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))

@@ -1,5 +1,5 @@
-"""The LM tier: dense and RWKV-6 blocks (``layers``, ``rwkv``), their
-assembly (``lm``) and ``build_model``."""
+"""The LM tier: dense, MoE, Mamba and RWKV-6 blocks (``layers``, ``moe``,
+``mamba``, ``rwkv``), their assembly (``lm``) and ``build_model``."""
 
 from .model import LM, build_model
 

@@ -1,8 +1,10 @@
 """Decoder-only LM assembly: blocks, the layer loop, the decode cache,
 and the train / prefill / decode entry points.
 
-The port of the ``attn``/``rwkv`` mixer and ``dense``/``moe``/``rwkv_ffn``
-MLP branches of ``repro/models/lm.py``; any pairing of them is a block.
+The port of ``repro/models/lm.py``: the ``attn``/``mamba``/``rwkv`` mixers
+and the ``dense``/``moe``/``rwkv_ffn`` MLPs; any pairing of them is a
+block, and a pattern may mix them (Jamba's period interleaves Mamba,
+attention and MoE blocks).
 Parameters are a dict: ``embed`` (V, d), ``final_norm``, ``lm_head``
 (d, V) and ``layers``, a list with one block dict per layer in execution
 order: the ``cfg.prelude`` blocks first (DeepSeek-MoE's dense first
@@ -11,8 +13,10 @@ the prelude blocks in a list under ``prelude`` and stacks the pattern's
 layers along a leading axis and scans; here a Python loop walks one list,
 and ``convert.py`` maps between the two layouts.)  The cache is a list with
 one dict per layer, in the same order: ``{"mixer": {"k", "v"}}`` for
-attention, ``{"mixer": {"state", "x_prev"}}`` for the RWKV time mix, and
-``"mlp": {"x_prev"}`` beside it for the RWKV channel mix.
+attention, ``{"mixer": {"conv", "ssm"}}`` for Mamba (the last dc-1
+pre-conv inputs and the float32 state), ``{"mixer": {"state",
+"x_prev"}}`` for the RWKV time mix, and ``"mlp": {"x_prev"}`` beside it
+for the RWKV channel mix.
 
 :func:`apply_block` and :func:`apply_stack` return the MoE load-balancing
 auxiliary loss beside ``x`` and the cache, as JAX's do: 0 for a block
@@ -29,8 +33,8 @@ pattern entry); ``"dots"``, a selective checkpoint that keeps the outputs
 of plain matrix products (``aten.mm``/``aten.addmm``) and recomputes the
 rest (its ``dots_with_no_batch_dims_saveable``).
 
-The ``mamba`` kind and stub-embedding or encoder inputs raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Stub-embedding or encoder inputs raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from . import mamba as mamba_mod
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from .layers import (apply_mlp, apply_norm, attention_decode,
@@ -52,21 +57,14 @@ from .layers import (apply_mlp, apply_norm, attention_decode,
 
 Params = Dict[str, Any]
 
-_MIXERS = ("attn", "rwkv")
+_MIXERS = ("attn", "mamba", "rwkv")
 _MLPS = ("dense", "moe", "rwkv_ffn")
-_NOT_PORTED = {
-    "mamba": "mamba and hybrid stacks, ROADMAP.md queue 1 item 6",
-}
 
 
 def _check_kind(kind: Tuple[str, str]) -> None:
-    for part, ported in zip(kind, (_MIXERS, _MLPS)):
-        if part not in ported:
-            where = _NOT_PORTED.get(part)
-            if where is None:
-                raise ValueError(f"unknown block kind {part!r}")
-            raise NotImplementedError(f"block kind {part!r} is not ported "
-                                      f"yet ({where})")
+    for part, known in zip(kind, (_MIXERS, _MLPS)):
+        if part not in known:
+            raise ValueError(f"unknown block kind {part!r}")
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
@@ -98,11 +96,11 @@ def init_block(gen: torch.Generator, kind: Tuple[str, str],
         p_mlp = moe_mod.init_moe(gen, cfg, device=device)
     else:
         p_mlp = rwkv_mod.init_channel_mix(gen, cfg, device=device)
+    init_mixer = {"attn": init_attention, "mamba": mamba_mod.init_mamba,
+                  "rwkv": rwkv_mod.init_time_mix}[mixer]
     return {"norm1": init_norm(cfg, device=device),
             "norm2": init_norm(cfg, device=device),
-            "mixer": (init_attention(gen, cfg, device=device)
-                      if mixer == "attn" else
-                      rwkv_mod.init_time_mix(gen, cfg, device=device)),
+            "mixer": init_mixer(gen, cfg, device=device),
             "mlp": p_mlp}
 
 
@@ -120,6 +118,13 @@ def block_cache_init(kind: Tuple[str, str], cfg: ModelConfig, batch: int,
             "k": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
             "v": torch.zeros((batch, S, KV, hd), dtype=dtype,
                              device=device)}}
+    elif mixer == "mamba":
+        di, ds, dc = cfg.d_inner_mamba, cfg.mamba_d_state, cfg.mamba_d_conv
+        cache = {"mixer": {
+            "conv": torch.zeros((batch, dc - 1, di), dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros((batch, di, ds), dtype=torch.float32,
+                               device=device)}}
     else:
         n = cfg.rwkv_head_dim
         cache = {"mixer": {
@@ -151,6 +156,12 @@ def apply_block(p: Params, x: torch.Tensor, kind: Tuple[str, str],
         else:
             y, new_cache["mixer"] = attention_full(p["mixer"], h, positions,
                                                    cfg)
+    elif mixer == "mamba":
+        if decode:
+            y, new_cache["mixer"] = mamba_mod.mamba_step(p["mixer"], h,
+                                                         cache["mixer"], cfg)
+        else:
+            y, new_cache["mixer"] = mamba_mod.mamba_full(p["mixer"], h, cfg)
     elif decode:
         y, new_cache["mixer"] = rwkv_mod.time_mix_step(p["mixer"], h,
                                                        cache["mixer"], cfg)

@@ -1,13 +1,15 @@
 """``build_model``: a decoder-only LM as an ``nn.Module``.
 
 The port of ``repro/models/model.py::build_model`` for decoder-only
-configs whose blocks ``lm.py`` ports (attention or RWKV-6 time mix, dense,
-mixture-of-experts or RWKV channel-mix MLPs, and DeepSeek-MoE's prelude
-layers, which lead the layer list).  :class:`LM` holds the parameters of
-``lm.init_lm``'s dict tree as ``nn.Parameter``s, so ``state_dict`` and
-``named_parameters`` see them, and exposes the reference's entry points
-over the functions of ``lm.py``: ``loss_fn`` (``ModelAPI.loss_fn``) for
-training, and ``prefill``, ``decode_step`` and ``init_cache`` for serving.
+configs whose blocks ``lm.py`` ports (attention, Mamba or RWKV-6 time mix;
+dense, mixture-of-experts or RWKV channel-mix MLPs; DeepSeek-MoE's prelude
+layers, which lead the layer list; and hybrid patterns that interleave
+them, as Jamba's period of Mamba, attention and MoE blocks does).
+:class:`LM` holds the parameters of ``lm.init_lm``'s dict tree as
+``nn.Parameter``s, so ``state_dict`` and ``named_parameters`` see them,
+and exposes the reference's entry points over the functions of
+``lm.py``: ``loss_fn`` (``ModelAPI.loss_fn``) for training, and
+``prefill``, ``decode_step`` and ``init_cache`` for serving.
 
 The parameters are built frozen (``requires_grad=False``); a trainer calls
 ``model.requires_grad_(True)`` and takes ``model.params``, whose leaves
@@ -52,7 +54,7 @@ def _tree(m: nn.Module):
 
 
 class LM(nn.Module):
-    """A decoder-only LM (dense, MoE or RWKV-6) on one device."""
+    """A decoder-only LM (dense, MoE, RWKV-6 or hybrid) on one device."""
 
     def __init__(self, cfg: ModelConfig, params: Params,
                  device: torch.device):
@@ -75,8 +77,8 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):
         """tokens (B, S) -> (last-position logits (B, 1, V) float32,
-        each layer's cache of the prompt: attention k/v, or the RWKV
-        state and last rows)."""
+        each layer's cache of the prompt: attention k/v, the Mamba conv
+        window and state, or the RWKV state and last rows)."""
         return lm_mod.lm_prefill(self.params, {"tokens": tokens}, self.cfg)
 
     @torch.no_grad()

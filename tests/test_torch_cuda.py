@@ -598,6 +598,98 @@ def test_deepseek_prefill_kernel_path_matches_plain_on_card(dev):
     torch.testing.assert_close(plain.cpu(), cpu, atol=1e-4, rtol=1e-4)
 
 
+def test_mamba_on_card_matches_cpu(dev):
+    """The reduced jamba's Mamba block in float32 (8-step chunks): a
+    32-token ``mamba_full`` (four chunks, the state carried) and 4
+    ``mamba_step``s on its cache, on the card against the CPU from the same
+    weights and inputs, to 1e-5 (sums in another order); the path under
+    autograd gives the chunked path's output to 1e-5 (its h.C products
+    run as one batched product where the chunked path runs one a chunk,
+    which cuBLAS may sum in another order), and its gradients match the
+    CPU's to 1e-4 of each leaf's largest."""
+    from repro_torch.models import mamba
+    cfg = get_config("jamba-1.5-large-398b").reduced(mamba_chunk=8)
+    p = mamba.init_mamba(torch.Generator().manual_seed(3), cfg)
+    x = torch.randn((2, 36, cfg.d_model),
+                    generator=torch.Generator().manual_seed(5))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        pd, xd = _to(p, device), x.to(device)
+        with torch.no_grad():
+            y, cache = mamba.mamba_full(pd, xd[:, :32], cfg)
+            steps = [mamba.mamba_step(pd, xd[:, i:i + 1], cache, cfg)[0]
+                     for i in range(32, 36)]
+        pg = {k: v.clone().requires_grad_(True) for k, v in pd.items()}
+        yg, _ = mamba.mamba_full(pg, xd[:, :32], cfg)
+        torch.testing.assert_close(yg.detach(), y, atol=1e-5, rtol=1e-5)
+        grads = torch.autograd.grad((yg ** 2).sum(), list(pg.values()))
+        outs[device] = [t.detach().cpu() for t in (
+            y, cache["conv"], cache["ssm"], *steps)], [g.cpu() for g in grads]
+    for a, b in zip(outs["cpu"][0], outs["cuda"][0]):
+        torch.testing.assert_close(b, a, atol=1e-5, rtol=1e-5)
+    for a, b in zip(outs["cpu"][1], outs["cuda"][1]):
+        torch.testing.assert_close(b, a, atol=1e-4 * float(a.abs().max()),
+                                   rtol=0)
+
+
+def test_jamba_prefill_kernel_path_matches_plain_on_card(dev):
+    """The reduced jamba-1.5-large-398b (two 8-layer periods: 14 Mamba
+    layers, 2 attention layers) in float32 on the card: last-position
+    prefill logits through the float32 flash-attention kernel (one launch
+    an attention layer) against the plain path, to 1e-4, and the plain
+    path against the CPU's."""
+    from repro_torch.models import lm
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    params = build_model(cfg, "cpu", seed=0).params
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 48)))
+    with torch.no_grad():
+        _build.reset_launches()
+        kern, _ = lm.lm_prefill(_to(params, dev), {"tokens": toks.to(dev)},
+                                cfg)
+        assert _build.LAUNCHES["flash_attention:f32_cuda_core"] == 2
+        plain_cfg = cfg.replace(attention_impl="plain")
+        plain, _ = lm.lm_prefill(_to(params, dev), {"tokens": toks.to(dev)},
+                                 plain_cfg)
+        cpu, _ = lm.lm_prefill(params, {"tokens": toks}, plain_cfg)
+    torch.testing.assert_close(kern.cpu(), plain.cpu(), atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(plain.cpu(), cpu, atol=1e-4, rtol=1e-4)
+
+
+def test_mixtral_past_its_window_on_card_matches_cpu(dev):
+    """The reduced mixtral-8x7b with a window of 8 in float32: a 24-token
+    prompt (three windows) prefilled through the windowed float32
+    flash-attention kernel (one launch a layer), then 6 decode steps on
+    the ring cache of 8 slots, on the card against the CPU's plain path
+    from the same weights and tokens: each step's logits to 1e-4."""
+    from repro_torch.launch.serve import write_prefill_cache
+    from repro_torch.models import LM
+    cfg = get_config("mixtral-8x7b").reduced(window=8)
+    params = build_model(cfg, "cpu", seed=1).params
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 30)))
+    logits = {}
+    for device in ("cpu", "cuda"):
+        model = LM(cfg, _to(params, device), torch.device(device))
+        _build.reset_launches()
+        first, pcache = model.prefill(toks[:, :24].to(device))
+        if device == "cuda":
+            assert _build.LAUNCHES["flash_attention:f32_cuda_core"] \
+                == cfg.num_layers == 2
+        cache = model.init_cache(2, 30)
+        assert cache[0]["mixer"]["k"].shape[1] == 8
+        write_prefill_cache(cache, pcache)
+        out = [first]
+        for i in range(24, 30):
+            step, cache = model.decode_step(cache,
+                                            toks[:, i:i + 1].to(device), i)
+            out.append(step)
+        logits[device] = [t.cpu() for t in out]
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
 # (mean, sd) of ww, logw = -exp(ww): the model's init decay, a slow one
 # (exp(logw) ~ 0.993, the state carries across the whole sequence) and a
 # fast one (logw ~ -7.4, where a one-level chunked split overflows)
@@ -1179,7 +1271,8 @@ def _reduced_train_state(arch, device):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-3b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b",
+                                  "jamba-1.5-large-398b"])
 def test_reduced_train_steps_on_card_match_cpu(dev, arch):
     """Three float32 train steps of the reduced model from the same
     weights and batches: losses and MoE aux rel 1e-5, gradient norms rel
