@@ -38,25 +38,36 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    24.1 B) and ``mixtral-8x7b`` cut to 16 of its 32 layers (8 experts
    top-2, a 4,096-token sliding window, 23.5 B) at batch 2 and prompt
    6144, so that its prefill runs the windowed kernel and its decode
-   wraps the ring cache (``SERVE_CUT_WHY`` says why each is cut; a cut
-   keeps a prefix of the layers).  Each in bfloat16 from the port's
+   wraps the ring cache; then the encoder-decoder ``whisper-base`` at its
+   full size (6 encoder and 6 decoder layers, d_model 512, ~72 M) at
+   batch 4 over its 1,500-frame window (the reference's server prefills
+   the decoder with as many tokens), the stub-embedding
+   ``qwen2-vl-72b`` (M-RoPE, d_model 8192, 64 q / 8 kv heads, QKV bias)
+   cut to 24 of its 80 layers (23.6 B) and ``qwen1.5-110b`` cut to 16 of
+   80 (24.2 B) (``SERVE_CUT_WHY`` says why each is cut; a cut keeps a
+   prefix of the layers).  Each in bfloat16 from the port's
    seeded init on the card, through ``serve_model`` with batch 4, prompt
    2048 and 32 greedy tokens unless ``SERVE_SHAPE`` says otherwise,
    counting its prefill kernel's launches (``flash_attention`` or
-   ``rwkv6``, one per layer of its mixer, each on the bf16 tensor-core
+   ``rwkv6``, one per layer of its mixer, whisper's 6 non-causal encoder
+   layers besides its 6 decoder layers, each on the bf16 tensor-core
    kernel) and checking the peak memory against 75 GB; a profiled
    prefill (device busy share, kernels by device time, the prefill
    kernel's share of the device time, and the device time split by the
    PyTorch call that launched it: the Mamba scan, the MoE layer, the
    rest, each into cuBLAS and other kernels; the port's own kernels,
    launched outside any PyTorch op, unattributed) and four profiled
-   decode steps; and 2 layers of the same weights in float32 (the first
-   2, deepseek's prelude and its first MoE layer; jamba's Mamba layer 0
-   and its attention layer 4; ``CHECK``) at prompt 256 (mixtral: batch
-   1, prompt 4608, past its window), whose last-position prefill logits
-   through the kernel and through the plain path (materialised
-   attention, or the chunked WKV in torch ops) must agree to 1e-3 of the
-   largest logit (counting the float32 kernels' launches).
+   decode steps; and, with the bf16 model freed, 2 layers of the same
+   weights in float32 (the first 2, deepseek's prelude and its first MoE
+   layer; jamba's Mamba layer 0 and its attention layer 4; whisper's
+   first 2 encoder and 2 decoder layers; ``CHECK``) at prompt 256
+   (mixtral: batch 1, prompt 4608, past its window; whisper: its 1,500
+   frames; qwen2-vl on distinct M-RoPE triples, a text prefix and then an
+   image whose t stays fixed while h and w walk a patch grid), whose
+   last-position prefill logits through the kernel and through the plain
+   path (materialised attention, or the chunked WKV in torch ops) must
+   agree to 1e-4 of the largest logit (``CHECK_REL``; counting the
+   float32 kernels' launches).
    Each architecture's weights are freed before the next one's.
 4. ``bloom`` — the blocked-Bloom probe through its own entry points (no
    path of the system calls it), at RocksDB's cache-local Bloom filter
@@ -74,7 +85,10 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    writes, with the share of lanes bit-equal to the plain version,
    ``flash_attention`` to 2e-2 in
    bfloat16 (jamba's 64/8 heads at its prefill and mixtral's 32/8 at
-   (2, 6144) with its 4,096 window among the cases) and 2e-5 in float32,
+   (2, 6144) with its 4,096 window among the cases; whisper's encoder
+   (4, 1500, 8, 8, 64) non-causal, its decoder causal and qwen2-vl's
+   (4, 2048, 64, 8, 128) each also timed beside SDPA with its bound,
+   ``FLASH_BF16_TIMED``) and 2e-5 in float32,
    each case naming the kernel that served it, ``rwkv6`` to 5e-2 in
    bfloat16 at the model's, a slow and a fast decay and 5e-4 in float32
    on y and the final state, each case naming its kernel, the float32 one
@@ -199,8 +213,11 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    faults and obs suites' ``overhead_ratio``, printed as times.
 13. ``train`` — the trainer (``repro_torch.launch.train``, which runs
    ``attention_impl="plain"``: the prefill kernels have no backward, so
-   it must launch none of them): ``rwkv6-3b`` at its published width and
-   depth through ``train_loop``, and through ``make_train_step``
+   it must launch none of them): ``whisper-base`` at its published
+   width and depth through ``train_loop``, and through
+   ``make_train_step`` ``rwkv6-3b`` at its published width with its
+   first 4 of 32 layers (its full depth's 4 steps and profiled step took
+   35-52 s of the time limit),
    ``qwen3-14b`` at its published width with its first 4 of 40 layers
    (full depth's training state is 177 GB), ``deepseek-moe-16b`` with
    its prelude and 3 MoE layers (2.27 B parameters; full depth's state is
@@ -212,8 +229,9 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    memory under 75 GB, a
    snapshotted weight moved; one profiled step: busy share, top kernels);
    the reduced float32 models' (``rwkv6-3b``, ``qwen3-14b``,
-   ``deepseek-moe-16b`` and one 8-layer period of
-   ``jamba-1.5-large-398b``) 3 train steps on the card and the CPU from
+   ``deepseek-moe-16b``, one 8-layer period of ``jamba-1.5-large-398b``,
+   ``whisper-base`` and ``qwen2-vl-72b``) 3 train steps on the card and
+   the CPU from
    the same weights and batches (losses and aux rel 1e-5, gradient norms
    rel 1e-4, parameters within 6 lr); and a checkpointed ``train_loop``
    (reduced ``qwen3-14b``, 24 steps, a save every 2) with a restore of
@@ -281,7 +299,13 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-LEAD_KERNELS = 8                 # throwaway launches that open a trace
+# throwaway launches that open a trace, and the cycles each spins: late in
+# the script a trace loses its first kernels (11 or more at the kernels
+# phase in one run), so they are many and long
+LEAD_KERNELS, LEAD_CYCLES = 32, 20_000
+# the most throwaway launches a trace has lost so far (printed in the
+# kernels phase)
+LEAD_LOST = {"max": 0}
 FP32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM, tensor cores, dense
 GRID_RHOS = (0.25, 0.5, 1.0, 2.0, 3.0)
@@ -331,11 +355,16 @@ MERGE_N, READ_BATCH = 5_000_000, 1_000_000
 SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"),
          ("deepseek-moe-16b", "flash_attention"),
          ("jamba-1.5-large-398b", "flash_attention"),
-         ("mixtral-8x7b", "flash_attention"))
-# the mixer whose layers launch each prefill kernel
+         ("mixtral-8x7b", "flash_attention"),
+         ("whisper-base", "flash_attention"),
+         ("qwen2-vl-72b", "flash_attention"),
+         ("qwen1.5-110b", "flash_attention"))
+# the mixer whose layers launch each prefill kernel (an encoder's
+# attention layers launch flash_attention too)
 KERNEL_MIXER = {"flash_attention": "attn", "rwkv6": "rwkv"}
 # the served archs cut in depth (the first n of their layers), and why
-SERVE_CUT_LAYERS = {"jamba-1.5-large-398b": 5, "mixtral-8x7b": 16}
+SERVE_CUT_LAYERS = {"jamba-1.5-large-398b": 5, "mixtral-8x7b": 16,
+                    "qwen2-vl-72b": 24, "qwen1.5-110b": 16}
 SERVE_CUT_WHY = {
     "jamba-1.5-large-398b": "full depth is 397.5 B params (795 GB of bf16 "
                             "weights) against the card's 80 GB; the "
@@ -345,11 +374,20 @@ SERVE_CUT_WHY = {
                             "no room for the prefill and the float32 check",
     "mixtral-8x7b": "full depth is 46.70 B params (93.4 GB of bf16 weights) "
                     "against the card's 80 GB; 16 of 32 layers are 23.48 B "
-                    "(47.0 GB)"}
+                    "(47.0 GB)",
+    "qwen2-vl-72b": "full depth is 72.77 B params (145.5 GB of bf16 "
+                    "weights) against the card's 80 GB; 24 of 80 layers, "
+                    "with the adapter, embed_out and lm_head, are 23.62 B "
+                    "(47.2 GB)",
+    "qwen1.5-110b": "full depth is 111.21 B params (222.4 GB of bf16 "
+                    "weights) against the card's 80 GB; 16 of 80 layers "
+                    "are 24.24 B (48.5 GB)"}
 # (batch, prompt) of the archs served at another shape: mixtral's prompt
 # is 1.5 x its 4,096-token window, so that the prefill runs the windowed
-# kernel and decode wraps the ring cache
-SERVE_SHAPE = {"mixtral-8x7b": (2, 6144)}
+# kernel and decode wraps the ring cache; whisper's 1,500 encoder frames
+# are its 30-second window (the reference's server prefills the decoder
+# with as many tokens)
+SERVE_SHAPE = {"mixtral-8x7b": (2, 6144), "whisper-base": (4, 1500)}
 # a part of each kernel's CUDA name, as a profiler trace records it; the
 # bf16 flash_attention kernel is the one the bf16 serving path launches
 CUDA_NAMES = {"dual_solve": "dual_solve_warm_kernel",
@@ -363,25 +401,36 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
 # the train phase: batch, sequence and steps of the full-width runs; the
 # layers of the runs cut in depth (qwen3-14b's 4 of 40: its full depth's
 # training state is 177 GB; deepseek-moe-16b's prelude and 3 MoE layers of
-# 28: 197 GB); the card-against-CPU steps; the checkpointed run's steps and
-# interval
+# 28: 197 GB; rwkv6-3b's 4 of 32, for the script's time limit: CUT_WHY);
+# the card-against-CPU steps; the checkpointed run's steps and interval
 TRAIN_REDUCED = False
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
-TRAIN_CUT_LAYERS = {"qwen3-14b": 4, "deepseek-moe-16b": 4,
+# the archs trained at their published width and depth through train_loop
+TRAIN_FULL = ("whisper-base",)
+TRAIN_CUT_LAYERS = {"rwkv6-3b": 4, "qwen3-14b": 4, "deepseek-moe-16b": 4,
                     "jamba-1.5-large-398b": 1}
 # the reduced models trained card against CPU, and the layers they keep
 # (jamba: one 8-layer period)
 TRAIN_CHECK_ARCHS = {"rwkv6-3b": None, "qwen3-14b": None,
-                     "deepseek-moe-16b": None, "jamba-1.5-large-398b": 8}
+                     "deepseek-moe-16b": None, "jamba-1.5-large-398b": 8,
+                     "whisper-base": None, "qwen2-vl-72b": None}
 TRAIN_CHECK_STEPS = 3
 TRAIN_CKPT_STEPS, TRAIN_CKPT_INTERVAL = 24, 2
 CHECK_LAYERS, CHECK_PROMPT = 2, 256
 # the float32 check's (layers of the served weights, batch, prompt) where
 # not (the first CHECK_LAYERS, SERVE_BATCH, CHECK_PROMPT): jamba's
 # Mamba/dense layer 0 and its attention layer 4; mixtral's 2 layers past
-# its window
+# its window; whisper's first 2 encoder and 2 decoder layers over its
+# 1,500 frames
 CHECK = {"jamba-1.5-large-398b": ((0, 4), SERVE_BATCH, CHECK_PROMPT),
-         "mixtral-8x7b": ((0, 1), 1, 4608)}
+         "mixtral-8x7b": ((0, 1), 1, 4608),
+         "whisper-base": ((0, 1), SERVE_BATCH, 1500)}
+# the float32 check's bound on the kernel path's logits against the plain
+# path's, relative to the largest logit
+CHECK_REL = 1e-4
+# M-RoPE position triples of the float32 check: a text prefix (t = h = w)
+# then an image, t constant while h and w walk a patch grid this wide
+CHECK_TEXT, CHECK_GRID = 16, 16
 # the bloom phase: RocksDB's format_version=5 cache-local Bloom filter
 # (512-bit blocks, its default 10 bits per key) over 10 M keys, k from
 # lsm/bloom.py::bloom_params (round(10 ln 2) = 7); 1 M probes, one read
@@ -394,6 +443,11 @@ FLASH_F32_CASES = [((2, 2048, 8, 2, 64), True, 512),
                    ((2, 1531, 40, 8, 128), True, None)]       # ragged S
 # more bfloat16 flash_attention cases besides the serving prefill's:
 # (B, S, H, KV, d), causal, window, or an arch whose heads to take
+# the serving prefills of this slice's archs, each also timed beside SDPA:
+# (name, (B, S, H, KV, d), causal)
+FLASH_BF16_TIMED = [("whisper-base encoder", (4, 1500, 8, 8, 64), False),
+                    ("whisper-base decoder", (4, 1500, 8, 8, 64), True),
+                    ("qwen2-vl-72b", (4, 2048, 64, 8, 128), True)]
 FLASH_BF16_CASES = [((2, 1531, 40, 8, 128), True, None),      # ragged S
                     ("phi3-mini-3.8b", True, None),           # d 96, H = KV
                     ("glm4-9b", True, None),                  # GQA group 16
@@ -455,10 +509,12 @@ def cuda_events(torch, fn, calls: int = 0, tries: int = 3,
                 lead=None, traces=None) -> tuple:
     """Host wall seconds of ``fn`` (up to a synchronise) and the CUDA
     activities a ``torch.profiler`` trace of it records, as (name, device
-    µs) pairs.  Late in this script a trace does not record the first one
-    or two kernels launched in it, so each trace opens with
-    ``LEAD_KERNELS`` throwaway launches of ``torch.cuda._sleep`` (its
-    ``spin_kernel`` events are left out) before ``fn``.  With ``calls``,
+    µs) pairs.  Late in this script a trace does not record the first
+    kernels launched in it (11 or more at the kernels phase in one chip
+    run), so each trace opens with ``LEAD_KERNELS``
+    throwaway launches of ``torch.cuda._sleep`` (its ``spin_kernel``
+    events are left out; how many of them a trace lost at most is kept in
+    ``LEAD_LOST``) before ``fn``.  With ``calls``,
     ``fn`` makes that many calls, each launching the same activities: a
     trace in which an activity's count is not a multiple of ``calls``
     missed events and is taken again, and when every one of ``tries``
@@ -474,7 +530,7 @@ def cuda_events(torch, fn, calls: int = 0, tries: int = 3,
     for attempt in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(LEAD_KERNELS):
-                torch.cuda._sleep(100)
+                torch.cuda._sleep(LEAD_CYCLES)
             if lead is not None:
                 lead()
                 torch.cuda.synchronize()
@@ -488,6 +544,8 @@ def cuda_events(torch, fn, calls: int = 0, tries: int = 3,
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         spins = [e.time_range.start for e in device
                  if "spin_kernel" in e.name]
+        launched = LEAD_KERNELS + (lead is not None)
+        LEAD_LOST["max"] = max(LEAD_LOST["max"], launched - len(spins))
         after = max(spins) if lead is not None and spins else float("-inf")
         # a SCOPES label's range shows among the device events too
         events = [(e.name, e.time_range.elapsed_us()) for e in device
@@ -1017,12 +1075,59 @@ def cut_depth(cfg, n, lm):
     return cfg.replace(num_layers=n, pattern=kinds[len(cfg.prelude):n])
 
 
+def kernel_layers(cfg, kernel, lm) -> int:
+    """The layers whose mixer launches ``kernel`` once a prefill: the
+    decoder's, and for ``flash_attention`` an encoder's too."""
+    n = sum(m == KERNEL_MIXER[kernel] for m, _ in lm.layer_kinds(cfg))
+    if cfg.encoder is not None and kernel == "flash_attention":
+        n += cfg.encoder.num_layers
+    return n
+
+
+def patch_triples(np, batch, prompt):
+    """(3, batch, prompt) M-RoPE positions: ``CHECK_TEXT`` text tokens
+    (t = h = w = index), then image patches, t fixed at ``CHECK_TEXT``
+    while h and w walk a ``CHECK_GRID``-wide patch grid from it."""
+    i = np.arange(prompt)
+    j = np.maximum(i - CHECK_TEXT, 0)
+    img = i >= CHECK_TEXT
+    t = np.where(img, CHECK_TEXT, i)
+    h = np.where(img, CHECK_TEXT + j // CHECK_GRID, i)
+    w = np.where(img, CHECK_TEXT + j % CHECK_GRID, i)
+    return np.broadcast_to(np.stack([t, h, w])[:, None],
+                           (3, batch, prompt)).astype(np.int64)
+
+
+def check_model(cfg, params, layers, kinds):
+    """The float32 check's config and the bf16 leaves it takes of the
+    served ``params``: the layers ``layers`` (of the encoder's and the
+    decoder's, for an encoder-decoder), and every other top-level entry
+    but an untied stub model's ``embed_out``, which a prefill does not
+    read."""
+    stacks = ("enc_layers", "dec_layers") if cfg.encoder is not None \
+        else ("layers",)
+    keep = {k: v for k, v in params.items() if k not in stacks
+            and (k != "embed_out" or cfg.tie_embeddings)}
+    for k in stacks:
+        keep[k] = [params[k][i] for i in layers]
+    if cfg.encoder is not None:
+        import dataclasses
+        cfg32 = cfg.replace(num_layers=len(layers),
+                            encoder=dataclasses.replace(
+                                cfg.encoder, num_layers=len(layers)))
+    else:
+        cfg32 = cfg.replace(num_layers=len(layers), prelude=(),
+                            pattern=tuple(kinds[i] for i in layers))
+    return cfg32.replace(dtype="float32", param_dtype="float32"), keep
+
+
 def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
     """``arch`` at full width (cut in depth where ``SERVE_CUT_LAYERS``
     says): ``serve_model`` on the port's seeded bf16 weights, counting
-    ``kernel``'s launches (one per layer of its mixer), then the kernel
-    path against the plain path on 2 float32 layers of the same weights
-    (``CHECK``)."""
+    ``kernel``'s launches (one per layer of its mixer, the encoder's
+    included), then the kernel path against the plain path on 2 float32
+    layers of the same weights (``CHECK``; M-RoPE on distinct position
+    triples), after the bf16 model is freed."""
     cfg = configs.get_config(arch)
     if SERVE_REDUCED:
         cfg = cfg.reduced()
@@ -1030,7 +1135,7 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
     if arch in SERVE_CUT_LAYERS:
         cfg = cut_depth(cfg, min(SERVE_CUT_LAYERS[arch], published), lm)
     kinds = lm.layer_kinds(cfg)
-    n_kernel = sum(m == KERNEL_MIXER[kernel] for m, _ in kinds)
+    n_kernel = kernel_layers(cfg, kernel, lm)
     batch, prompt = SERVE_SHAPE.get(arch, (SERVE_BATCH, SERVE_PROMPT))
     log(f"serve: init {cfg.name}, {cfg.num_layers} of {published} layers")
     torch.cuda.reset_peak_memory_stats()
@@ -1063,59 +1168,66 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
     check(out["logits_finite"], "a logit is not finite")
 
     log("serve: profiled prefill and decode steps")
-    tokens = torch.as_tensor(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (batch, prompt)), device=DEVICE)
-    prefill_prof = profile_device(torch, lambda: model.prefill(tokens),
+    inputs = serve.serve_inputs(cfg, batch, prompt, 3, DEVICE)
+    prefill_prof = profile_device(torch, lambda: model.prefill(inputs),
                                   CUDA_NAMES[kernel], by_caller=True)
-    cache = model.init_cache(batch, prompt + SERVE_GEN)
-    slots = {c["mixer"]["k"].shape[1] for c in cache if "k" in c["mixer"]}
-    step_tok = tokens[:, :1]
+    if cfg.encoder is not None:
+        cache = model.init_cache(batch, prompt + SERVE_GEN, enc_seq=prompt)
+    else:
+        cache = model.init_cache(batch, prompt + SERVE_GEN)
+    slots = {c[part]["k"].shape[1] for c in cache
+             for part in ("mixer", "self") if "k" in c.get(part, {})}
+    if "tokens" in inputs:
+        step_in = inputs["tokens"][:, :1]
+    else:                       # a stub model's token output embedding
+        step_in = params["embed_out"][torch.as_tensor(
+            np.random.default_rng(3).integers(0, cfg.vocab_size, batch),
+            device=DEVICE)][:, None]
 
     def decode_steps(n=4):
         for i in range(n):
-            model.decode_step(cache, step_tok, prompt + i)
+            model.decode_step(cache, step_in, prompt + i)
 
     decode_steps(1)
     decode_prof = profile_device(torch, decode_steps)
-    del cache, tokens
+    del cache, inputs, step_in
 
     layers, cbatch, cprompt = CHECK.get(
         arch, (tuple(range(CHECK_LAYERS)), SERVE_BATCH, CHECK_PROMPT))
     log(f"serve: float32 layers {layers}, kernel vs plain path")
-    small = _to_f32({"embed": params["embed"],
-                     "final_norm": params["final_norm"],
-                     "lm_head": params["lm_head"],
-                     "layers": [params["layers"][i] for i in layers]})
-    cfg32 = cfg.replace(num_layers=len(layers), prelude=(),
-                        pattern=tuple(kinds[i] for i in layers),
-                        dtype="float32", param_dtype="float32")
-    n_f32 = sum(m == KERNEL_MIXER[kernel] for m, _ in cfg32.pattern)
+    cfg32, keep = check_model(cfg, params, layers, kinds)
+    n_f32 = kernel_layers(cfg32, kernel, lm)
     del model, params
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    prompts = np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (cbatch, cprompt))
-    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=DEVICE)
+    small = _to_f32(keep)
+    del keep
+    inputs = serve.serve_inputs(cfg32, cbatch, cprompt, 2, DEVICE)
+    if cfg.mrope_sections is not None:
+        inputs["positions"] = torch.as_tensor(
+            patch_triples(np, cbatch, cprompt), device=DEVICE)
     build.reset_launches()
-    with torch.no_grad():
-        kern, _ = lm.lm_prefill(small, {"tokens": tokens}, cfg32)
-        plain, _ = lm.lm_prefill(small, {"tokens": tokens},
-                                 cfg32.replace(attention_impl="plain"))
+    kern, _ = models.build_model(cfg32, DEVICE, params=small).prefill(
+        inputs)
+    plain, _ = models.build_model(cfg32.replace(attention_impl="plain"),
+                                  DEVICE, params=small).prefill(inputs)
     f32_launches = build.LAUNCHES[f"{kernel}:f32_cuda_core"]
     check(f32_launches == n_f32, f"the float32 {kernel} kernel "
           f"launched {f32_launches} times in {len(layers)} float32 layers, "
           f"expected {n_f32}")
     diff = (kern - plain).abs().max().item()
     top = plain.abs().max().item()
-    check(diff <= 1e-3 * top, f"{arch} prefill logits, kernel vs plain "
-          f"path: max |diff| {diff} > 1e-3 * max |logit| {top}")
+    check(diff <= CHECK_REL * top, f"{arch} prefill logits, kernel vs "
+          f"plain path: max |diff| {diff} > {CHECK_REL} * max |logit| {top}")
     check_peak = torch.cuda.max_memory_allocated()
     check(check_peak < 75e9, f"{cfg.name}'s float32 check peaks at "
           f"{check_peak / 1e9:.1f} GB")
-    del small, kern, plain
+    del small, kern, plain, inputs
     torch.cuda.empty_cache()
     return {"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
             "published_layers": published,
+            "encoder_layers": (cfg.encoder.num_layers
+                               if cfg.encoder is not None else None),
             "cut": SERVE_CUT_WHY.get(arch),
             "kinds": [list(k) for k in kinds],
             "d_model": cfg.d_model, "params": n_params,
@@ -1133,9 +1245,10 @@ def phase_serve(torch, np, configs, models, serve, lm, build, arch, kernel):
             "decode_profile_4_steps": decode_prof,
             "f32_check": {"layers": list(layers), "batch": cbatch,
                           "prompt": cprompt,
+                          "mrope_triples": cfg.mrope_sections is not None,
                           "f32_kernel_launches": f32_launches,
                           "max_abs_diff": diff, "max_abs_logit": top,
-                          "rel": diff / top,
+                          "rel": diff / top, "tol_rel": CHECK_REL,
                           "peak_allocated_gb": check_peak / 1e9}}
 
 
@@ -1159,28 +1272,43 @@ def _train_fields(mets, step_s, peak, tokens) -> dict:
             "peak_allocated_gb": peak / 1e9}
 
 
+def _leaf(params, name: str):
+    """The leaf at a dotted path of a parameter tree ("layers.0.mlp.wo")."""
+    node = params
+    for part in name.split("."):
+        node = node[int(part)] if isinstance(node, list) else node[part]
+    return node
+
+
 def _moved(before: dict, params) -> dict:
     """The share of each snapshotted leaf's entries that training changed
     (a bf16 weight moves only where the update passes half its ulp)."""
     out = {}
     for name, b in before.items():
-        layer, part, leaf = name.split(".")
-        a = params["layers"][int(layer)][part][leaf]
+        a = _leaf(params, name)
         out[name] = float((a.detach() != b).float().mean())
     check(all(v > 0 for v in out.values()), f"parameters did not move: "
           f"{out}")
     return out
 
 
-SNAPSHOT = {"rwkv6-3b": ("0.mixer.wr", "0.mlp.wk"),
-            "qwen3-14b": ("0.mixer.wq", "0.mlp.wi_up"),
-            "deepseek-moe-16b": ("0.mlp.wi_up", "1.mlp.router",
-                                 "1.mlp.wi_gate"),
-            "jamba-1.5-large-398b": ("0.mixer.in_proj", "0.mixer.out_proj",
-                                     "0.mlp.wi_up")}
+SNAPSHOT = {"rwkv6-3b": ("layers.0.mixer.wr", "layers.0.mlp.wk"),
+            "qwen3-14b": ("layers.0.mixer.wq", "layers.0.mlp.wi_up"),
+            "deepseek-moe-16b": ("layers.0.mlp.wi_up", "layers.1.mlp.router",
+                                 "layers.1.mlp.wi_gate"),
+            "jamba-1.5-large-398b": ("layers.0.mixer.in_proj",
+                                     "layers.0.mixer.out_proj",
+                                     "layers.0.mlp.wi_up"),
+            "whisper-base": ("frontend", "enc_layers.0.attn.wq",
+                             "dec_layers.0.cross_attn.wk",
+                             "dec_layers.0.mlp.wo")}
 # why a run is cut in depth: its full depth's training state (bf16 weights
 # and gradients, float32 AdamW moments: 12 bytes a parameter) on the card
-CUT_WHY = {"qwen3-14b": "full depth needs 14.77 B params x 12 bytes (bf16 "
+CUT_WHY = {"rwkv6-3b": "full depth fits (3.07 B params x 12 bytes = 37 GB "
+                       "of training state), but its 4 steps and one "
+                       "profiled step took 35-52 s of the script's 1,200 s "
+                       "(chip runs at full depth on an H100)",
+           "qwen3-14b": "full depth needs 14.77 B params x 12 bytes (bf16 "
                         "weights and gradients, float32 AdamW moments) = "
                         "177 GB of training state against the card's 80 GB",
            "deepseek-moe-16b": "full depth needs 16.38 B params x 12 bytes "
@@ -1196,18 +1324,13 @@ CUT_WHY = {"qwen3-14b": "full depth needs 14.77 B params x 12 bytes (bf16 "
 
 
 def _snapshot(params, names) -> dict:
-    out = {}
-    for name in names:
-        layer, part, leaf = name.split(".")
-        out[name] = params["layers"][int(layer)][part][leaf].detach().clone()
-    return out
+    return {name: _leaf(params, name).detach().clone() for name in names}
 
 
-def train_rwkv_full(torch, build, TT, adamw, DataConfig, shard_batch_at):
-    """``rwkv6-3b`` at its published width and depth through
-    ``train_loop`` (its init snapshotted for the moved check), then one
-    profiled step."""
-    arch = "rwkv6-3b"
+def train_full(torch, build, TT, adamw, DataConfig, shard_batch_at, arch):
+    """``arch`` (``whisper-base``) at its published width and depth
+    through ``train_loop`` (its init snapshotted for the moved check),
+    then one profiled step."""
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     log(f"train: {arch}, batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, "
@@ -1232,6 +1355,7 @@ def train_rwkv_full(torch, build, TT, adamw, DataConfig, shard_batch_at):
     peak = torch.cuda.max_memory_allocated()
     kernels = {k: v for k, v in build.LAUNCHES.items() if v}
     check(not kernels, f"the trainer launched {kernels}: it runs 'plain'")
+    check(peak < 75e9, f"{arch} training peaks at {peak / 1e9:.1f} GB")
     model, params, opt = out["api"], out["params"], out["opt_state"]
     cfg = model.cfg
     moved = _moved(before, params)
@@ -1258,8 +1382,9 @@ def train_rwkv_full(torch, build, TT, adamw, DataConfig, shard_batch_at):
 def train_cut(torch, build, TT, adamw, models, DataConfig, shard_batch_at,
               arch):
     """``arch`` at its published width with its first
-    ``TRAIN_CUT_LAYERS[arch]`` layers (deepseek-moe-16b's prelude and 3 MoE
-    layers; jamba's Mamba/dense layer), through ``make_train_step`` on the
+    ``TRAIN_CUT_LAYERS[arch]`` layers (rwkv6-3b's and qwen3-14b's first 4,
+    deepseek-moe-16b's prelude and 3 MoE layers; jamba's Mamba/dense
+    layer), through ``make_train_step`` on the
     pipeline's batches, then one profiled step."""
     from repro_torch.models import lm
     cfg = TT.train_config(arch, TRAIN_REDUCED)
@@ -1323,7 +1448,8 @@ def train_card_vs_cpu(torch, TT, adamw, models, DataConfig, shard_batch_at,
         for dev in ("cpu", DEVICE):
             params = tree.tree_map(lambda t: t.detach().to(dev).clone(),
                                    init)
-            model = models.LM(cfg, params, torch.device(dev))
+            model = models.build_model(cfg, torch.device(dev),
+                                       params=params)
             model.requires_grad_(True)
             params = model.params
             opt = adamw.init(params)
@@ -1485,11 +1611,11 @@ def train_checkpointed(torch, build, TT, convert, tree):
 
 
 def phase_train(torch, build, models) -> dict:
-    """The trainer on the card: full-width ``rwkv6-3b``, a 4-layer
-    ``qwen3-14b``, ``deepseek-moe-16b`` (its prelude and 3 MoE layers) and
-    a 1-layer ``jamba-1.5-large-398b``, the reduced models card against
-    CPU, and a checkpointed run whose manifest runs the engine's
-    kernels."""
+    """The trainer on the card: ``whisper-base`` at full size, 4-layer
+    ``rwkv6-3b`` and ``qwen3-14b``, ``deepseek-moe-16b`` (its prelude and
+    3 MoE layers) and a 1-layer ``jamba-1.5-large-398b`` at full width,
+    the reduced models card against CPU, and a checkpointed run whose
+    manifest runs the engine's kernels."""
     from repro_torch import convert
     from repro_torch.data.pipeline import DataConfig, shard_batch_at
     from repro_torch.launch import train as TT
@@ -1499,8 +1625,8 @@ def phase_train(torch, build, models) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.time()
-    rwkv = train_rwkv_full(torch, build, TT, adamw, DataConfig,
-                           shard_batch_at)
+    full = [train_full(torch, build, TT, adamw, DataConfig, shard_batch_at,
+                       arch) for arch in TRAIN_FULL]
     cuts = [train_cut(torch, build, TT, adamw, models, DataConfig,
                       shard_batch_at, arch) for arch in TRAIN_CUT_LAYERS]
     log("train: reduced models, card vs CPU")
@@ -1509,7 +1635,7 @@ def phase_train(torch, build, models) -> dict:
     log("train: checkpointed run")
     ckpt = train_checkpointed(torch, build, TT, convert, tree)
     return {"phase": "train", "wall_s": time.time() - t0,
-            "runs": [rwkv, *cuts], "card_vs_cpu": parity,
+            "runs": [*full, *cuts], "card_vs_cpu": parity,
             "checkpointed": ckpt}
 
 
@@ -2078,7 +2204,9 @@ def kernel_flash_attention(torch, configs, ops, ref, build, dev, arch):
     mixtral's 4,096 window at (2, 6144)) to 2e-2, and the float32
     cases of ``FLASH_F32_CASES`` (d 64 with a 512 window, d 96 non-causal,
     a ragged S) to 2e-5; each case names the kernel whose launch count
-    moved (``bf16_tc`` or ``f32_cuda_core``)."""
+    moved (``bf16_tc`` or ``f32_cuda_core``).  The prefills of
+    ``FLASH_BF16_TIMED`` (whisper's encoder and decoder, qwen2-vl) are
+    held to 2e-2 and each timed beside SDPA (``model_cases``)."""
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -2142,6 +2270,39 @@ def kernel_flash_attention(torch, configs, ops, ref, build, dev, arch):
     lib_err = (library().transpose(1, 2).float() - out.float()).abs().max()
     check(lib_err.item() <= 0.1, f"flash_attention: the library yardstick "
           f"computes another function (max abs {lib_err.item()})")
+
+    def timed(name, shape, causal):
+        """One serving prefill's shape: held to the plain version at 2e-2,
+        timed beside SDPA, with its bound."""
+        q, k, v = draw(*shape, torch.bfloat16)
+        before = dict(build.LAUNCHES)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        served = [var.split(":")[1] for var in build.VARIANTS
+                  if build.LAUNCHES[var] > before[var]]
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        err = (got.float() - want.float()).abs()
+        check(bool((err <= 2e-2 + 2e-2 * want.float().abs()).all()),
+              f"flash_attention {name} {shape}: kernel != plain (max abs "
+              f"{err.max().item()})")
+        check(served == ["bf16_tc"], f"flash_attention {name}: served by "
+              f"{served}, expected bf16_tc")
+        lib = sdpa(q, k, v, causal)
+        lib_diff = (lib().transpose(1, 2).float() - got.float()).abs().max()
+        check(lib_diff.item() <= 0.1, f"flash_attention {name}: kernel and "
+              f"SDPA differ by {lib_diff.item()}")
+        B, S, H, KV, d = shape
+        pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
+        moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        call = lambda: ops.flash_attention(q, k, v, causal=causal)  # noqa
+        return {"case": name, "B_S_H_KV_d": list(shape), "causal": causal,
+                "tol": 2e-2, "kernel": served[0],
+                "max_abs_err": err.max().item(),
+                "ms": time_ms(torch, call, 10),
+                "library_ms": time_ms(torch, lib, 10),
+                "library_max_abs_diff": lib_diff.item(),
+                **bound(moved, pairs * 4 * d, BF16_OPS_PER_S)}
+
+    model_cases = [timed(*case) for case in FLASH_BF16_TIMED]
     pairs = B * H * S * (S + 1) // 2            # causal: unmasked (q, k)
     moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     call = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
@@ -2149,7 +2310,8 @@ def kernel_flash_attention(torch, configs, ops, ref, build, dev, arch):
             "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
             "f32_source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in rows + model_cases),
             "ms": time_ms(torch, call, 10),
             "device_ms": device_ms(torch, call, 5,
                                    CUDA_NAMES["flash_attention"]),
@@ -2161,7 +2323,8 @@ def kernel_flash_attention(torch, configs, ops, ref, build, dev, arch):
             # tiles, so the per-tile rate shows without the start-up cost
             # of the serving shape's short causal tiles
             **long_sequence(torch, ops, sdpa, draw, H, KV, d),
-            **bound(moved, pairs * 4 * d, BF16_OPS_PER_S), "checks": rows}
+            **bound(moved, pairs * 4 * d, BF16_OPS_PER_S), "checks": rows,
+            "model_cases": model_cases}
 
 
 def long_sequence(torch, ops, sdpa, draw, H, KV, d, S=8192) -> dict:
@@ -3498,7 +3661,7 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
     emit({"phase": "kernels", "launch_floor_ms": launch_floor_ms(torch),
-          "kernels": kernels})
+          "lead_kernels_lost_max": LEAD_LOST["max"], "kernels": kernels})
     suite_lines = phase_suites(torch, core, build)
     for suite in CPU_HELD_SUITES:
         emit(suite_against_cpu(torch, build, suite))

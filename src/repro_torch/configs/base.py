@@ -3,13 +3,11 @@
 
 A :class:`ModelConfig` describes one architecture: its layer pattern of
 (sequence mixer, channel mixer) blocks, the attention flavour, the MoE
-settings (:class:`MoEConfig`), and the runtime knobs.  The fields are the
-JAX package's, with two differences:
+settings (:class:`MoEConfig`), the encoder tower (:class:`EncoderConfig`)
+and the runtime knobs.  The fields are the JAX package's, but for one
+difference; ``SHAPES``, ``shape_applicable`` and the dry run's specs wait
+for the mesh modules (ROADMAP.md queue 1 item 6).
 
-* ``encoder`` stays ``None``: ``EncoderConfig``, ``SHAPES`` and
-  ``shape_applicable`` come with the families that need them (ROADMAP.md
-  queue 1 item 6); :meth:`ModelConfig.reduced` raises for a config with an
-  encoder tower or M-RoPE.
 * ``attention_impl`` names the port's two prefill paths: ``"flash"`` (the
   default; the hand-written kernels on the card and their plain versions
   on the CPU: ``kernels/flash_attention`` for attention and
@@ -22,7 +20,7 @@ JAX package's, with two differences:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 Pair = Tuple[str, str]  # (mixer, mlp) kinds
 
@@ -35,6 +33,13 @@ class MoEConfig:
     num_shared: int = 0         # always-on shared experts (DeepSeek-MoE)
     capacity_factor: float = 1.25
     router_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder tower for enc-dec (whisper backbone; conv frontend stubbed)."""
+    num_layers: int = 6
+    d_input: int = 0  # stub frame-embedding dim (0 -> d_model)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,8 +75,8 @@ class ModelConfig:
     rwkv_decay_lora: int = 64
 
     # towers
-    encoder: Optional[Any] = None
-    embed_inputs: bool = True
+    encoder: Optional[EncoderConfig] = None      # enc-dec (audio)
+    embed_inputs: bool = True                    # False -> stub embeddings in
     norm: str = "rms"                            # rms|ln
     act: str = "swiglu"                          # swiglu|gelu
     tie_embeddings: bool = False
@@ -112,8 +117,9 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Approximate total parameter count N, the JAX package's count
-        for ``attn``/``mamba``/``rwkv`` mixers and ``dense``/``moe``/
-        ``rwkv_ffn`` MLPs."""
+        for ``attn``/``mamba``/``rwkv`` mixers, ``dense``/``moe``/
+        ``rwkv_ffn`` MLPs and an encoder tower with the decoder's
+        cross-attention."""
         d, hd = self.d_model, self.head_dim
         di = self.d_inner_mamba
         attn = d * (self.num_heads * hd) * 2 \
@@ -131,8 +137,12 @@ class ModelConfig:
         for mixer, mlp in self.prelude + tuple(self.pattern) * \
                 self.n_repeats:
             total += mixers[mixer] + mlps[mlp] + 2 * d   # + 2 norms
-        return total + self.vocab_size * d * (
-            1 if self.tie_embeddings else 2)
+        total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.encoder is not None:
+            enc_layer = attn + dense_mlp + 2 * d
+            total += self.encoder.num_layers * enc_layer
+            total += self.num_layers * (attn + 2 * d)  # cross-attention
+        return total
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: top_k + shared experts only)."""
@@ -148,10 +158,6 @@ class ModelConfig:
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A smoke-test-sized config of the same family/pattern."""
-        if self.encoder is not None or self.mrope_sections is not None:
-            raise NotImplementedError(
-                f"{self.name}: encoder towers and M-RoPE are not ported "
-                "yet (ROADMAP.md queue 1 item 6)")
         kw = dict(
             name=self.name + "-smoke",
             num_layers=len(self.prelude) + 2 * len(self.pattern),
@@ -178,6 +184,10 @@ class ModelConfig:
                 self.moe, num_experts=4, top_k=2, d_expert=32,
                 num_shared=min(self.moe.num_shared, 1),
                 capacity_factor=8.0)
+        if self.encoder is not None:
+            kw["encoder"] = EncoderConfig(num_layers=2, d_input=64)
+        if self.mrope_sections is not None:
+            kw["mrope_sections"] = (2, 3, 3)  # sums to head_dim/2 = 8
         kw.update(overrides)
         return dataclasses.replace(self, **kw)
 

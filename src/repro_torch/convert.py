@@ -11,9 +11,15 @@ field) and passes them in.
   and run metadata, the value codec's intern table, the write buffer, the
   I/O counters and the flush clock.  Keys become the ordered int64 form
   of the device arenas; Bloom words, where given, are carried bit for bit.
-* :func:`lm_params_from_numpy` — an LM's parameters (dense, MoE, RWKV-6
-  or the Mamba hybrid) from the JAX package's ``init_lm`` tree
-  (``np.asarray`` on each leaf): its ``prelude`` list and its stacked
+* :func:`lm_params_from_numpy` — an LM's parameters (dense, MoE, RWKV-6,
+  the Mamba hybrid, stub-embedding, or the encoder-decoder) from the JAX
+  package's ``init_lm`` or ``init_encdec`` tree (``np.asarray`` on each
+  leaf): every top-level entry but the layer stacks comes as it is
+  (``embed`` or the stub frontend's ``adapter`` and ``embed_out``,
+  ``final_norm``, ``lm_head``; the encoder-decoder's ``frontend`` and
+  ``enc_final_norm``), the encoder-decoder's stacked ``enc_layers`` and
+  ``dec_layers`` become lists of per-layer dicts, and an LM's
+  ``prelude`` list and its stacked
   layers become the port's one list of per-layer dicts, prelude first,
   then the pattern's ``sub<j>`` stacks interleaved in execution order
   (Jamba's eight; an expert weight stacked as ``(n_rep, E, d, ef)``
@@ -25,7 +31,8 @@ field) and passes them in.
   reference's layout in torch tensors.
 * :func:`lm_params_to_reference` and :func:`lm_params_to_numpy` — the
   way back: the port's per-layer list split into the reference's
-  ``prelude`` list and stacked ``{"layers": {"sub<j>": ...}}`` tree, as tensors or as numpy arrays
+  ``prelude`` list and stacked ``{"layers": {"sub<j>": ...}}`` tree (the
+  encoder-decoder's lists stacked back), as tensors or as numpy arrays
   (bfloat16 widened to float32, as the reference's checkpoints store it).
 * :func:`adamw_state_from_numpy` / :func:`adamw_state_to_reference` — an
   ``AdamWState`` (step, ``mu``, ``nu``) carried across the same way.
@@ -124,33 +131,51 @@ def _map_tree(fn, tree):
     return fn(tree)
 
 
+# the reference's stacked layer entries; every other top-level entry of a
+# parameter tree is carried as it is
+_ENCDEC_STACKS = ("enc_layers", "dec_layers")
+_LM_STACKS = ("layers", "prelude")
+
+
 def lm_params_from_numpy(cfg: ModelConfig, params_np: Mapping[str, Any],
                          device=None) -> Dict[str, Any]:
-    """The port's parameter tree (``models/lm.py``) from the JAX
-    ``init_lm`` tree as numpy arrays: ``embed``, ``final_norm``,
-    ``lm_head`` as they are, and the ``prelude`` blocks followed by
-    ``layers/sub<j>/...`` (stacked along a leading axis of
-    ``cfg.n_repeats``) split into one dict per layer, in execution order
-    (prelude block i -> layer i; repeat r, pattern entry j -> layer
-    len(prelude) + r * len(pattern) + j).  On ``device`` (the card unless
+    """The port's parameter tree (``models/lm.py`` or ``models/encdec.py``)
+    from the JAX ``init_lm`` or ``init_encdec`` tree as numpy arrays: see
+    :func:`lm_params_from_reference`.  On ``device`` (the card unless
     ``"cpu"``)."""
-    tensors = {name: _map_tree(lambda a: _tensor(a, "cpu"), params_np[name])
-               for name in ("embed", "final_norm", "lm_head", "layers",
-                            "prelude")
-               if name in params_np}
+    tensors = {name: _map_tree(lambda a: _tensor(a, "cpu"), tree)
+               for name, tree in params_np.items()}
     return lm_params_from_reference(cfg, tensors, device)
+
+
+def _unstack(stacked, n: int, dev) -> list:
+    """Rows 0..n-1 of a tree stacked along a leading axis, as copies."""
+    return [_map_tree(lambda a, r=r: a[r].to(dev).clone(), stacked)
+            for r in range(n)]
 
 
 def lm_params_from_reference(cfg: ModelConfig, tree: Mapping[str, Any],
                              device=None) -> Dict[str, Any]:
     """The port's parameter tree from the reference's layout in torch
-    tensors (a restored checkpoint): each layer's leaves a copy of its row
-    of the stacked ones, the prelude blocks' leaves copies, on ``device``
-    (the card unless ``"cpu"``)."""
+    tensors (a restored checkpoint), on ``device`` (the card unless
+    ``"cpu"``).  Every top-level entry but the layer stacks comes as it
+    is.  The encoder-decoder's stacked ``enc_layers`` and ``dec_layers``
+    become lists of per-layer copies.  An LM's ``prelude`` blocks followed
+    by ``layers/sub<j>/...`` (stacked along a leading axis of
+    ``cfg.n_repeats``) become one list, in execution order (prelude block
+    i -> layer i; repeat r, pattern entry j -> layer len(prelude) + r *
+    len(pattern) + j)."""
     dev = resolve_device(device)
+    stacks = _ENCDEC_STACKS if cfg.encoder is not None else _LM_STACKS
     out: Dict[str, Any] = {
-        name: _map_tree(lambda a: a.to(dev), tree[name])
-        for name in ("embed", "final_norm", "lm_head") if name in tree}
+        name: _map_tree(lambda a: a.to(dev), sub)
+        for name, sub in tree.items() if name not in stacks}
+    if cfg.encoder is not None:
+        out["enc_layers"] = _unstack(tree["enc_layers"],
+                                     cfg.encoder.num_layers, dev)
+        out["dec_layers"] = _unstack(tree["dec_layers"], cfg.num_layers,
+                                     dev)
+        return out
     prelude = list(tree.get("prelude") or ())
     if len(prelude) != len(cfg.prelude):
         raise ValueError(f"{len(prelude)} prelude blocks for "
@@ -171,15 +196,18 @@ def _stack(items: Sequence[Any]):
 
 def lm_params_to_reference(cfg: ModelConfig,
                            params: Mapping[str, Any]) -> Dict[str, Any]:
-    """The reference's ``init_lm`` layout of the port's parameters, in
-    torch tensors: ``embed``, ``final_norm``, ``lm_head`` as they are, the
-    first ``len(cfg.prelude)`` layers as the ``prelude`` list, and the
-    rest as ``layers/sub<j>/...`` stacked (layer len(prelude) + r *
-    len(pattern) + j is row r of ``sub<j>``)."""
+    """The reference's ``init_lm`` (``init_encdec``) layout of the port's
+    parameters, in torch tensors: every top-level entry but the layer
+    lists as it is; the encoder-decoder's ``enc_layers`` and
+    ``dec_layers`` stacked; an LM's first ``len(cfg.prelude)`` layers as
+    the ``prelude`` list, and the rest as ``layers/sub<j>/...`` stacked
+    (layer len(prelude) + r * len(pattern) + j is row r of ``sub<j>``)."""
+    if cfg.encoder is not None:
+        return {name: (_stack(sub) if name in _ENCDEC_STACKS else sub)
+                for name, sub in params.items()}
     n_pat, n_pre = len(cfg.pattern), len(cfg.prelude)
-    out: Dict[str, Any] = {name: params[name]
-                           for name in ("embed", "final_norm", "lm_head")
-                           if name in params}
+    out: Dict[str, Any] = {name: sub for name, sub in params.items()
+                           if name != "layers"}
     out["prelude"] = list(params["layers"][:n_pre])
     scanned = params["layers"][n_pre:]
     out["layers"] = {f"sub{j}": _stack(scanned[j::n_pat])

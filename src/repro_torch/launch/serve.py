@@ -1,12 +1,19 @@
 """Batched serving: prefill a batch of prompts, then decode greedily.
 
-The port of ``repro/launch/serve.py`` for the dense and MoE decoders,
-RWKV-6 and the Mamba hybrid.  The decode cache is allocated once
-(attention k/v at ``prompt_len + gen`` positions, or a ring of ``window``
-slots; the RWKV state and last rows and the Mamba conv window and state at
-their fixed size) and the prefill's cache is written into it in place
-(:func:`write_prefill_cache`), which takes the place of the JAX package's
-``pad_cache_to``.  :func:`serve_batch` builds the model by name;
+The port of ``repro/launch/serve.py`` for every architecture.  The
+inputs are drawn as the reference draws them, in its numpy order: the
+prompts' tokens, then, for the encoder-decoder, (B, prompt_len, d_input)
+frame embeddings (the decoder prefills the tokens), or, for a
+stub-embedding model, (B, prompt_len, d) embeddings in place of the
+tokens, whose decode feeds back each new token's output embedding
+``embed_out[token]``.  The decode cache is allocated once (attention k/v
+at ``prompt_len + gen`` positions, or a ring of ``window`` slots; the RWKV
+state and last rows and the Mamba conv window and state at their fixed
+size; the encoder-decoder's cross K/V at the encoder's length) and the
+prefill's cache is written into it in place (:func:`write_prefill_cache`),
+which takes the place of the JAX package's ``pad_cache_to``.  (That one
+pads the cross K/V out to ``prompt_len + gen`` rows of zeros, which every
+decode step attends to; ROADMAP.md section 3.)  :func:`serve_batch` builds the model by name;
 :func:`serve_model` serves one already built (a config cut in depth, say).
 Times are host wall clock up to a device synchronise.
 
@@ -18,6 +25,10 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
           --arch deepseek-moe-16b --reduced --device cpu
       PYTHONPATH=src python -m repro_torch.launch.serve \\
           --arch jamba-1.5-large-398b --reduced --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve \\
+          --arch whisper-base --reduced --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve \\
+          --arch qwen2-vl-72b --reduced --device cpu
 """
 
 from __future__ import annotations
@@ -30,7 +41,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..models import LM, build_model
+from ..models import build_model
 
 
 def _sync(device: torch.device) -> None:
@@ -54,14 +65,15 @@ def _write_kv(dst: torch.Tensor, src: torch.Tensor) -> None:
 def write_prefill_cache(cache: List[Dict[str, Any]],
                         prefill_cache: List[Dict[str, Any]]) -> None:
     """Copy every tensor of each layer's prefill cache into the decode
-    cache: attention k/v along the sequence (:func:`_write_kv`), anything
-    else (the RWKV state, the time and channel mixes' ``x_prev``, the
-    Mamba conv window and state) whole."""
+    cache: self-attention k/v along the sequence (:func:`_write_kv`),
+    anything else (the RWKV state, the time and channel mixes' ``x_prev``,
+    the Mamba conv window and state, the encoder-decoder's cross K/V at
+    the encoder's length) whole."""
     for c, pc in zip(cache, prefill_cache):
         for part, tensors in pc.items():
             for name, src in tensors.items():
                 dst = c[part][name]
-                if part == "mixer" and name in ("k", "v"):
+                if part in ("mixer", "self") and name in ("k", "v"):
                     _write_kv(dst, src)
                 else:
                     dst.copy_(src)
@@ -72,8 +84,9 @@ def serve_batch(arch: str, reduced: bool = True, batch: int = 4,
                 device=None, params: Optional[Dict[str, Any]] = None
                 ) -> Dict[str, Any]:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and decode
-    ``gen`` tokens each, greedily.  ``params`` (``lm.init_lm``'s tree,
-    e.g. from ``convert.lm_params_from_numpy``) replaces the seeded init.
+    ``gen`` tokens each, greedily.  ``params`` (``model.init_params``'
+    tree, e.g. from ``convert.lm_params_from_numpy``) replaces the seeded
+    init.
     See :func:`serve_model` for the result."""
     cfg = get_config(arch)
     if reduced:
@@ -82,21 +95,49 @@ def serve_batch(arch: str, reduced: bool = True, batch: int = 4,
     return serve_model(model, batch, prompt_len, gen, seed)
 
 
-def serve_model(model: LM, batch: int = 4, prompt_len: int = 16,
-                gen: int = 16, seed: int = 0) -> Dict[str, Any]:
-    """:func:`serve_batch` on an already built ``model``: ``batch`` prompts
-    drawn from ``seed``, prefilled, then ``gen`` greedy tokens each.
-    ``kv_cache_bytes`` in the result counts every tensor of the decode
-    cache, the RWKV and Mamba states included."""
-    cfg, dev = model.cfg, model.device
+def serve_inputs(cfg, batch: int, prompt_len: int, seed: int,
+                 device) -> Dict[str, torch.Tensor]:
+    """The prefill's batch, drawn as the reference's ``serve_batch`` draws
+    it from ``default_rng(seed)``: the prompts' tokens first, then the
+    float32 encoder frames (B, prompt_len, d_input) or the stub
+    embeddings (B, prompt_len, d)."""
     rng = np.random.default_rng(seed)
-    max_seq = prompt_len + gen
     prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
-    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.encoder is not None or cfg.embed_inputs:
+        out["tokens"] = torch.as_tensor(prompts, dtype=torch.int64,
+                                        device=device)
+    if cfg.encoder is not None:
+        d_in = cfg.encoder.d_input or cfg.d_model
+    elif not cfg.embed_inputs:
+        d_in = cfg.d_model
+    else:
+        return out
+    out["embeds"] = torch.as_tensor(
+        rng.normal(size=(batch, prompt_len, d_in)).astype(np.float32),
+        device=device)
+    return out
+
+
+def serve_model(model, batch: int = 4, prompt_len: int = 16,
+                gen: int = 16, seed: int = 0) -> Dict[str, Any]:
+    """:func:`serve_batch` on an already built ``model`` (an ``LM`` or an
+    ``EncDec``): ``batch`` prompts drawn from ``seed``
+    (:func:`serve_inputs`), prefilled, then ``gen`` greedy tokens each.
+    ``kv_cache_bytes`` in the result counts every tensor of the decode
+    cache, the RWKV and Mamba states and the cross K/V included."""
+    cfg, dev = model.cfg, model.device
+    max_seq = prompt_len + gen
+    inputs = serve_inputs(cfg, batch, prompt_len, seed, dev)
+    # a stub-embedding model decodes from each token's output embedding
+    embed_out = model.params["embed_out"] \
+        if cfg.encoder is None and not cfg.embed_inputs else None
 
     t0 = time.perf_counter()
-    cache = model.init_cache(batch, max_seq)
-    logits, prompt_cache = model.prefill(tokens)
+    cache = model.init_cache(batch, max_seq) if cfg.encoder is None \
+        else model.init_cache(batch, max_seq, enc_seq=prompt_len)
+    logits, prompt_cache = model.prefill(inputs)
+    del inputs
     write_prefill_cache(cache, prompt_cache)
     del prompt_cache
     finite = torch.isfinite(logits).all()
@@ -108,8 +149,9 @@ def serve_model(model: LM, batch: int = 4, prompt_len: int = 16,
     t0 = time.perf_counter()
     for i in range(gen):
         out[:, i] = next_tok
-        logits, cache = model.decode_step(cache, next_tok[:, None],
-                                          prompt_len + i)
+        step_in = next_tok[:, None] if embed_out is None \
+            else embed_out[next_tok][:, None]
+        logits, cache = model.decode_step(cache, step_in, prompt_len + i)
         finite &= torch.isfinite(logits).all()
         next_tok = logits[:, -1].argmax(-1)
     _sync(dev)

@@ -17,9 +17,8 @@ What differs from the JAX module:
   gradient.
 * ``jit_train_step``'s shardings (parameters, optimizer state and batch
   laid out over a (data, model) mesh) have no counterpart on one card:
-  ``mesh_shape`` other than ``(1, 1)`` raises ``NotImplementedError``, as
-  do stub-embedding or encoder inputs and the unported families
-  (ROADMAP.md queue 1 item 6).
+  ``mesh_shape`` other than ``(1, 1)`` raises ``NotImplementedError``
+  (the mesh modules, ROADMAP.md queue 1 item 6).
 * ``train_loop`` returns, besides the reference's keys, the step it
   started from (``start``), each step's wall seconds up to the loss's
   readback (``step_s``) and metrics (``metrics``).
@@ -48,8 +47,8 @@ from ..convert import (adamw_state_to_reference, lm_params_from_reference,
                        lm_params_to_reference)
 from ..data.pipeline import DataConfig, DataState, shard_batch_at
 from ..kernels._compat import resolve_device
-from ..models import LM, build_model
-from ..models import lm as lm_mod
+from ..models import build_model
+from ..models.model import init_params
 from ..optim import adamw
 from ..utils.tree import leaves, unflatten_like
 
@@ -68,13 +67,18 @@ class TrainConfig:
     log_interval: int = 10
 
 
-def make_train_step(api: LM, opt_cfg: adamw.AdamWConfig, cfg: ModelConfig):
+def make_train_step(api, opt_cfg: adamw.AdamWConfig, cfg: ModelConfig):
     """(params, opt_state, batch) -> (params, opt_state, metrics); the
-    parameters and moments are updated in place (``adamw.update``)."""
+    parameters and moments are updated in place (``adamw.update``).  A
+    leaf the loss does not use (a stub-embedding model's ``embed_out``)
+    takes a zero gradient, as ``jax.grad`` gives it."""
 
     def step(params, opt_state, batch):
         loss, metrics = api.loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves(params))
+        ps = leaves(params)
+        grads = torch.autograd.grad(loss, ps, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(ps, grads)]
         grads = unflatten_like(params, grads)
         params, opt_state, om = adamw.update(grads, opt_state, params,
                                              opt_cfg)
@@ -98,7 +102,7 @@ def train_config(arch: str, reduced: bool) -> ModelConfig:
 def _restore(store, cfg: ModelConfig, dev):
     """Parameters, optimizer state and metadata of the store's latest
     checkpoint, in the port's layout on ``dev``."""
-    meta_params = lm_mod.init_lm(None, cfg, "meta")
+    meta_params = init_params(None, cfg, "meta")
     ref_params, meta = store.restore(lm_params_to_reference(cfg,
                                                             meta_params),
                                      device=dev)
@@ -136,7 +140,7 @@ def train_loop(arch: str, reduced: bool, steps: int, mesh_shape=(1, 1),
                                        ckpt_interval=tc.ckpt_interval)
     if resume and store is not None and store.latest_step() is not None:
         params, opt_state, meta = _restore(store, cfg, dev)
-        api = LM(cfg, params, dev)
+        api = build_model(cfg, dev, params=params)
         data_state = DataState.from_dict(meta["data_state"])
         start = int(meta["step"]) + 1
     else:
@@ -177,17 +181,34 @@ def train_loop(arch: str, reduced: bool, steps: int, mesh_shape=(1, 1),
             "step_s": step_s, "metrics": history}
 
 
-def _prep_batch(batch_np: Dict[str, np.ndarray], api: LM,
+def _prep_batch(batch_np: Dict[str, np.ndarray], api,
                 device) -> Dict[str, torch.Tensor]:
-    """The token branch of the reference's ``_prep_batch``: tokens and
-    labels as int64 tensors on ``device``."""
+    """The reference's ``_prep_batch`` on ``device``: tokens and labels as
+    int64 tensors; for the encoder-decoder, float32 frame embeddings
+    (B, S, d_input) beside them, for a stub-embedding model (B, S, d)
+    embeddings in place of the tokens and, under M-RoPE, equal (t, h, w)
+    position triples (3, B, S).  The embeddings are numpy normals from
+    ``default_rng(tokens[0, 0] + 17)``, as the reference draws them."""
     cfg = api.cfg
-    if cfg.encoder is not None or not cfg.embed_inputs:
-        raise NotImplementedError("stub-embedding and encoder inputs are "
-                                  f"not ported yet ({_NOT_PORTED})")
-    return {k: torch.as_tensor(np.asarray(batch_np[k], np.int64),
-                               device=device)
-            for k in ("tokens", "labels")}
+
+    def ints(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    if cfg.encoder is None and cfg.embed_inputs:
+        return {k: ints(batch_np[k]) for k in ("tokens", "labels")}
+    tokens = np.asarray(batch_np["tokens"])
+    B, S = tokens.shape
+    d_in = cfg.d_model if cfg.encoder is None \
+        else cfg.encoder.d_input or cfg.d_model
+    rng = np.random.default_rng(int(tokens[0, 0]) + 17)
+    out = {"embeds": torch.as_tensor(
+        rng.normal(size=(B, S, d_in)).astype(np.float32), device=device),
+        "labels": ints(batch_np["labels"])}
+    if cfg.encoder is not None:
+        out["tokens"] = ints(tokens)
+    elif cfg.mrope_sections is not None:
+        out["positions"] = ints(np.arange(S))[None, None].expand(3, B, S)
+    return out
 
 
 def main(argv=None) -> None:

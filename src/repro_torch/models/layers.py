@@ -1,5 +1,6 @@
-"""Core layers of the dense decoder: norms, RoPE (standard and partial),
-GQA attention (causal / sliding-window / qk-norm / QKV-bias) and dense MLPs.
+"""Core layers: norms, RoPE (standard, partial and M-RoPE), GQA attention
+(causal / sliding-window / qk-norm / QKV-bias, and cross-attention) and
+dense MLPs.
 
 The port of ``repro/models/layers.py``.  Every layer is a function
 ``apply(params, x, ...)`` on a dict of tensors, with the JAX package's
@@ -21,7 +22,7 @@ What differs from the JAX module:
 * :func:`_sdpa` groups the query heads by kv head instead of repeating the
   kv heads: the same products, without copying the cache.
 * ``utils/shard_hints.hint`` (sharding annotations) is a no-op on one card
-  and is dropped.  M-RoPE and cross-attention wait for their families.
+  and is dropped.
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ def rms_head_norm(scale: torch.Tensor, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings: standard and partial
+# Rotary embeddings: standard, partial, and M-RoPE
 # ---------------------------------------------------------------------------
 
 def _rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
@@ -98,10 +99,8 @@ def _rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, n_heads, head_dim); positions: (B, S)."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE waits for qwen2-vl (ROADMAP.md queue 1 item 6)")
+    """x: (B, S, n_heads, head_dim); positions: (B, S) or (3, B, S) for
+    M-RoPE (t/h/w position triples, Qwen2-VL)."""
     hd = x.shape[-1]
     rot = int(hd * cfg.rotary_pct)
     rot -= rot % 2
@@ -109,7 +108,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
         return x
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     freqs = _rope_freqs(rot, cfg.rope_theta, x.device)    # (rot/2,)
-    angles = positions[..., None].float() * freqs          # (B, S, rot/2)
+    if cfg.mrope_sections is not None and positions.dim() == 3:
+        # M-RoPE: the rot/2 frequencies split in order into the (t, h, w)
+        # sections, each rotated by its own position stream
+        sec = cfg.mrope_sections
+        if sum(sec) != rot // 2:
+            raise ValueError(f"mrope_sections {sec} do not sum to {rot // 2}")
+        angles = torch.cat([
+            positions[axis][..., None].float() * f
+            for axis, f in enumerate(torch.split(freqs, list(sec)))],
+            dim=-1)                                        # (B, S, rot/2)
+    else:
+        pos = positions if positions.dim() == 2 else positions[0]
+        angles = pos[..., None].float() * freqs            # (B, S, rot/2)
     cos = torch.cos(angles)[:, :, None, :]                # (B, S, 1, rot/2)
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x_rot[..., ::2], x_rot[..., 1::2]
@@ -124,7 +135,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
-                   device=None) -> Params:
+                   device=None, cross: bool = False) -> Params:
+    """``cross``: the decoder's cross-attention, without QKV bias or qk
+    norm."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = torch_dtype(cfg.param_dtype)
     scale_in = 1.0 / math.sqrt(d)
@@ -135,14 +148,22 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
         "wv": init_normal(gen, (d, KV, hd), scale_in, dt, device),
         "wo": init_normal(gen, (H, hd, d), scale_out, dt, device),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((H, hd), dtype=dt, device=device)
         p["bk"] = torch.zeros((KV, hd), dtype=dt, device=device)
         p["bv"] = torch.zeros((KV, hd), dtype=dt, device=device)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones(hd, dtype=dt, device=device)
         p["k_norm"] = torch.ones(hd, dtype=dt, device=device)
     return p
+
+
+def project_in(x: torch.Tensor, w: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """``(x @ w).astype(dtype)`` with JAX's promotion: a float32 input and
+    bfloat16 weights multiply in float32 (the stub frontends' adapters)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return (x.to(dt) @ w.to(dt)).to(dtype)
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -232,9 +253,12 @@ def attention_decode(p: Params, x: torch.Tensor, pos: int,
                      cache: Dict[str, torch.Tensor], cfg: ModelConfig
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token decode. x: (B, 1, d); cache k/v: (B, Smax, KV, hd);
-    pos: the new token's position.  Writes the cache in place."""
+    pos: the new token's position (all three M-RoPE streams at ``pos``).
+    Writes the cache in place."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    if cfg.mrope_sections is not None:
+        positions = positions[None].expand(3, B, 1)
     q, k_new, v_new = _project_qkv(p, x, x, cfg)
     q = apply_rope(q, positions, cfg)
     k_new = apply_rope(k_new, positions, cfg)
@@ -257,6 +281,13 @@ def attention_decode(p: Params, x: torch.Tensor, pos: int,
     mask = torch.where(ok, 0.0, NEG_INF)[None, None, None, :]
     out = _sdpa(q, k, v, mask, cfg)
     return _out_proj(out, p["wo"]), {"k": k, "v": v}
+
+
+def attention_cross(p: Params, x: torch.Tensor, enc: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention (whisper decoder): no RoPE, no mask."""
+    q, k, v = _project_qkv(p, x, enc, cfg)
+    return _out_proj(_sdpa(q, k, v, None, cfg), p["wo"])
 
 
 # ---------------------------------------------------------------------------

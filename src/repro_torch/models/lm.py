@@ -5,15 +5,17 @@ The port of ``repro/models/lm.py``: the ``attn``/``mamba``/``rwkv`` mixers
 and the ``dense``/``moe``/``rwkv_ffn`` MLPs; any pairing of them is a
 block, and a pattern may mix them (Jamba's period interleaves Mamba,
 attention and MoE blocks).
-Parameters are a dict: ``embed`` (V, d), ``final_norm``, ``lm_head``
-(d, V) and ``layers``, a list with one block dict per layer in execution
-order: the ``cfg.prelude`` blocks first (DeepSeek-MoE's dense first
-layer), then ``cfg.pattern`` repeated ``cfg.n_repeats`` times.  (JAX keeps
-the prelude blocks in a list under ``prelude`` and stacks the pattern's
-layers along a leading axis and scans; here a Python loop walks one list,
-and ``convert.py`` maps between the two layouts.)  The cache is a list with
-one dict per layer, in the same order: ``{"mixer": {"k", "v"}}`` for
-attention, ``{"mixer": {"conv", "ssm"}}`` for Mamba (the last dc-1
+Parameters are a dict: ``embed`` (V, d) (for stub-embedding inputs,
+``cfg.embed_inputs=False``: the frontend's linear ``adapter`` (d, d) and
+the output embeddings ``embed_out`` (V, d) in its place), ``final_norm``,
+``lm_head`` (d, V) and ``layers``, a list with one block dict per layer
+in execution order: the ``cfg.prelude`` blocks first (DeepSeek-MoE's dense
+first layer), then ``cfg.pattern`` repeated ``cfg.n_repeats`` times.  (JAX
+keeps the prelude blocks in a list under ``prelude`` and stacks the
+pattern's layers along a leading axis and scans; here a Python loop walks
+one list, and ``convert.py`` maps between the two layouts.)  The cache is
+a list with one dict per layer, in the same order: ``{"mixer": {"k",
+"v"}}`` for attention, ``{"mixer": {"conv", "ssm"}}`` for Mamba (the last dc-1
 pre-conv inputs and the float32 state), ``{"mixer": {"state",
 "x_prev"}}`` for the RWKV time mix, and ``"mlp": {"x_prev"}`` beside it
 for the RWKV channel mix.
@@ -33,8 +35,12 @@ pattern entry); ``"dots"``, a selective checkpoint that keeps the outputs
 of plain matrix products (``aten.mm``/``aten.addmm``) and recomputes the
 rest (its ``dots_with_no_batch_dims_saveable``).
 
-Stub-embedding or encoder inputs raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+Stub-embedding inputs (Qwen2-VL's stubbed vision tower) are a batch of
+``embeds`` (B, S, d) and, with ``cfg.mrope_sections``, M-RoPE
+``positions`` (3, B, S); without them every stream takes the token's
+index, which makes M-RoPE plain RoPE.  A decode step takes (B, 1, d)
+embeddings in place of tokens.  Encoder-decoder configs are
+``models/encdec.py``'s.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from .layers import (apply_mlp, apply_norm, attention_decode,
                      attention_full, init_attention, init_mlp, init_norm,
-                     init_normal, torch_dtype)
+                     init_normal, project_in, torch_dtype)
 
 Params = Dict[str, Any]
 
@@ -68,10 +74,9 @@ def _check_kind(kind: Tuple[str, str]) -> None:
 
 
 def _check_cfg(cfg: ModelConfig) -> None:
-    if not cfg.embed_inputs or cfg.encoder is not None:
-        raise NotImplementedError("stub-embedding and encoder inputs are "
-                                  "not ported yet (ROADMAP.md queue 1 "
-                                  "item 6)")
+    if cfg.encoder is not None:
+        raise ValueError(f"{cfg.name} has an encoder tower: models/encdec.py "
+                         "builds it")
     for kind in cfg.prelude + tuple(cfg.pattern):
         _check_kind(kind)
 
@@ -188,12 +193,17 @@ def apply_block(p: Params, x: torch.Tensor, kind: Tuple[str, str],
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     """Parameters drawn from ``gen`` (on ``device``) with the JAX
-    package's distributions: embed N(0, 0.02^2), projections
-    N(0, 1/fan_in), norms ones, biases zeros."""
+    package's distributions: embed (and embed_out) N(0, 0.02^2),
+    projections (and the stub adapter) N(0, 1/fan_in), norms ones, biases
+    zeros."""
     _check_cfg(cfg)
     dt = torch_dtype(cfg.param_dtype)
-    p: Params = {"embed": init_normal(gen, (cfg.vocab_size, cfg.d_model),
-                                      0.02, dt, device)}
+    V, d = cfg.vocab_size, cfg.d_model
+    if cfg.embed_inputs:
+        p: Params = {"embed": init_normal(gen, (V, d), 0.02, dt, device)}
+    else:
+        p = {"adapter": init_normal(gen, (d, d), d ** -0.5, dt, device),
+             "embed_out": init_normal(gen, (V, d), 0.02, dt, device)}
     p["layers"] = [init_block(gen, kind, cfg, device)
                    for kind in layer_kinds(cfg)]
     p["final_norm"] = init_norm(cfg, device=device)
@@ -206,7 +216,7 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
 def _unembed_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
     if not cfg.tie_embeddings:
         return params["lm_head"]
-    return params["embed"].T
+    return params.get("embed", params.get("embed_out")).T
 
 
 # ---------------------------------------------------------------------------
@@ -266,12 +276,22 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def embed_tokens(params: Params, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (x, positions) for token inputs."""
+    """-> (x, positions) for token or stub-embedding inputs; positions
+    (3, B, S) under M-RoPE (the batch's, or the token index in all three
+    streams), else (B, S)."""
     _check_cfg(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    dtype = torch_dtype(cfg.dtype)
+    if cfg.embed_inputs:
+        tokens = batch["tokens"]
+        x = params["embed"][tokens].to(dtype)
+    else:
+        x = project_in(batch["embeds"], params["adapter"], dtype)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.mrope_sections is not None:
+        given = batch.get("positions")
+        positions = positions[None].expand(3, B, S) if given is None \
+            else given
     return x, positions
 
 
@@ -316,7 +336,8 @@ def softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, aux_weight: float = 0.01):
-    """Training loss (+ metrics). batch: tokens + labels (B, S).
+    """Training loss (+ metrics). batch: tokens (or embeds and optional
+    M-RoPE positions) + labels (B, S).
     Returns (loss, {"xent", "aux"}); ``aux`` is the layers' summed MoE
     load-balancing loss (0 without a ``moe`` block)."""
     x, positions = embed_tokens(params, batch, cfg)
@@ -342,9 +363,12 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
 def lm_decode_step(params: Params, cache: List[Params],
                    tokens: torch.Tensor, pos: int, cfg: ModelConfig
                    ) -> Tuple[torch.Tensor, List[Params]]:
-    """One decode step. tokens: (B, 1); pos: the tokens' position.
-    Returns (logits (B, 1, V), cache), the cache updated in place."""
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    """One decode step. tokens: (B, 1) (or embeds (B, 1, d) for stub
+    frontends); pos: the tokens' position.  Returns (logits (B, 1, V),
+    cache), the cache updated in place."""
+    dtype = torch_dtype(cfg.dtype)
+    x = params["embed"][tokens].to(dtype) if cfg.embed_inputs \
+        else project_in(tokens, params["adapter"], dtype)
     x, new_cache, _ = apply_stack(params, x, cfg, "decode", cache=cache,
                                   pos=pos)
     x = apply_norm(params["final_norm"], x, cfg)

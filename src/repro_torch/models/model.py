@@ -1,15 +1,16 @@
-"""``build_model``: a decoder-only LM as an ``nn.Module``.
+"""``build_model``: an LM as an ``nn.Module``.
 
-The port of ``repro/models/model.py::build_model`` for decoder-only
-configs whose blocks ``lm.py`` ports (attention, Mamba or RWKV-6 time mix;
-dense, mixture-of-experts or RWKV channel-mix MLPs; DeepSeek-MoE's prelude
-layers, which lead the layer list; and hybrid patterns that interleave
-them, as Jamba's period of Mamba, attention and MoE blocks does).
-:class:`LM` holds the parameters of ``lm.init_lm``'s dict tree as
-``nn.Parameter``s, so ``state_dict`` and ``named_parameters`` see them,
-and exposes the reference's entry points over the functions of
-``lm.py``: ``loss_fn`` (``ModelAPI.loss_fn``) for training, and
-``prefill``, ``decode_step`` and ``init_cache`` for serving.
+The port of ``repro/models/model.py::build_model``.  A decoder-only
+config (attention, Mamba or RWKV-6 time mix; dense, mixture-of-experts or
+RWKV channel-mix MLPs; DeepSeek-MoE's prelude layers, which lead the
+layer list; hybrid patterns that interleave them, as Jamba's period of
+Mamba, attention and MoE blocks does; token or stub-embedding inputs)
+gives an :class:`LM` over the functions of ``lm.py``; a config with an
+encoder tower gives an :class:`EncDec` over those of ``encdec.py``.
+Each holds its parameter dict tree as ``nn.Parameter``s, so
+``state_dict`` and ``named_parameters`` see them, and exposes the
+reference's entry points: ``loss_fn`` (``ModelAPI.loss_fn``) for
+training, and ``prefill``, ``decode_step`` and ``init_cache`` for serving.
 
 The parameters are built frozen (``requires_grad=False``); a trainer calls
 ``model.requires_grad_(True)`` and takes ``model.params``, whose leaves
@@ -28,6 +29,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels._compat import resolve_device
+from . import encdec as encdec_mod
 from . import lm as lm_mod
 
 Params = Dict[str, Any]
@@ -53,9 +55,7 @@ def _tree(m: nn.Module):
     return out
 
 
-class LM(nn.Module):
-    """A decoder-only LM (dense, MoE, RWKV-6 or hybrid) on one device."""
-
+class _Model(nn.Module):
     def __init__(self, cfg: ModelConfig, params: Params,
                  device: torch.device):
         super().__init__()
@@ -65,27 +65,39 @@ class LM(nn.Module):
 
     @property
     def params(self) -> Params:
-        """The parameters as ``lm.py``'s dict tree (the same tensors)."""
+        """The parameters as the model module's dict tree (the same
+        tensors)."""
         return _tree(self.tree)
 
+
+class LM(_Model):
+    """A decoder-only LM (dense, MoE, RWKV-6, hybrid or stub-embedding)
+    on one device."""
+
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]):
-        """(loss, {"xent", "aux"}) of ``batch`` (tokens, labels (B, S))
-        under ``params`` (``lm.lm_loss``: the cross entropy plus 0.01 x the
-        layers' MoE load-balancing loss, ``aux``)."""
+        """(loss, {"xent", "aux"}) of ``batch`` (tokens, or embeds and
+        M-RoPE positions; labels (B, S)) under ``params`` (``lm.lm_loss``:
+        the cross entropy plus 0.01 x the layers' MoE load-balancing loss,
+        ``aux``)."""
         return lm_mod.lm_loss(params, batch, self.cfg)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor):
-        """tokens (B, S) -> (last-position logits (B, 1, V) float32,
-        each layer's cache of the prompt: attention k/v, the Mamba conv
-        window and state, or the RWKV state and last rows)."""
-        return lm_mod.lm_prefill(self.params, {"tokens": tokens}, self.cfg)
+    def prefill(self, batch):
+        """tokens (B, S), or a batch dict (``tokens``, or ``embeds``
+        (B, S, d) and optional ``positions`` (3, B, S)) -> (last-position
+        logits (B, 1, V) float32, each layer's cache of the prompt:
+        attention k/v, the Mamba conv window and state, or the RWKV state
+        and last rows)."""
+        if not isinstance(batch, dict):
+            batch = {"tokens": batch}
+        return lm_mod.lm_prefill(self.params, batch, self.cfg)
 
     @torch.no_grad()
     def decode_step(self, cache: List[Params], tokens: torch.Tensor,
                     pos: int):
-        """tokens (B, 1) at position ``pos`` -> (logits (B, 1, V), cache);
-        the cache is updated in place."""
+        """tokens (B, 1) (stub frontends: embeddings (B, 1, d)) at
+        position ``pos`` -> (logits (B, 1, V), cache); the cache is
+        updated in place."""
         return lm_mod.lm_decode_step(self.params, cache, tokens, pos,
                                      self.cfg)
 
@@ -94,14 +106,54 @@ class LM(nn.Module):
                                     self.device)
 
 
+class EncDec(_Model):
+    """An encoder-decoder (whisper) on one device."""
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """(xent, {"xent", "aux"}) of ``batch`` (embeds (B, S_enc,
+        d_input), tokens, labels (B, S)) under ``params``."""
+        return encdec_mod.encdec_loss(params, batch, self.cfg)
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, torch.Tensor]):
+        """A batch of ``embeds`` (B, S_enc, d_input) and ``tokens`` (B, S)
+        -> (last-position logits (B, 1, V) float32, each decoder layer's
+        self k/v and cross K/V)."""
+        return encdec_mod.encdec_prefill(self.params, batch, self.cfg)
+
+    @torch.no_grad()
+    def decode_step(self, cache: List[Params], tokens: torch.Tensor,
+                    pos: int):
+        """tokens (B, 1) at position ``pos`` -> (logits (B, 1, V), cache);
+        the self-attention cache is updated in place."""
+        return encdec_mod.encdec_decode_step(self.params, cache, tokens,
+                                             pos, self.cfg)
+
+    def init_cache(self, batch: int, max_seq: int,
+                   enc_seq: int) -> List[Params]:
+        """Self k/v at ``max_seq`` positions, cross K/V at ``enc_seq``."""
+        return encdec_mod.encdec_init_cache(self.cfg, batch, max_seq,
+                                            enc_seq, self.device)
+
+
+def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
+                device=None) -> Params:
+    """``cfg``'s parameter tree drawn from ``gen`` on ``device``."""
+    if cfg.encoder is not None:
+        return encdec_mod.init_encdec(gen, cfg, device)
+    return lm_mod.init_lm(gen, cfg, device)
+
+
 def build_model(cfg: ModelConfig, device=None, seed: int = 0,
-                params: Optional[Params] = None) -> LM:
-    """The model of ``cfg`` on ``device`` (the card unless ``"cpu"``).
-    Without ``params`` it draws them with ``lm.init_lm`` from a
-    ``torch.Generator`` on the device seeded with ``seed``."""
+                params: Optional[Params] = None):
+    """The model of ``cfg`` on ``device`` (the card unless ``"cpu"``): an
+    :class:`EncDec` for a config with an encoder tower, else an
+    :class:`LM`.  Without ``params`` it draws them with
+    :func:`init_params` from a ``torch.Generator`` on the device seeded
+    with ``seed``."""
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         with torch.no_grad():
-            params = lm_mod.init_lm(gen, cfg, dev)
-    return LM(cfg, params, dev)
+            params = init_params(gen, cfg, dev)
+    return (EncDec if cfg.encoder is not None else LM)(cfg, params, dev)

@@ -460,6 +460,9 @@ def test_engine_on_card_matches_cpu_plain_path(dev):
     (2, 256, 4, 4, 96, True, None, torch.bfloat16, False),  # H = KV
     (1, 256, 32, 2, 128, True, None, torch.bfloat16, False),  # GQA 16
     (1, 1, 4, 2, 128, True, None, torch.bfloat16, False),
+    (4, 1500, 8, 8, 64, False, None, torch.bfloat16, False),  # whisper enc
+    (4, 1500, 8, 8, 64, True, None, torch.bfloat16, False),   # whisper dec
+    (1, 2048, 64, 8, 128, True, None, torch.bfloat16, False),  # qwen2-vl
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, S, H, KV, d, causal,
                                               window, dtype, strided):
@@ -526,6 +529,27 @@ def test_serve_batch_on_card_matches_cpu_plain_path(dev):
     gpu = serve_batch(*args, seed=0, device=dev, params=_to(params, dev))
     assert _build.LAUNCHES["flash_attention"] == before + cfg.num_layers
     assert gpu["logits_finite"] and gpu["device"].startswith("cuda")
+    np.testing.assert_array_equal(gpu["tokens"], cpu["tokens"])
+
+
+@pytest.mark.parametrize("arch,launches", [("whisper-base", 4),
+                                           ("qwen2-vl-72b", 2)])
+def test_encdec_and_stub_serve_on_card_match_cpu(dev, arch, launches):
+    """The reduced whisper-base (2 non-causal encoder layers, 2 decoder
+    layers, each launching the float32 flash-attention kernel) and
+    qwen2-vl-72b (stub embeddings, decode fed ``embed_out``) served on the
+    card against the CPU plain path on the same weights: equal greedy
+    tokens, the cross K/V kept at the encoder's length."""
+    cfg = get_config(arch).reduced()
+    params = build_model(cfg, "cpu", seed=0).params
+    args = (arch, True, 2, 40, 8)
+    cpu = serve_batch(*args, seed=0, device="cpu", params=_to(params, "cpu"))
+    before = _build.LAUNCHES["flash_attention:f32_cuda_core"]
+    gpu = serve_batch(*args, seed=0, device=dev, params=_to(params, dev))
+    assert _build.LAUNCHES["flash_attention:f32_cuda_core"] \
+        == before + launches
+    assert gpu["logits_finite"] and gpu["device"].startswith("cuda")
+    assert gpu["kv_cache_bytes"] == cpu["kv_cache_bytes"]
     np.testing.assert_array_equal(gpu["tokens"], cpu["tokens"])
 
 
@@ -1257,13 +1281,12 @@ def test_subprocess_chaos_on_card_matches_inline_and_cpu(dev):
 
 def _reduced_train_state(arch, device):
     from repro_torch.launch import train as TT
-    from repro_torch.models import LM
     from repro_torch.optim import adamw
     from repro_torch.utils.tree import tree_map
     cfg = TT.train_config(arch, reduced=True)
     params = tree_map(lambda t: t.detach().to(device).clone(),
                       build_model(cfg, "cpu", seed=0).params)
-    model = LM(cfg, params, torch.device(device))
+    model = build_model(cfg, torch.device(device), params=params)
     model.requires_grad_(True)
     opt_cfg = adamw.AdamWConfig(schedule=adamw.cosine_schedule(10, 30))
     step = TT.make_train_step(model, opt_cfg, cfg)
@@ -1272,7 +1295,8 @@ def _reduced_train_state(arch, device):
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-3b",
                                   "deepseek-moe-16b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "whisper-base",
+                                  "qwen2-vl-72b"])
 def test_reduced_train_steps_on_card_match_cpu(dev, arch):
     """Three float32 train steps of the reduced model from the same
     weights and batches: losses and MoE aux rel 1e-5, gradient norms rel

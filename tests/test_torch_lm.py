@@ -49,7 +49,7 @@ from repro_torch.launch.serve import serve_batch, write_prefill_cache
 from repro_torch.models import build_model
 from repro_torch.models import layers as TL
 
-ARCHS = ("qwen3-14b", "glm4-9b", "phi3-mini-3.8b")
+ARCHS = ("qwen3-14b", "glm4-9b", "phi3-mini-3.8b", "qwen1.5-110b")
 
 
 def _np_tree(tree):
@@ -76,7 +76,8 @@ def _cfgs(arch, **kw):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ARCHS + ("rwkv6-3b", "deepseek-moe-16b",
-                                  "mixtral-8x7b", "jamba-1.5-large-398b"))
+                                  "mixtral-8x7b", "jamba-1.5-large-398b",
+                                  "whisper-base", "qwen2-vl-72b"))
 def test_configs_match_the_jax_package(arch):
     j, t = jget(arch), get_config(arch)
     shared = ("num_layers", "d_model", "num_heads", "num_kv_heads",
@@ -84,11 +85,13 @@ def test_configs_match_the_jax_package(arch):
               "rotary_pct", "qkv_bias", "qk_norm", "window", "norm", "act",
               "norm_eps", "dtype", "tie_embeddings", "rwkv_head_dim",
               "rwkv_decay_lora", "moe", "prelude", "mamba_d_state",
-              "mamba_d_conv", "mamba_expand", "mamba_chunk")
+              "mamba_d_conv", "mamba_expand", "mamba_chunk", "encoder",
+              "mrope_sections", "embed_inputs", "family")
 
-    def fields(c):      # MoEConfig is each package's own dataclass
+    def fields(c):      # MoEConfig, EncoderConfig: each package's own
         return {f: (dataclasses.asdict(getattr(c, f))
-                    if f == "moe" and c.moe is not None else getattr(c, f))
+                    if f in ("moe", "encoder") and getattr(c, f) is not None
+                    else getattr(c, f))
                 for f in shared}
 
     for cj, ct in ((j, t), (j.reduced(), t.reduced())):
@@ -97,11 +100,13 @@ def test_configs_match_the_jax_package(arch):
 
 
 def test_unported_archs_name_the_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("whisper-base")
-    cfg = get_config("qwen3-14b").reduced(embed_inputs=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg, "cpu")
+    """Every architecture of the JAX package is ported; an unknown name
+    still raises ``KeyError``."""
+    from repro.configs import ARCHS as JARCHS
+    from repro_torch.configs import ARCHS as TARCHS
+    assert list(TARCHS) == list(JARCHS) and len(TARCHS) == 10
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("whisper-large")
 
 
 # ---------------------------------------------------------------------------

@@ -62,7 +62,8 @@ from repro_torch.optim import adamw as TA
 from repro_torch.optim import compression as TC
 from repro_torch.utils.tree import leaves, leaves_with_path, tree_map
 
-ARCHS = ("qwen3-14b", "glm4-9b", "phi3-mini-3.8b", "rwkv6-3b")
+ARCHS = ("qwen3-14b", "glm4-9b", "phi3-mini-3.8b", "rwkv6-3b",
+         "qwen1.5-110b")
 
 
 def _np(tree):
@@ -610,5 +611,5 @@ def test_trainer_refusals(monkeypatch):
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         TT.train_loop("qwen3-14b", True, 1, mesh_shape=(2, 1),
                       device="cpu")
-    with pytest.raises(KeyError, match="queue 1"):
-        TT.train_loop("whisper-base", True, 1, device="cpu")
+    out = TT.train_loop("whisper-base", True, 1, device="cpu", seq_len=16)
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
