@@ -82,7 +82,9 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    main path's shapes (``merge``/``point_read``/``bloom_probe``
    bit-identical,
    ``dual_solve`` to rel 1e-5 in value and in the envelope gradient it
-   writes, with the share of lanes bit-equal to the plain version,
+   writes, with the share of lanes bit-equal to the plain version, on
+   the tuner's lanes (4 costs) and on the ``kernels`` suite's 1,024 x 64
+   (its wide lanes, timed beside their bound) and 1,000 x 33 and x 17,
    ``flash_attention`` to 2e-2 in
    bfloat16 (jamba's 64/8 heads at its prefill and mixtral's 32/8 at
    (2, 6144) with its 4,096 window among the cases; whisper's encoder
@@ -109,7 +111,13 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    ``point_read`` likewise replays the path's point reads and the samples
    they built; and ``launch_floor_ms``, a one-element add's device
    time.
-
+5a. ``bench_kernels`` — the ``kernels`` and ``roofline`` suites of
+   ``repro_torch.bench.run`` on the card: each kernel of the data plane
+   (point read, dual solve, merge) timed against its plain version at the
+   committed shapes, every held count equal to ``BENCH_kernels.json``;
+   three measured roofline cells against the card's copy bandwidth (the
+   best of 10 copies of a 1 GiB tensor, read and write charged), and the
+   committed skip rows; each suite's launches.
 6. ``suites`` — the paper suites ``fig4``, ``fig10`` and the three that
    run through the experiment API (``fig7_8``, ``fig9``, ``fig19``:
    ``repro_torch.api.run_experiment``) through ``repro_torch.bench.run``
@@ -211,6 +219,24 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    ``kernel.dispatch.point_read.cuda`` counters; its calibration artifact
    validates its checksum and reads ``all_fitted_ge_hand`` true; and the
    faults and obs suites' ``overhead_ratio``, printed as times.
+12a. ``dryrun`` — the port's multi-pod dry run (``repro_torch.launch.
+   dryrun``): ``DRYRUN_CELLS`` (``rwkv6-3b``'s four shapes under the tags
+   ``baseline`` and ``opt`` = ``remat=dots``, and ``qwen3-14b`` at
+   ``train_4k`` on the ``single`` and ``multipod`` meshes), each traced at
+   full size from fake tensors over a fake process group of 256 or 512
+   ranks, into a temporary records directory.  The cells run on the CPU
+   in ``DRYRUN_WORKERS`` worker processes that start after
+   ``bench_kernels`` (so that they share the host with no phase whose
+   kernel times or decode rate are read: the tuner, engine, serve,
+   kernels and ``bench_kernels`` phases before, ``train`` after) and
+   trace while the phases from the suites to obs run; this phase waits
+   for them and prints each cell's status, FLOPs, bytes, collective
+   bytes by axis, memory per device and roofline terms, and the roofline
+   suite's mesh rows over the records.  Every cell must be ``ok``, with
+   the analytic FLOPs (6ND or 2ND) 0.1-1.5 times its traced ones.
+12b. ``robust_sharding_records`` — the ``robust_sharding`` suite over
+   those records on the card: its ``rwkv6-3b`` row, the nominal against
+   the robust pick of the two layouts, must be computed, not skipped.
 13. ``train`` — the trainer (``repro_torch.launch.train``, which runs
    ``attention_impl="plain"``: the prefill kernels have no backward, so
    it must launch none of them): ``whisper-base`` at its published
@@ -350,6 +376,26 @@ MEMORY_SCENARIO = "skew_flip"
 _MEMORY_RUN: dict = {}
 # the robust_sharding phase: seeded synthetic layout candidates x GRID_RHOS
 LAYOUT_CANDIDATES = 64
+# the bench_kernels phase: the held fields of BENCH_kernels.json and
+# BENCH_roofline.json, and the kernels each suite must launch
+BENCH_HELD = {"kernels": 16, "roofline": 8}
+BENCH_KERNELS = ("dual_solve", "merge", "point_read")
+# the dryrun phase's cells, (arch, shape, mesh, tag, config overrides), the
+# longest first: rwkv6-3b's four shapes under two layouts (the tags that
+# the robust_sharding suite reads) and qwen3-14b's training step on both
+# production meshes; each traced in one of DRYRUN_WORKERS processes, which
+# the phase waits for at most DRYRUN_WAIT_S
+DRYRUN_CELLS = tuple(
+    ("rwkv6-3b", shape, "single", tag, over)
+    for shape in ("prefill_32k", "train_4k")
+    for tag, over in (("baseline", {}), ("opt", {"remat": "dots"}))) + (
+    ("qwen3-14b", "train_4k", "multipod", "baseline", {}),
+    ("qwen3-14b", "train_4k", "single", "baseline", {})) + tuple(
+    ("rwkv6-3b", shape, "single", tag, over)
+    for shape in ("decode_32k", "long_500k")
+    for tag, over in (("baseline", {}), ("opt", {"remat": "dots"})))
+DRYRUN_WORKERS = 4
+DRYRUN_WAIT_S = 900.0
 MERGE_N, READ_BATCH = 5_000_000, 1_000_000
 # (arch, the kernel its prefill runs once per layer of its mixer)
 SERVE = (("qwen3-14b", "flash_attention"), ("rwkv6-3b", "rwkv6"),
@@ -1736,65 +1782,108 @@ def dual_times(torch, ops, ref, C, W, rho, llam) -> dict:
             "bit_equal_lane_share": same.float().mean().item()}
 
 
-def kernel_dual_solve(torch, core, ops, ref, dev):
+def dual_check(torch, ops, ref, C, W, rho, llam, max_dl=0.1) -> dict:
+    """One lane batch through the kernel and its plain version, with the
+    envelope gradient: values to rel 1e-5, 99% of log lambda within 1e-5
+    (none off by more than ``max_dl``), and ``dc`` to rel 1e-5."""
+    v1, l1, dc1 = ops.dual_solve_warm_batch(C, W, rho, llam, grad=True)
+    v2, l2, dc2 = ref.dual_solve_warm_ref(C, W, rho, llam, grad=True)
+    rel = ((v1 - v2).abs() / v2.abs()).max().item()
+    dl = (l1 - l2).abs()
+    frac = (dl <= 1e-5).float().mean().item()
+    # dc is the envelope gradient at the kernel's own lambda: held
+    # against the plain formula there (a lane whose golden compare
+    # flipped has its gradient at another lambda than the plain
+    # version's), and against the plain dc where the lambdas agree
+    def rel_err(a, b):
+        d = (a - b).abs()
+        return torch.where(d == 0, 0.0, d / b.abs()).max().item()
+
+    dc_at = ref.envelope_grad(C, W, rho, l1)
+    dc_rel = rel_err(dc1, dc_at)
+    same_l = l1 == l2
+    dc_plain_rel = rel_err(dc1[same_l], dc2[same_l])
+    L, n = C.shape
+    check(rel <= 1e-5, f"dual_solve ({L}, {n}): value rel {rel} > 1e-5")
+    check(frac >= 0.99 and dl.max().item() <= max_dl,
+          f"dual_solve ({L}, {n}): log lambda {frac} within 1e-5, max "
+          f"{dl.max()}")
+    check(dc_rel <= 1e-5 and dc_plain_rel <= 1e-5,
+          f"dual_solve ({L}, {n}): dc rel {dc_rel} (at the kernel's "
+          f"lambda), {dc_plain_rel} (the plain dc, lambdas equal) > 1e-5")
+    return {"L": L, "n": n, "val_max_rel": rel,
+            "val_max_abs": (v1 - v2).abs().max().item(),
+            "llam_frac_within_1e-5": frac,
+            "llam_max_abs": dl.max().item(),
+            "bit_equal_lane_share": ((v1 == v2) & (l1 == l2))
+            .float().mean().item(),
+            "dc_max_rel": dc_rel, "dc_plain_max_rel": dc_plain_rel,
+            "dc_max_abs": (dc1 - dc_at).abs().max().item()}
+
+
+def dual_bound(L: int, n: int) -> dict:
+    """``bound`` of one no-grad solve of L lanes of n costs: C, W, rho
+    and log lambda read, value and log lambda written; 12 g-evaluations
+    a lane (3 local, 2 bracket, 6 golden, 1 final) of ~6n + 6
+    operations."""
+    return bound(L * (2 * n + 2 + 2) * 4, L * (3 + 2 + 6 + 1) * (6 * n + 6))
+
+
+def dual_wide_inputs(torch, np, L: int, n: int, dev,
+                     rho_zero: bool = False) -> tuple:
+    """The ``kernels`` suite's dual-solve inputs (``bench/kernels.py``:
+    seed 3, gamma costs, Dirichlet weights, rho 0.25, log lambda of the
+    cost range) at L lanes of n costs; with ``rho_zero``, rho 0 on every
+    7th lane."""
+    rng = np.random.default_rng(3)
+    C = rng.gamma(2.0, 2.0, (L, n)).astype(np.float32)
+    W = rng.dirichlet(np.ones(n), L).astype(np.float32)
+    rho = np.full(L, 0.25, np.float32)
+    if rho_zero:
+        rho[::7] = 0.0
+    llam = np.log(C.max(1) - C.min(1)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (C, W, rho, llam))
+
+
+def kernel_dual_solve(torch, np, core, ops, ref, dev):
     """The tuner's step-0 lane batch (``dual_inputs``, 9,600 lanes), and a
-    ragged batch with rho = 0 lanes: values to rel 1e-5, 99% of log lambda
-    within 1e-5, and the envelope gradient ``dc`` the kernel writes to rel
-    1e-5; the share of lanes bit-equal to the plain version; the no-grad
-    call timed (``dual_times``) and the tuner's call, with ``dc``, by its
-    device ms."""
+    ragged batch with rho = 0 lanes, each held by ``dual_check``; the
+    no-grad call timed (``dual_times``) and the tuner's call, with ``dc``,
+    by its device ms.  Then the 17-64-component lanes (16 threads of 4
+    components each) that the ``kernels`` suite runs: its 1,024 x 64
+    batch as the suite makes it, timed beside its ``bound``, and 1,000 x
+    33 and 1,000 x 17 (partly filled lanes, rho 0 on every 7th), each
+    held by ``dual_check``."""
     C, W_l, rho, llam = dual_inputs(torch, core, dev)
-    rows = []
     m = min(1237, C.shape[0])                  # ragged: not a block multiple
     rho_m = torch.where(torch.arange(m, device=dev) % 7 == 0, 0.0, rho[:m])
-    for C_, W_, r_, l_ in ((C, W_l, rho, llam),
-                           (C[:m], W_l[:m], rho_m, llam[:m])):
-        v1, l1, dc1 = ops.dual_solve_warm_batch(C_, W_, r_, l_, grad=True)
-        v2, l2, dc2 = ref.dual_solve_warm_ref(C_, W_, r_, l_, grad=True)
-        rel = ((v1 - v2).abs() / v2.abs()).max().item()
-        dl = (l1 - l2).abs()
-        frac = (dl <= 1e-5).float().mean().item()
-        # dc is the envelope gradient at the kernel's own lambda: held
-        # against the plain formula there (a lane whose golden compare
-        # flipped has its gradient at another lambda than the plain
-        # version's), and against the plain dc where the lambdas agree
-        def rel_err(a, b):
-            d = (a - b).abs()
-            return torch.where(d == 0, 0.0, d / b.abs()).max().item()
-
-        dc_at = ref.envelope_grad(C_, W_, r_, l1)
-        dc_rel = rel_err(dc1, dc_at)
-        same_l = l1 == l2
-        dc_plain_rel = rel_err(dc1[same_l], dc2[same_l])
-        check(rel <= 1e-5, f"dual_solve value rel {rel} > 1e-5")
-        check(frac >= 0.99 and dl.max().item() <= 0.1,
-              f"dual_solve log lambda: {frac} within 1e-5, max {dl.max()}")
-        check(dc_rel <= 1e-5 and dc_plain_rel <= 1e-5,
-              f"dual_solve dc rel {dc_rel} (at the kernel's lambda), "
-              f"{dc_plain_rel} (the plain dc, lambdas equal) > 1e-5")
-        rows.append({"L": C_.shape[0], "val_max_rel": rel,
-                     "val_max_abs": (v1 - v2).abs().max().item(),
-                     "llam_frac_within_1e-5": frac,
-                     "llam_max_abs": dl.max().item(),
-                     "bit_equal_lane_share": ((v1 == v2) & (l1 == l2))
-                     .float().mean().item(),
-                     "dc_max_rel": dc_rel, "dc_plain_max_rel": dc_plain_rel,
-                     "dc_max_abs": (dc1 - dc_at).abs().max().item()})
+    rows = [dual_check(torch, ops, ref, *b)
+            for b in ((C, W_l, rho, llam),
+                      (C[:m], W_l[:m], rho_m, llam[:m]))]
+    Cw, Ww, rw, lw = dual_wide_inputs(torch, np, 1024, 64, dev)
+    # a sum of 64 terms rounds otherwise than torch's pairwise one, and a
+    # flipped golden compare may move a lane anywhere in the scan's
+    # bracket, log lambda +- 0.8 (as tests/test_torch_cuda.py holds it)
+    wide = [dual_check(torch, ops, ref, Cw, Ww, rw, lw, max_dl=1.6)] + [
+        dual_check(torch, ops, ref, *dual_wide_inputs(torch, np, 1000, n,
+                                                      dev, rho_zero=True),
+                   max_dl=1.6)
+        for n in (33, 17)]
     L, n = C.shape
-    evals = 3 + 2 + 6 + 1                       # g-evaluations per lane
-    ops_per_g = 6 * n + 6                       # exp, div, add, max, sub, ...
     return {"name": "dual_solve", "route": "cuda",
             "source": "src/repro_torch/csrc/dual_solve.cu",
             "replaces": "src/repro/kernels/dual_solve/kernel.py:93",
-            "max_abs_err": max(r["val_max_abs"] for r in rows),
+            "max_abs_err": max(r["val_max_abs"] for r in rows + wide),
             **dual_times(torch, ops, ref, C, W_l, rho, llam),
             "grad_device_ms": device_ms(
                 torch, lambda: ops.dual_solve_warm_batch(
                     C, W_l, rho, llam, grad=True), 50,
                 CUDA_NAMES["dual_solve"]),
             "library_ms": None,
-            **bound(L * (2 * n + 2 + 2) * 4, L * evals * ops_per_g),
-            "checks": rows}
+            **dual_bound(L, n),
+            "checks": rows,
+            "wide": {**dual_times(torch, ops, ref, Cw, Ww, rw, lw),
+                     **dual_bound(1024, 64), "checks": wide}}
 
 
 def merge_pair(rng, np, torch, u64, dev, na, nb) -> tuple:
@@ -3527,6 +3616,136 @@ def suites_main(torch) -> int:
     return 0
 
 
+def phase_bench_kernels(build) -> None:
+    """The ``kernels`` and ``roofline`` suites through
+    ``repro_torch.bench.run.run_suite`` on the card, the launch counts set
+    to 0 before each: every held field of the committed file matched
+    (``BENCH_HELD``), each data-plane kernel launched, three roofline
+    cells measured; one JSON line per suite, the copy bandwidth on the
+    roofline's."""
+    from repro_torch.bench import run
+    for suite in ("kernels", "roofline"):
+        log(f"bench: {suite}")
+        build.reset_launches()
+        res = run.run_suite(suite, device=DEVICE, baseline_dir=ROOT)
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        cmp = res["comparison"]
+        rows = {r.name: r.derived for r in res["rows"]}
+        line = {"phase": "bench_kernels", "suite": suite,
+                "wall_s": res["wall_s"], "rows": rows,
+                "held_matched": len(cmp["held"]),
+                "held_missed": [list(m) for m in cmp["missed"]],
+                "launches": launches}
+        if suite == "roofline":
+            line["copy_peak_gbps"] = rows["roofline_kernels"]["copy_peak_gbps"]
+        emit(line)
+        check(not cmp["missed"], f"suite {suite}: held fields missed "
+              f"{cmp['missed']}")
+        check(len(cmp["held"]) == BENCH_HELD[suite], f"suite {suite}: "
+              f"{len(cmp['held'])} held fields, expected {BENCH_HELD[suite]}")
+        check(all(launches.get(k, 0) for k in BENCH_KERNELS),
+              f"suite {suite}: launched {launches}")
+    check(rows["roofline_kernels"]["measured_cells"] == 3,
+          f"roofline: {rows['roofline_kernels']['measured_cells']} cells")
+
+
+def dryrun_worker(src: str, arch: str, shape: str, mesh: str, tag: str,
+                  overrides: dict, out_dir: str) -> dict:
+    """One dry-run cell, in a worker process: fake tensors over a fake
+    process group, on the CPU.  Returns its record and wall time."""
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun
+    t0 = time.time()
+    rec = dryrun.run_cell(arch, shape, mesh, overrides=overrides or None,
+                          tag=tag, verbose=False, out_dir=out_dir)
+    rec["wall_s"] = time.time() - t0
+    return rec
+
+
+def start_dryrun(src: Path):
+    """Start ``DRYRUN_CELLS`` in ``DRYRUN_WORKERS`` worker processes into
+    a temporary records directory; the workers and the directory go at
+    exit.  Returns (the pool, [(cell, its async result)], the
+    directory)."""
+    import atexit
+    import multiprocessing
+    import shutil
+    import tempfile
+    records = tempfile.mkdtemp(prefix="dryrun_records_")
+    pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
+    atexit.register(shutil.rmtree, records, True)
+    atexit.register(pool.terminate)
+    cells = [(cell, pool.apply_async(dryrun_worker,
+                                     (str(src), *cell, records)))
+             for cell in DRYRUN_CELLS]
+    log(f"dryrun: {len(cells)} cells started in {DRYRUN_WORKERS} workers")
+    return pool, cells, records
+
+
+def phase_dryrun(pool, cells, records: str) -> None:
+    """Wait for the dry-run cells, print each one's status, costs and
+    roofline terms and the roofline suite's mesh rows over their records;
+    every cell must be ``ok``."""
+    from repro_torch.bench import roofline
+    log("dryrun: waiting for the cells")
+    t0 = time.time()
+    out = []
+    for (arch, shape, mesh, tag, over), res in cells:
+        rec = res.get(timeout=max(1.0, DRYRUN_WAIT_S - (time.time() - t0)))
+        trace = rec.get("trace", {})
+        terms = rec.get("roofline", {})
+        out.append({
+            "arch": arch, "shape": shape, "mesh": mesh, "tag": tag,
+            "overrides": over, "status": rec["status"],
+            "error": rec.get("error", "")[:400], "wall_s": rec["wall_s"],
+            "chips": rec.get("chips"),
+            "flops_per_dev": trace.get("flops_per_dev"),
+            "bytes_per_dev": trace.get("bytes_per_dev"),
+            "collective_bytes_by_axis":
+                trace.get("collective_bytes_by_axis"),
+            "collective_count": trace.get("collective_count"),
+            "memory_per_dev_gb":
+                rec.get("memory_analysis", {}).get("total_live_gb"),
+            **{k: terms.get(k) for k in (
+                "compute_s", "memory_s", "collective_s",
+                "collective_by_axis", "bottleneck", "step_time_s",
+                "useful_ratio", "model_flops_total")}})
+    waited = time.time() - t0
+    pool.close()
+    pool.join()
+    emit({"phase": "dryrun", "waited_s": waited, "cells": out,
+          "mesh_rows": {m: roofline.mesh_row(records, m).derived
+                        for m in ("single", "multipod")}})
+    bad = [(c["arch"], c["shape"], c["mesh"], c["tag"], c["status"],
+            c["error"]) for c in out if c["status"] != "ok"]
+    check(not bad, f"dryrun: cells not ok: {bad}")
+    # the traced FLOPs against the analytic 6ND / 2ND count: a counter
+    # that took the sharding propagation's global-shape calls for a
+    # device's would read hundreds of times too many
+    off = [(c["arch"], c["shape"], c["mesh"], c["tag"], c["useful_ratio"])
+           for c in out if not 0.1 <= c["useful_ratio"] <= 1.5]
+    check(not off, f"dryrun: analytic over traced FLOPs outside [0.1, "
+          f"1.5]: {off}")
+
+
+def phase_robust_sharding_records(build, records: str) -> None:
+    """The ``robust_sharding`` suite over the dry-run records on the card:
+    the ``rwkv6-3b`` row picks between its two layouts."""
+    from repro_torch.bench import robust_sharding
+    build.reset_launches()
+    t0 = time.time()
+    rows = {r.name: r.derived
+            for r in robust_sharding.run(device=DEVICE, records=records)}
+    emit({"phase": "robust_sharding_records", "wall_s": time.time() - t0,
+          "rows": rows,
+          "launches": {k: v for k, v in build.LAUNCHES.items() if v}})
+    row = rows["robust_sharding_rwkv6-3b"]
+    check("skipped" not in row and row["candidates"] == 2,
+          f"robust_sharding: the rwkv6-3b row was not computed: {row}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--merge", action="store_true",
@@ -3646,7 +3865,7 @@ def main(argv=None) -> int:
     dev = DEVICE
     log("kernels")
     kernels = [
-        kernel_dual_solve(torch, core, dual_ops, dual_ref, dev),
+        kernel_dual_solve(torch, np, core, dual_ops, dual_ref, dev),
         kernel_merge(torch, np, merge_ops, merge_ref, u64, dev, merges),
         kernel_point_read(torch, np, read_ops, read_ref, u64, tree, keys,
                           reads, builds, dev),
@@ -3662,6 +3881,9 @@ def main(argv=None) -> int:
         k["launches"] = launches[k["name"]]
     emit({"phase": "kernels", "launch_floor_ms": launch_floor_ms(torch),
           "lead_kernels_lost_max": LEAD_LOST["max"], "kernels": kernels})
+    phase_bench_kernels(build)
+    # the dry-run cells trace on the CPU from here to the obs phase
+    pool, cells, records = start_dryrun(src)
     suite_lines = phase_suites(torch, core, build)
     for suite in CPU_HELD_SUITES:
         emit(suite_against_cpu(torch, build, suite))
@@ -3672,6 +3894,8 @@ def main(argv=None) -> int:
     emit(phase_robust_sharding(torch))
     emit(phase_faults(torch, build))
     emit(phase_obs(build, suite_lines))
+    phase_dryrun(pool, cells, records)
+    phase_robust_sharding_records(build, records)
     # last, so that its tens of thousands of launches precede no timed
     # trace of the phases above
     emit(phase_train(torch, build, models))

@@ -1,20 +1,21 @@
 """Beyond-paper: robust mesh/layout selection from dry-run records.
 
 Builds layout candidates for archs with full 4-shape coverage from the
-dry-run roofline step times (``<repo>/experiments/dryrun``), then compares
-the nominal pick (best for the expected traffic mix) with the ENDURE-style
-robust pick (best worst case over a KL ball of mixes) under a long-context
-burst (:mod:`repro_torch.core.robust_sharding`).
+dry-run roofline step times of a records directory (``records``, the
+port's ``launch/dryrun.py`` records on the ``single`` mesh, tags
+``baseline`` and ``opt``), then compares the nominal pick (best for the
+expected traffic mix) with the ENDURE-style robust pick (best worst case
+over a KL ball of mixes) under a long-context burst
+(:mod:`repro_torch.core.robust_sharding`).
 
-An arch with fewer than two tagged candidates prints a skip row, as the
-committed ``BENCH_robust_sharding.json`` holds for all three: the records
-are the output of a mesh compile that the repository does not carry.
+Without a records directory, or for an arch with fewer than two tagged
+candidates, the suite prints a skip row, as the committed
+``BENCH_robust_sharding.json`` holds for all three.
 """
 
 from __future__ import annotations
 
 import time
-from pathlib import Path
 from typing import List
 
 import numpy as np
@@ -24,21 +25,24 @@ from ..core.robust_sharding import (adversarial_mix, candidates_from_dryrun,
                                     nominal_layout, robust_layout)
 from .common import own_starts
 
-DRYRUN = str(Path(__file__).resolve().parents[3] / "experiments" / "dryrun")
+#: the records directory when the caller names none (none: the skip rows)
+DRYRUN = None
 # archs that run all four shapes (incl. long_500k)
 ARCHS = ("mixtral-8x7b", "jamba-1.5-large-398b", "rwkv6-3b")
 SKIPPED = "needs >=2 tagged dry-run configs"
 
 
-def run(device=None, starts=own_starts) -> List[Row]:
-    """The suite's rows.  It runs no tuner, so ``starts`` is unused."""
+def run(device=None, starts=own_starts, records=None) -> List[Row]:
+    """The suite's rows; ``records``: a directory of dry-run records (none:
+    the skip rows).  It runs no tuner, so ``starts`` is unused."""
     rows: List[Row] = []
     expected = np.array([0.70, 0.15, 0.14, 0.01])   # training-dominated
     burst = np.array([0.30, 0.10, 0.20, 0.40])      # long-context burst
     for arch in ARCHS:
         t0 = time.time()
-        cands = candidates_from_dryrun(arch, DRYRUN,
-                                       tags=("baseline", "opt"))
+        where = DRYRUN if records is None else records
+        cands = [] if where is None else candidates_from_dryrun(
+            arch, str(where), tags=("baseline", "opt"))
         if len(cands) < 2:
             rows.append(Row(f"robust_sharding_{arch}", 0.0,
                             skipped=SKIPPED))

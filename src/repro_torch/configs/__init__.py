@@ -10,7 +10,8 @@ MoE decoders (``deepseek-moe-16b``, ``mixtral-8x7b``), the stub-embedding
 from . import (deepseek_moe_16b, glm4_9b, jamba_1_5_large_398b,
                mixtral_8x7b, phi3_mini_3_8b, qwen1_5_110b, qwen2_vl_72b,
                qwen3_14b, rwkv6_3b, whisper_base)
-from .base import EncoderConfig, ModelConfig, MoEConfig
+from .base import (SHAPES, EncoderConfig, ModelConfig, MoEConfig,
+                   ShapeConfig, shape_applicable)
 
 ARCHS = {m.CONFIG.name: m.CONFIG
          for m in (qwen1_5_110b, glm4_9b, phi3_mini_3_8b, qwen3_14b,
@@ -24,5 +25,5 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "EncoderConfig", "ModelConfig", "MoEConfig",
-           "get_config"]
+__all__ = ["ARCHS", "SHAPES", "EncoderConfig", "ModelConfig", "MoEConfig",
+           "ShapeConfig", "get_config", "shape_applicable"]

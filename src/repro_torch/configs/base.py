@@ -5,8 +5,9 @@ A :class:`ModelConfig` describes one architecture: its layer pattern of
 (sequence mixer, channel mixer) blocks, the attention flavour, the MoE
 settings (:class:`MoEConfig`), the encoder tower (:class:`EncoderConfig`)
 and the runtime knobs.  The fields are the JAX package's, but for one
-difference; ``SHAPES``, ``shape_applicable`` and the dry run's specs wait
-for the mesh modules (ROADMAP.md queue 1 item 6).
+difference.  ``SHAPES`` (the four assigned input shapes, each a
+:class:`ShapeConfig`) and ``shape_applicable`` are the JAX package's too;
+the dry run (``launch/dryrun.py``) pairs every arch with every shape.
 
 * ``attention_impl`` names the port's two prefill paths: ``"flash"`` (the
   default; the hand-written kernels on the card and their plain versions
@@ -107,6 +108,14 @@ class ModelConfig:
     def d_inner_mamba(self) -> int:
         return self.mamba_expand * self.d_model
 
+    @property
+    def is_pure_full_attention(self) -> bool:
+        """True if *every* mixer is unwindowed full attention.  Only these
+        skip long_500k; hybrids (Jamba: 1 attn per 8 layers) and SWA archs
+        (Mixtral) run it."""
+        mixers = {m for m, _ in self.pattern + self.prelude}
+        return mixers == {"attn"} and self.window is None
+
     def moe_param_count(self) -> int:
         if self.moe is None:
             return 0
@@ -193,3 +202,32 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned): every arch is paired with all four shapes.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """long_500k is skipped for pure full-attention archs; SSM, SWA and
+    hybrid archs run it."""
+    if shape.name == "long_500k" and cfg.is_pure_full_attention:
+        return False, ("pure full-attention arch: 500k context requires "
+                       "sub-quadratic attention (skip per DESIGN.md)")
+    return True, ""

@@ -24,6 +24,11 @@
 // n <= 4, the tuner's cost vectors, and kGroupLarge = 16 for n <= 16), 128
 // threads a block, so the tuner's 9,600 lanes x 4 make 300 blocks, two to
 // three an SM.  Thread i of a group holds component i's c, log w and w.
+// Wider vectors (the kernels suite's 64 costs a lane) take the large group
+// with P = kPartsWide = 4 components a thread for n <= 64: thread i holds
+// components i*P .. i*P + P-1, takes their max before the group's, and the
+// sum still adds the n terms in index order; at P = 1 every loop over a
+// thread's components is the single component above.
 // An evaluation forms x_i = log w_i + c_i / lam (a true division) and
 // exp(x_i - m) on each thread; the max comes by butterfly shuffles within
 // the group (exact in any order) and the sum by gathering the n terms on
@@ -53,14 +58,15 @@ namespace {
 constexpr float kGR = 0.6180339887498949f;   // golden ratio conjugate
 constexpr int kGroupSmall = 4;               // threads a lane, n <= 4
 constexpr int kGroupLarge = 16;              // threads a lane, n <= 16
+constexpr int kPartsWide = 4;                // components a thread, n <= 64
 constexpr int kThreads = 128;
 constexpr int kScanWidth = 3;                // scan points evaluated at once
 
-// One lane's component, held by one thread of its group.
-template <int G>
+// One lane's P components, held by one thread of its group.
+template <int G, int P>
 struct Part {
-  float c, logw, w;
-  bool on;          // this thread's component exists (sub < n)
+  float c[P], logw[P], w[P];
+  bool on[P];       // the component exists (its index < n)
   int n;
   float rho;
   unsigned mask;    // the group's threads in the warp
@@ -70,14 +76,18 @@ struct Part {
   // exp(x_i - m) and the sum of the terms (for the envelope gradient).
   template <int K>
   __device__ void g(const float (&ll)[K], float (&out)[K],
-                    float (*e_out)[K] = nullptr,
+                    float (*e_out)[K][P] = nullptr,
                     float (*s_out)[K] = nullptr) const {
-    float lam[K], x[K], m[K], e[K], s[K];
+    float lam[K], x[K][P], m[K], e[K][P], s[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       lam[k] = fmaxf(expf(ll[k]), 1e-12f);
-      x[k] = on ? logw + c / lam[k] : -INFINITY;
-      m[k] = x[k];
+#pragma unroll
+      for (int q = 0; q < P; ++q)
+        x[k][q] = on[q] ? logw[q] + c[q] / lam[k] : -INFINITY;
+      m[k] = x[k][0];
+#pragma unroll
+      for (int q = 1; q < P; ++q) m[k] = fmaxf(m[k], x[k][q]);
     }
 #pragma unroll
     for (int off = G / 2; off > 0; off >>= 1) {
@@ -87,15 +97,19 @@ struct Part {
     }
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      e[k] = expf(x[k] - m[k]);
+#pragma unroll
+      for (int q = 0; q < P; ++q) e[k][q] = expf(x[k][q] - m[k]);
       s[k] = 0.0f;
     }
 #pragma unroll
     for (int i = 0; i < G; ++i) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float t = __shfl_sync(mask, e[k], i, G);
-        if (i < n) s[k] += t;
+      for (int q = 0; q < P; ++q) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float t = __shfl_sync(mask, e[k][q], i, G);
+          if (i * P + q < n) s[k] += t;
+        }
       }
     }
 #pragma unroll
@@ -104,19 +118,23 @@ struct Part {
     if (e_out != nullptr) {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        (*e_out)[k] = e[k];
+#pragma unroll
+        for (int q = 0; q < P; ++q) (*e_out)[k][q] = e[k][q];
         (*s_out)[k] = s[k];
       }
     }
   }
 
-  // The sum over the group of v_i, in index order from 0.
-  __device__ float sum_in_order(float v) const {
+  // The sum over the group of the components' v, in index order from 0.
+  __device__ float sum_in_order(const float (&v)[P]) const {
     float s = 0.0f;
 #pragma unroll
     for (int i = 0; i < G; ++i) {
-      const float t = __shfl_sync(mask, v, i, G);
-      if (i < n) s += t;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const float t = __shfl_sync(mask, v[q], i, G);
+        if (i * P + q < n) s += t;
+      }
     }
     return s;
   }
@@ -167,7 +185,7 @@ __device__ __forceinline__ float offset(int j, int n_local, float hw) {
   return -hw * (1.0f - t) + hw * t;
 }
 
-template <int G>
+template <int G, int P>
 __global__ void __launch_bounds__(kThreads) dual_solve_warm_kernel(
     const float* __restrict__ C, const float* __restrict__ W,
     long long w_stride, const float* __restrict__ rho_in,
@@ -180,16 +198,23 @@ __global__ void __launch_bounds__(kThreads) dual_solve_warm_kernel(
   const int sub = (int)(tid % G);
   const int warp_lane = threadIdx.x & 31;
 
-  Part<G> p;
+  Part<G, P> p;
   p.mask = ((1u << G) - 1u) << (warp_lane & ~(G - 1));
   p.n = n;
-  p.on = sub < n;
   p.rho = rho_in[lane];
-  p.c = p.on ? C[lane * n + sub] : 0.0f;
-  p.w = p.on ? W[lane * w_stride + sub] : 0.0f;
-  p.logw = logf(p.w);
-  const float cmax = p.group_max(p.on ? p.c : -INFINITY);
-  const float cmin = p.group_min(p.on ? p.c : INFINITY);
+  float cmax = -INFINITY, cmin = INFINITY;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int i = sub * P + q;
+    p.on[q] = i < n;
+    p.c[q] = p.on[q] ? C[lane * n + i] : 0.0f;
+    p.w[q] = p.on[q] ? W[lane * w_stride + i] : 0.0f;
+    p.logw[q] = logf(p.w[q]);
+    cmax = fmaxf(cmax, p.on[q] ? p.c[q] : -INFINITY);
+    cmin = fminf(cmin, p.on[q] ? p.c[q] : INFINITY);
+  }
+  cmax = p.group_max(cmax);
+  cmin = p.group_min(cmin);
   const float llam = llam_in[lane];
 
   // local scan + bracket (argmin keeps the first index on ties); the
@@ -235,7 +260,7 @@ __global__ void __launch_bounds__(kThreads) dual_solve_warm_kernel(
   }
   const float lspan = logf(fmaxf(cmax - cmin, 1e-9f));
   bool have_final = false;       // the final g came with the last pass
-  float g_final = 0.0f, e_final = 0.0f, s_final = 0.0f;
+  float g_final = 0.0f, e_final[P] = {}, s_final = 0.0f;
   int it = 0;
   while (it < n_golden) {
     const bool smaller = fa < fb;
@@ -253,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) dual_solve_warm_kernel(
     const float at[3] = {
         s1.p, last ? clip_mid(s2[0].lo, s2[0].hi, lspan) : s2[0].p,
         last ? clip_mid(s2[1].lo, s2[1].hi, lspan) : s2[1].p};
-    float f[3], e[3], s[3];
+    float f[3], e[3][P], s[3];
     p.g(at, f, &e, &s);
     const float nfa = smaller ? f[0] : fb;
     const float nfb = smaller ? fa : f[0];
@@ -263,7 +288,9 @@ __global__ void __launch_bounds__(kThreads) dual_solve_warm_kernel(
     llo = s2[o].lo, lhi = s2[o].hi, a = s2[o].a, b = s2[o].b;
     if (last) {
       have_final = true;
-      g_final = f[1 + o], e_final = e[1 + o], s_final = s[1 + o];
+      g_final = f[1 + o], s_final = s[1 + o];
+#pragma unroll
+      for (int q = 0; q < P; ++q) e_final[q] = e[1 + o][q];
       break;
     }
     fa = smaller2 ? f[1 + o] : nfb;
@@ -271,28 +298,39 @@ __global__ void __launch_bounds__(kThreads) dual_solve_warm_kernel(
   }
 
   const float lnew = clip_mid(llo, lhi, lspan);
-  float val, dc;
+  float val, dc[P];
   if (p.rho <= 0.0f) {
-    val = p.sum_in_order(p.w * p.c);
-    dc = p.w;
+    float wc[P];
+#pragma unroll
+    for (int q = 0; q < P; ++q) wc[q] = p.w[q] * p.c[q];
+    val = p.sum_in_order(wc);
+#pragma unroll
+    for (int q = 0; q < P; ++q) dc[q] = p.w[q];
   } else {
     if (!have_final) {
       const float at[1] = {lnew};
-      float f[1], e[1], s[1];
+      float f[1], e[1][P], s[1];
       p.g(at, f, &e, &s);
-      g_final = f[0], e_final = e[0], s_final = s[0];
+      g_final = f[0], s_final = s[0];
+#pragma unroll
+      for (int q = 0; q < P; ++q) e_final[q] = e[0][q];
     }
     val = g_final;
-    dc = e_final / s_final;
+#pragma unroll
+    for (int q = 0; q < P; ++q) dc[q] = e_final[q] / s_final;
   }
   if (sub == 0) {
     val_out[lane] = val;
     lnew_out[lane] = lnew;
   }
-  if (dc_out != nullptr && p.on) dc_out[lane * n + sub] = dc;
+  if (dc_out != nullptr) {
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+      if (p.on[q]) dc_out[lane * n + sub * P + q] = dc[q];
+  }
 }
 
-template <int G>
+template <int G, int P = 1>
 void launch_group(const float* C, const float* W, long long w_stride,
                   const float* rho, const float* llam, float* val,
                   float* lnew, float* dc, long long L, int n,
@@ -300,15 +338,15 @@ void launch_group(const float* C, const float* W, long long w_stride,
                   cudaStream_t stream) {
   const long long threads = L * G;
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-  dual_solve_warm_kernel<G><<<blocks, kThreads, 0, stream>>>(
+  dual_solve_warm_kernel<G, P><<<blocks, kThreads, 0, stream>>>(
       C, W, w_stride, rho, llam, val, lnew, dc, L, n, half_width, n_local,
       n_golden);
 }
 
 }  // namespace
 
-// dc may be null (no gradient); n lies in [1, kGroupLarge]: the wrapper
-// checks.
+// dc may be null (no gradient); n lies in [1, kGroupLarge * kPartsWide]:
+// the wrapper checks.
 extern "C" int dual_solve_warm_launch(const float* C, const float* W,
                                       long long w_stride, const float* rho,
                                       const float* llam, float* val,
@@ -316,14 +354,18 @@ extern "C" int dual_solve_warm_launch(const float* C, const float* W,
                                       int n, float half_width, int n_local,
                                       int n_golden, cudaStream_t stream) {
   if (L <= 0) return 0;
-  if (n < 1 || n > kGroupLarge || n_local < 1)
+  if (n < 1 || n > kGroupLarge * kPartsWide || n_local < 1)
     return (int)cudaErrorInvalidValue;
   if (n <= kGroupSmall) {
     launch_group<kGroupSmall>(C, W, w_stride, rho, llam, val, lnew, dc, L, n,
                               half_width, n_local, n_golden, stream);
-  } else {
+  } else if (n <= kGroupLarge) {
     launch_group<kGroupLarge>(C, W, w_stride, rho, llam, val, lnew, dc, L, n,
                               half_width, n_local, n_golden, stream);
+  } else {
+    launch_group<kGroupLarge, kPartsWide>(C, W, w_stride, rho, llam, val,
+                                          lnew, dc, L, n, half_width,
+                                          n_local, n_golden, stream);
   }
   return (int)cudaGetLastError();
 }

@@ -34,8 +34,8 @@ from .ref import dual_solve_warm_ref
 _LAUNCH_ARGS = (P, P, I64, P, P, P, P, P, I64, I32, F32, I32, I32, P)
 
 #: widest cost vector the kernel takes: its large thread group
-#: (``kGroupLarge``), a component a thread
-N_MAX = 16
+#: (``kGroupLarge``, 16 threads) with ``kPartsWide`` (4) components a thread
+N_MAX = 64
 
 
 def dual_solve_warm_batch(C: torch.Tensor, W: torch.Tensor,

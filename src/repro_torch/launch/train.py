@@ -16,9 +16,11 @@ What differs from the JAX module:
   forward pass only, as the JAX package's Pallas kernels do, and refuse a
   gradient.
 * ``jit_train_step``'s shardings (parameters, optimizer state and batch
-  laid out over a (data, model) mesh) have no counterpart on one card:
-  ``mesh_shape`` other than ``(1, 1)`` raises ``NotImplementedError``
-  (the mesh modules, ROADMAP.md queue 1 item 6).
+  laid out over a (data, model) mesh) are ported as the dry run's
+  (``launch/sharding.py``, ``launch/dryrun.py``), which traces them over
+  a fake process group; a trainer that steps on more than one card is
+  not: ``mesh_shape`` other than ``(1, 1)`` raises
+  ``NotImplementedError`` (ROADMAP.md queue 1 item 7b).
 * ``train_loop`` returns, besides the reference's keys, the step it
   started from (``start``), each step's wall seconds up to the loss's
   readback (``step_s``) and metrics (``metrics``).
@@ -52,7 +54,7 @@ from ..models.model import init_params
 from ..optim import adamw
 from ..utils.tree import leaves, unflatten_like
 
-_NOT_PORTED = "ROADMAP.md queue 1 item 6"
+_NOT_PORTED = "ROADMAP.md queue 1 item 7b"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,8 +123,8 @@ def train_loop(arch: str, reduced: bool, steps: int, mesh_shape=(1, 1),
                num_workers: int = 1, device=None) -> Dict[str, Any]:
     if tuple(mesh_shape) != (1, 1):
         raise NotImplementedError(
-            f"mesh {tuple(mesh_shape)}: the port trains on one device; the "
-            f"mesh modules are not ported yet ({_NOT_PORTED})")
+            f"mesh {tuple(mesh_shape)}: the port trains on one device; a "
+            f"multi-card trainer is not ported yet ({_NOT_PORTED})")
     dev = resolve_device(device)
     cfg = train_config(arch, reduced)
     print(f"train {cfg.name} on {dev}: attention_impl='plain' (the JAX "

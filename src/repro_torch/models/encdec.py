@@ -179,7 +179,8 @@ def _unembed(params: Params, cfg: ModelConfig) -> torch.Tensor:
 
 def _embed(params: Params, tokens: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    from .lm import embed_lookup
+    return embed_lookup(params["embed"], tokens).to(torch_dtype(cfg.dtype))
 
 
 def encdec_loss(params: Params, batch: Dict[str, torch.Tensor],

@@ -21,8 +21,9 @@ What differs from the JAX module:
   and returns the same tensors (JAX returns updated copies).
 * :func:`_sdpa` groups the query heads by kv head instead of repeating the
   kv heads: the same products, without copying the cache.
-* ``utils/shard_hints.hint`` (sharding annotations) is a no-op on one card
-  and is dropped.
+* ``utils/shard_hints.hint`` annotates the activations as the JAX module
+  does (the identity outside a mesh context).  Only on DTensors (the dry
+  run) does :func:`_sdpa` repeat the kv heads, as JAX always does.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
+from ..utils.shard_hints import gather_dim, hint, keep_layout, mesh_split
 
 Params = Dict[str, Any]
 NEG_INF = -1e30  # bf16-safe large-negative for masking
@@ -66,16 +68,20 @@ def init_norm(cfg: ModelConfig, d: Optional[int] = None,
 
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """LayerNorm or RMSNorm over the last axis.  In a mesh (the dry run)
+    the scale and bias are gathered whole, so the output keeps the
+    input's layout."""
     xf = x.float()
+    scale = gather_dim(p["scale"], 0).float()
     if cfg.norm == "ln":
         mu = xf.mean(-1, keepdim=True)
         var = xf.var(-1, keepdim=True, correction=0)
         y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-        y = y * p["scale"].float() + p["bias"].float()
+        y = y * scale + gather_dim(p["bias"], 0).float()
     else:  # rms
         ms = (xf * xf).mean(-1, keepdim=True)
         y = xf * torch.rsqrt(ms + cfg.norm_eps)
-        y = y * p["scale"].float()
+        y = y * scale
     return y.to(x.dtype)
 
 
@@ -167,9 +173,15 @@ def project_in(x: torch.Tensor, w: torch.Tensor,
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk", x, w) as one matrix product."""
+    """einsum("bsd,dhk->bshk", x, w) as one matrix product.  A ``w`` whose
+    head_dim the mesh splits (the dry run, when the heads do not divide
+    the model axis) multiplies as (d, hd * n): a DTensor cannot shard the
+    inner axis of a flattened (n, hd)."""
     B, S, d = x.shape
     _, n, hd = w.shape
+    if mesh_split(w, 2) > 1:
+        y = x.reshape(B * S, d) @ w.transpose(1, 2).reshape(d, hd * n)
+        return keep_layout(y.view(B, S, hd, n).transpose(2, 3))
     return (x.reshape(B * S, d) @ w.reshape(d, n * hd)).view(B, S, n, hd)
 
 
@@ -185,13 +197,50 @@ def _project_qkv(p: Params, xq: torch.Tensor, xkv: torch.Tensor,
     if "q_norm" in p:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
+    q = hint(q, "batch", "seq", "heads", "head_dim")
+    k = hint(k, "batch", "seq", "kv_heads", "head_dim")
+    v = hint(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd", out, wo) as one matrix product."""
+    """einsum("bshk,hkd->bsd", out, wo) as one matrix product (over
+    (hd, H) when the mesh splits ``wo``'s head_dim, as in :func:`_heads`)."""
     B, S, H, hd = out.shape
+    if mesh_split(wo, 1) > 1:
+        return (out.transpose(2, 3).reshape(B * S, hd * H)
+                @ wo.transpose(0, 1).reshape(hd * H, -1)).view(B, S, -1)
     return (out.reshape(B * S, H * hd) @ wo.reshape(H * hd, -1)).view(B, S, -1)
+
+
+def _repeat_kv(k: torch.Tensor, G: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, KV*G, hd), heads grouped by kv head."""
+    if G == 1:
+        return k
+    B, S, KV, hd = k.shape
+    return k[:, :, :, None, :].expand(B, S, KV, G, hd).reshape(
+        B, S, KV * G, hd)
+
+
+def _repeat_kv_hinted(k: torch.Tensor, G: int) -> torch.Tensor:
+    """:func:`_repeat_kv`, hinted head-parallel.  When the mesh does not
+    split the kv heads, a split of the repeated heads is no split of
+    (KV, G), so the gradient is first made whole on the head axis."""
+    whole = G > 1 and mesh_split(k, 2) == 1
+    k = _repeat_kv(k, G)
+    if whole:
+        k = hint(k, "batch", "kv_seq", None, "head_dim")
+    return hint(k, "batch", "kv_seq", "heads", "head_dim")
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Attention of scaled q (B, Sq, H, hd) over k/v (B, Sk, H, hd)."""
+    scores = torch.einsum("bqhd,bshd->bhqs", q, k).float()
+    if mask is not None:
+        scores = scores + mask
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", probs, v)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -201,11 +250,24 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, Sq, H, hd), k/v: (B, Sk, KV, hd), H = KV * G; query head h uses
     kv head h // G.  mask: additive, broadcastable to (B, 1, Sq, Sk), or
     None.  The products run per kv head over its G query heads, which is the
-    JAX function's repeat-then-einsum without the copy."""
+    JAX function's repeat-then-einsum without the copy.  On DTensors (the
+    dry run) it is the JAX function's form: the kv heads repeated to H and
+    hinted head-parallel, since a DTensor cannot split a sharded head axis
+    into (KV, G)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     q = q * (1.0 / math.sqrt(hd))
+    if hasattr(q, "placements"):
+        # every (batch, head) pair is independent: each rank attends its
+        # own shard (a DTensor cannot shard the (B * H) axis the batched
+        # product flattens them into over two mesh axes)
+        from torch.distributed.tensor.experimental import local_map
+        k, v = _repeat_kv_hinted(k, G), _repeat_kv_hinted(v, G)
+        pl = list(q.placements)
+        return local_map(_attend, out_placements=pl,
+                         in_placements=(pl, pl, pl, None),
+                         redistribute_inputs=True)(q, k, v, mask)
     qg = q.view(B, Sq, KV, G, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float()
     scores = scores.reshape(B, H, Sq, Sk)
@@ -310,7 +372,8 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "wi_gate" in p:
-        g = F.silu(x @ p["wi_gate"])
-        u = x @ p["wi_up"]
+        g = F.silu(hint(x @ p["wi_gate"], "batch", "seq", "mlp"))
+        u = hint(x @ p["wi_up"], "batch", "seq", "mlp")
         return (g * u) @ p["wo"]
-    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+    h = hint(x @ p["wi"], "batch", "seq", "mlp")
+    return F.gelu(h, approximate="tanh") @ p["wo"]

@@ -57,6 +57,7 @@ from ..configs.base import ModelConfig
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
+from ..utils.shard_hints import current_mesh, hint
 from .layers import (apply_mlp, apply_norm, attention_decode,
                      attention_full, init_attention, init_mlp, init_norm,
                      init_normal, project_in, torch_dtype)
@@ -172,7 +173,7 @@ def apply_block(p: Params, x: torch.Tensor, kind: Tuple[str, str],
                                                        cache["mixer"], cfg)
     else:
         y, new_cache["mixer"] = rwkv_mod.time_mix_full(p["mixer"], h, cfg)
-    x = x + y
+    x = hint(x + y, "batch", "seq", "embed")
     h2 = apply_norm(p["norm2"], x, cfg)
     if mlp == "dense":
         y2 = apply_mlp(p["mlp"], h2, cfg)
@@ -183,7 +184,7 @@ def apply_block(p: Params, x: torch.Tensor, kind: Tuple[str, str],
                                                          cache["mlp"], cfg)
     else:
         y2, new_cache["mlp"] = rwkv_mod.channel_mix_full(p["mlp"], h2, cfg)
-    x = x + y2
+    x = hint(x + y2, "batch", "seq", "embed")
     return x, new_cache, aux
 
 
@@ -274,6 +275,19 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return x, new_cache, aux_total
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows ``tokens`` of ``table`` (``F.embedding``).  A DTensor
+    table split over the vocabulary (the dry run) gives partial rows,
+    summed across that split at once."""
+    out = torch.nn.functional.embedding(tokens, table)
+    if hasattr(out, "placements") and any(p.is_partial()
+                                          for p in out.placements):
+        from torch.distributed.tensor import Replicate
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
+    return out
+
+
 def embed_tokens(params: Params, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (x, positions) for token or stub-embedding inputs; positions
@@ -282,10 +296,10 @@ def embed_tokens(params: Params, batch: Dict[str, torch.Tensor],
     _check_cfg(cfg)
     dtype = torch_dtype(cfg.dtype)
     if cfg.embed_inputs:
-        tokens = batch["tokens"]
-        x = params["embed"][tokens].to(dtype)
+        x = embed_lookup(params["embed"], batch["tokens"]).to(dtype)
     else:
         x = project_in(batch["embeds"], params["adapter"], dtype)
+    x = hint(x, "batch", "seq", "embed")
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if cfg.mrope_sections is not None:
@@ -299,6 +313,16 @@ def embed_tokens(params: Params, batch: Dict[str, torch.Tensor],
 # Losses
 # ---------------------------------------------------------------------------
 
+def _pick(lg: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``lg[..., idx]`` along the last axis.  Inside a mesh context (the dry
+    run) a masked sum, which has the same value: DTensor cannot reduce
+    the result of a gather over a sharded axis."""
+    if current_mesh() is None:
+        return torch.gather(lg, -1, idx[..., None])[..., 0]
+    hit = idx[..., None] == torch.arange(lg.shape[-1], device=lg.device)
+    return torch.where(hit, lg, 0.0).sum(-1)
+
+
 def softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
                  labels: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Mean next-token cross entropy. ``cfg.logits_chunk`` > 0 computes the
@@ -309,9 +333,9 @@ def softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
     chunk = cfg.logits_chunk
     labels = labels.long()
     if chunk <= 0 or chunk >= V:
-        logits = (h @ unembed).float()
+        logits = hint((h @ unembed).float(), "batch", "seq", "vocab")
         lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+        ll = _pick(logits, labels)
         return torch.mean(lse - ll)
 
     n_chunks = -(-V // chunk)
@@ -321,15 +345,14 @@ def softmax_xent(h: torch.Tensor, unembed: torch.Tensor,
     for i in range(n_chunks):
         lo = i * chunk
         w = unembed[:, lo:lo + chunk]
-        lg = (h @ w).float()
+        lg = hint((h @ w).float(), "batch", "seq", None)
         m_new = torch.maximum(m, lg.amax(-1))
         s = s * torch.exp(m - m_new) \
             + torch.exp(lg - m_new[..., None]).sum(-1)
         m = m_new
         in_chunk = (labels >= lo) & (labels < lo + w.shape[1])
         idx = torch.clamp(labels - lo, 0, w.shape[1] - 1)
-        ll = ll + torch.where(
-            in_chunk, torch.gather(lg, -1, idx[..., None])[..., 0], 0.0)
+        ll = ll + torch.where(in_chunk, _pick(lg, idx), 0.0)
     lse = m + torch.log(s)
     return torch.mean(lse - ll)
 
@@ -367,7 +390,7 @@ def lm_decode_step(params: Params, cache: List[Params],
     frontends); pos: the tokens' position.  Returns (logits (B, 1, V),
     cache), the cache updated in place."""
     dtype = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dtype) if cfg.embed_inputs \
+    x = embed_lookup(params["embed"], tokens).to(dtype) if cfg.embed_inputs \
         else project_in(tokens, params["adapter"], dtype)
     x, new_cache, _ = apply_stack(params, x, cfg, "decode", cache=cache,
                                   pos=pos)

@@ -24,7 +24,8 @@ Parameters are the JAX package's, drawn from a ``torch.Generator`` with
 its distributions; ``dt_bias``, ``A_log`` and ``D`` stay float32 whatever
 ``param_dtype`` is.  :func:`mamba_step` writes the new conv window and
 state into the decode cache in place and returns the same tensors (JAX
-returns new ones); the sharding hints are dropped (a no-op on one card).
+returns new ones).  The sharding hints (``utils/shard_hints.hint``) are
+the JAX module's.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..utils.shard_hints import hint
 from .layers import init_normal, torch_dtype
 
 Params = Dict[str, Any]
@@ -179,10 +181,10 @@ def mamba_full(p: Params, x: torch.Tensor, cfg: ModelConfig
     B, S, _ = x.shape
     di = cfg.d_inner_mamba
     dc = cfg.mamba_d_conv
-    xz = x @ p["in_proj"]
+    xz = hint(x @ p["in_proj"], "batch", "seq", "mlp")
     xi, z = xz[..., :di], xz[..., di:]
     xpad = torch.cat([xi.new_zeros((B, dc - 1, di)), xi], dim=1)
-    xc = _conv(xpad, p, S, dc)
+    xc = hint(_conv(xpad, p, S, dc), "batch", "seq", "mlp")
     dt, A, Bm, Cm = _selective(p, xc, cfg)
     xf = xc.float()
     y, h_last = _ssm(dt, A, Bm, Cm, xf, min(cfg.mamba_chunk, S))

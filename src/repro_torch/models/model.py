@@ -15,9 +15,13 @@ training, and ``prefill``, ``decode_step`` and ``init_cache`` for serving.
 The parameters are built frozen (``requires_grad=False``); a trainer calls
 ``model.requires_grad_(True)`` and takes ``model.params``, whose leaves
 then take gradients.  ``prefill`` and ``decode_step`` run under
-``torch.no_grad`` either way.  The dry run's ``input_specs`` and
-``param_specs`` (``jax.eval_shape`` stand-ins for a TPU-mesh compile) wait
-for the mesh modules (ROADMAP.md queue 1 item 6).
+``torch.no_grad`` either way.
+
+The dry run (``launch/dryrun.py``) builds nothing: :func:`param_specs` and
+:func:`input_specs` give ``meta`` tensors (shapes and dtypes, no storage)
+of a config's parameter tree, in the port's per-layer layout, and of one
+(arch x shape) cell's inputs, the JAX package's ``ModelAPI.param_specs``
+and ``input_specs`` (``jax.eval_shape`` stand-ins).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..kernels._compat import resolve_device
 from . import encdec as encdec_mod
 from . import lm as lm_mod
@@ -157,3 +161,57 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0,
         with torch.no_grad():
             params = init_params(gen, cfg, dev)
     return (EncDec if cfg.encoder is not None else LM)(cfg, params, dev)
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """``cfg``'s parameter tree as ``meta`` tensors (the port's layout:
+    one dict a layer)."""
+    with torch.no_grad():
+        return init_params(None, cfg, torch.device("meta"))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """``meta`` inputs of one (arch x shape) cell, the JAX package's
+    shapes and dtypes: for train and prefill a batch dict (``tokens``
+    int32 (B, S); an encoder-decoder's ``embeds`` (B, S, d_input) beside
+    them; a stub frontend's ``embeds`` (B, S, d) and, under M-RoPE,
+    ``positions`` (3, B, S) in their place; ``labels`` for train), for
+    decode the ``cache`` of S past positions (an encoder-decoder's cross
+    K/V at S too), one new ``tokens`` (B, 1) (a stub frontend: (B, 1, d)
+    embeddings) and ``pos`` (a 0-d int32)."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    d = cfg.d_model
+    emb_dt = {"float32": torch.float32,
+              "bfloat16": torch.bfloat16}[cfg.dtype]
+
+    def ints(*s):
+        return torch.empty(s, dtype=torch.int32, device=meta)
+
+    if shape.kind in ("train", "prefill"):
+        batch: Dict[str, Any] = {}
+        if cfg.encoder is not None:
+            d_in = cfg.encoder.d_input or d
+            batch["embeds"] = torch.empty((B, S, d_in), dtype=emb_dt,
+                                          device=meta)
+            batch["tokens"] = ints(B, S)
+        elif cfg.embed_inputs:
+            batch["tokens"] = ints(B, S)
+        else:
+            batch["embeds"] = torch.empty((B, S, d), dtype=emb_dt,
+                                          device=meta)
+            if cfg.mrope_sections is not None:
+                batch["positions"] = ints(3, B, S)
+        if shape.kind == "train":
+            batch["labels"] = ints(B, S)
+        return batch
+
+    if cfg.encoder is not None:
+        cache = encdec_mod.encdec_init_cache(cfg, B, S, S, meta)
+    else:
+        cache = lm_mod.lm_init_cache(None, cfg, B, S, meta)
+    if cfg.embed_inputs or cfg.encoder is not None:
+        tokens = ints(B, 1)
+    else:
+        tokens = torch.empty((B, 1, d), dtype=emb_dt, device=meta)
+    return {"cache": cache, "tokens": tokens, "pos": ints()}

@@ -23,7 +23,8 @@ What differs from the JAX module:
   No float ``index_add_``, whose atomics would let two runs on the card
   differ in their last bits.  JAX adds dropped rows as zeros into slot 0
   and scatter-adds the combine over tokens, so sums run in another order.
-* ``utils/shard_hints.hint`` is the identity on one device and is dropped.
+* The sharding hints (``utils/shard_hints.hint``) are the JAX module's;
+  the dispatch buffer is hinted after the spare slot is cut off.
 
 The expert products are ``torch.einsum`` over every expert, as the JAX
 package's are plain einsums outside any kernel: a decode step (capacity 1)
@@ -39,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..utils.shard_hints import hint
 from .layers import init_normal, torch_dtype
 
 Params = Dict[str, torch.Tensor]
@@ -131,12 +133,15 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
     rows = torch.arange(B, device=x.device)[:, None, None].expand(B, S, k)
     buf = x.new_zeros((B, E, cap + 1, d))
     buf[rows, eidx, slot] = x[:, :, None, :].expand(B, S, k, d)
-    buf = buf[:, :, :cap]                               # (B, E, cap, d)
+    buf = hint(buf[:, :, :cap], "batch", "expert", "capacity", "embed")
 
     # batched expert FFN: (B, E, C, d) x (E, d, ef) -> (B, E, C, ef)
     g = F.silu(torch.einsum("becd,edf->becf", buf, p["wi_gate"]))
     u = torch.einsum("becd,edf->becf", buf, p["wi_up"])
-    eout = torch.einsum("becf,efd->becd", g * u, p["wo"])
+    g = hint(g, "batch", "expert", "capacity", "expert_mlp")
+    u = hint(u, "batch", "expert", "capacity", "expert_mlp")
+    eout = hint(torch.einsum("becf,efd->becd", g * u, p["wo"]),
+                "batch", "expert", "capacity", "embed")   # (B, E, C, d)
     eout = F.pad(eout, (0, 0, 0, 1))                    # spare slot: zeros
 
     gate = torch.where(keep, gate, 0.0).to(eout.dtype)
@@ -144,9 +149,11 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
     out = y[:, :, 0]
     for j in range(1, k):
         out = out + y[:, :, j]
+    out = hint(out, "batch", "seq", "embed")
 
     if m.num_shared > 0:
         sp = p["shared"]
-        sg = F.silu(x @ sp["wi_gate"]) * (x @ sp["wi_up"])
+        sg = F.silu(hint(x @ sp["wi_gate"], "batch", "seq", "mlp")) \
+            * hint(x @ sp["wi_up"], "batch", "seq", "mlp")
         out = out + sg @ sp["wo"]
     return out, aux

@@ -23,8 +23,8 @@ Parameters are the JAX package's, drawn from a ``torch.Generator`` with
 its distributions; ``w_base`` and ``u`` stay float32 whatever
 ``param_dtype`` is.  What differs from the JAX module: the step functions
 write the new state and ``x_prev`` into the decode cache in place and
-return the same tensors (JAX returns new ones), and the sharding hints
-are dropped (a no-op on one card).
+return the same tensors (JAX returns new ones).  The sharding hints
+(``utils/shard_hints.hint``) are the JAX module's.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.rwkv6.ops import rwkv6
+from ..utils.shard_hints import gather_dim, hint, mesh_split
 from .layers import init_normal, torch_dtype
 
 Params = Dict[str, Any]
@@ -81,21 +82,28 @@ def _project(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
     xs = _token_shift(x, x_prev)
 
     def lerp(mu):
-        return x + (xs - x) * mu
+        return x + (xs - x) * gather_dim(mu, 0)
 
-    r = lerp(p["mu_r"]) @ p["wr"]
-    k = lerp(p["mu_k"]) @ p["wk"]
-    v = lerp(p["mu_v"]) @ p["wv"]
-    g = lerp(p["mu_g"]) @ p["wg"]
-    ww = p["w_base"] + (torch.tanh(lerp(p["mu_w"]) @ p["w_A"])
+    r = hint(lerp(p["mu_r"]) @ p["wr"], "batch", "seq", "mlp")
+    k = hint(lerp(p["mu_k"]) @ p["wk"], "batch", "seq", "mlp")
+    v = hint(lerp(p["mu_v"]) @ p["wv"], "batch", "seq", "mlp")
+    g = hint(lerp(p["mu_g"]) @ p["wg"], "batch", "seq", "mlp")
+    # the LoRA's rank axis is whole on every rank of a mesh (DTensor may
+    # otherwise split the tokens it flattens over two mesh axes)
+    ww = p["w_base"] + (torch.tanh(hint(lerp(p["mu_w"]) @ p["w_A"],
+                                        "batch", "seq", None))
                         @ p["w_B"]).float()
     logw = -torch.exp(ww)
     return r, k, v, g, logw
 
 
 def _heads(x: torch.Tensor, n: int) -> torch.Tensor:
-    B, S, d = x.shape
-    return x.view(B, S, d // n, n)
+    """(..., d) -> (..., d // n, n).  When the mesh splits the channels
+    into pieces that are not whole heads (the dry run: 40 heads on a
+    16-way axis), the channels are gathered first."""
+    if (x.shape[-1] // n) % mesh_split(x, -1):
+        x = gather_dim(x, -1)
+    return x.reshape(*x.shape[:-1], x.shape[-1] // n, n)
 
 
 def wkv_chunked(r, k, v, logw, u, chunk: int = 32):
@@ -150,6 +158,38 @@ def wkv_chunked(r, k, v, logw, u, chunk: int = 32):
     return y.reshape(B, S, H, n), state
 
 
+def _wkv_local(r, k, v, logw, u, chunk: int = 32):
+    """:func:`wkv_chunked` of DTensors (the dry run), on each rank's shard:
+    every (batch, head) pair is independent, and the chunk loop's small
+    operations then run on the local shards."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = list(r.placements)
+    if any(p.is_shard() and p.dim not in (0, 2) for p in pl):
+        raise ValueError(f"wkv of a sequence or channel split: {pl}")
+    state = [Shard(1) if p.is_shard() and p.dim == 2 else p for p in pl]
+    u_pl = [Shard(0) if p.is_shard() and p.dim == 2 else Replicate()
+            for p in pl]
+    return local_map(wkv_chunked, out_placements=(pl, state),
+                     in_placements=(pl, pl, pl, pl, u_pl, None),
+                     redistribute_inputs=True)(r, k, v, logw, u, chunk)
+
+
+def _wkv_step_local(r, k, v, logw, u, state):
+    """:func:`wkv_step` of DTensors (the dry run), on each rank's shard of
+    the (batch, head) pairs; the state is first laid out as ``r``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = list(r.placements)
+    if any(p.is_shard() and p.dim not in (0, 1) for p in pl):
+        raise ValueError(f"wkv step of a channel split: {pl}")
+    u_pl = [Shard(0) if p.is_shard() and p.dim == 1 else Replicate()
+            for p in pl]
+    return local_map(wkv_step, out_placements=(pl, pl),
+                     in_placements=(pl, pl, pl, pl, u_pl, pl),
+                     redistribute_inputs=True)(r, k, v, logw, u, state)
+
+
 def wkv_step(r, k, v, logw, u, state):
     """One decode step. r/k/v/logw: (B, H, n); state: (B, H, n, n)."""
     r, k, v, logw = (t.float() for t in (r, k, v, logw))
@@ -185,14 +225,19 @@ def time_mix_full(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if cfg.attention_impl == "flash":
         wkv = rwkv6
     elif cfg.attention_impl == "plain":
-        wkv = wkv_chunked
+        wkv = _wkv_local if hasattr(r, "placements") else wkv_chunked
     else:
         raise ValueError(f"attention_impl {cfg.attention_impl!r}: the port "
                          "has 'flash' and 'plain'")
+    gathered = (d // n) % mesh_split(r, -1) != 0
     y, S_last = wkv(_heads(r, n), _heads(k, n), _heads(v, n),
                     _heads(logw, n), p["u"], chunk=chunk)
     y = y.reshape(B, S, d).to(x.dtype)
-    y = _group_norm(y, p["ln_out"], cfg.norm_eps, n)
+    scale = gather_dim(p["ln_out"], 0) if gathered else p["ln_out"]
+    y = _group_norm(y, scale, cfg.norm_eps, n)
+    if gathered:
+        # the heads were gathered (see _heads): so is the gradient
+        y = hint(y, "batch", "seq", "embed")
     out = (y * F.silu(g)) @ p["wo"]
     return out, {"state": S_last, "x_prev": x[:, -1, :].clone()}
 
@@ -203,11 +248,10 @@ def time_mix_step(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     """Decode step; x: (B, 1, d).  Writes the cache in place."""
     B, _, d = x.shape
     n = cfg.rwkv_head_dim
-    H = d // n
     r, k, v, g, logw = _project(p, x, cache["x_prev"], cfg)
-    rh, kh, vh, lwh = (t.reshape(B, H, n) for t in
-                       (r[:, 0], k[:, 0], v[:, 0], logw[:, 0]))
-    y, new_state = wkv_step(rh, kh, vh, lwh, p["u"], cache["state"])
+    rh, kh, vh, lwh = (_heads(t[:, 0], n) for t in (r, k, v, logw))
+    step = _wkv_step_local if hasattr(rh, "placements") else wkv_step
+    y, new_state = step(rh, kh, vh, lwh, p["u"], cache["state"])
     y = y.reshape(B, 1, d).to(x.dtype)
     y = _group_norm(y, p["ln_out"], cfg.norm_eps, n)
     out = (y * F.silu(g)) @ p["wo"]
@@ -235,8 +279,8 @@ def init_channel_mix(gen: torch.Generator, cfg: ModelConfig,
 
 def _channel_mix(p: Params, x: torch.Tensor,
                  xs: torch.Tensor) -> torch.Tensor:
-    xk = x + (xs - x) * p["mu_k"]
-    xr = x + (xs - x) * p["mu_r"]
+    xk = x + (xs - x) * gather_dim(p["mu_k"], 0)
+    xr = x + (xs - x) * gather_dim(p["mu_r"], 0)
     k = torch.square(F.relu(xk @ p["wk"]))
     return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
 

@@ -12,7 +12,8 @@ walks one leaf at a time, and a large leaf in slices of ``SLICE``
 entries, so the float32 temporaries of the update never exceed a few
 slices: at full width the largest leaf is ``qwen3-14b``'s ``lm_head``
 (778 M entries, 3.1 GB a float32 copy).  Every operation is elementwise,
-so the slicing changes no number.
+so the slicing changes no number.  A DTensor leaf (the dry run's) updates
+whole: each rank holds its shard.
 """
 
 from __future__ import annotations
@@ -57,7 +58,12 @@ def init(params: Any) -> AdamWState:
 
 
 def _flat_slices(*tensors: torch.Tensor):
-    """Aligned slices of SLICE entries of each tensor's flat view."""
+    """Aligned slices of SLICE entries of each tensor's flat view.  A
+    DTensor comes whole: each rank updates its own shard, and the flat
+    view of a sharded tensor would gather it."""
+    if hasattr(tensors[0], "placements"):       # a DTensor
+        yield list(tensors)
+        return
     flats = [t.reshape(-1) for t in tensors]
     n = flats[0].numel()
     for lo in range(0, n, SLICE):

@@ -125,6 +125,43 @@ def test_dual_solve_groups_and_dc_match_plain(dev, L, n):
     assert torch.equal(dc1[rho == 0], W[rho == 0])
 
 
+@pytest.mark.parametrize("n", [17, 33, 64])
+@pytest.mark.parametrize("L", [1, 127, 1024, 9600])
+def test_dual_solve_wide_lanes_match_plain(dev, L, n):
+    """The large group with 4 components a thread (17 <= n <= 64; the
+    kernels suite's 64 costs a lane) against the plain version: values
+    rel 1e-5 on every lane, log lambda bit for bit on 99% of lanes and
+    inside the scan's bracket (llam +- 0.8) on all, dc rel 1e-5 at the
+    kernel's lambda and equal to the plain version's where the lambdas
+    agree.  (The sum over 64 terms runs in index order in the kernel and
+    pairwise in torch, so more compares flip than at n = 4.)"""
+    rng = np.random.default_rng(L * 37 + n)
+    C = torch.tensor(rng.gamma(2.0, 2.0, (L, n)), dtype=torch.float32,
+                     device=dev)
+    W = torch.tensor(rng.dirichlet(np.ones(n), L), dtype=torch.float32,
+                     device=dev)
+    rho = torch.tensor(rng.uniform(0, 3, L), dtype=torch.float32,
+                       device=dev)
+    rho[::5] = 0.0
+    llam = torch.tensor(rng.normal(1.0, 1.5, L), dtype=torch.float32,
+                        device=dev)
+    v1, l1, dc1 = dual_solve_warm_batch(C, W, rho, llam, grad=True)
+    v2, l2, dc2 = dual_solve_warm_ref(C, W, rho, llam, grad=True)
+    assert ((v1 - v2).abs() / v2.abs()).max().item() <= 1e-5
+    dl = (l1 - l2).abs()
+    assert (dl <= 1e-5).float().mean().item() >= (0.99 if L > 100 else 1.0)
+    lspan = torch.log(torch.clamp(C.max(1).values - C.min(1).values,
+                                  min=1e-9))
+    lo = torch.minimum(torch.maximum(llam - 0.8, lspan - 16.0), lspan + 16.0)
+    hi = torch.minimum(torch.maximum(llam + 0.8, lspan - 16.0), lspan + 16.0)
+    assert ((l1 >= lo - 1e-5) & (l1 <= hi + 1e-5)).all()
+    torch.testing.assert_close(dc1, envelope_grad(C, W, rho, l1),
+                               rtol=1e-5, atol=0)
+    same = l1 == l2
+    torch.testing.assert_close(dc1[same], dc2[same], rtol=1e-5, atol=0)
+    assert torch.equal(dc1[rho == 0], W[rho == 0])
+
+
 @pytest.mark.parametrize("na,nb", [(50_000, 70_000), (1, 0), (0, 3),
                                    (129, 1)])
 def test_merge_kernel_matches_plain(dev, na, nb):
@@ -1358,3 +1395,32 @@ def test_checkpoint_store_on_card_matches_cpu(dev, tmp_path):
     assert back["w"].device.type == "cuda"
     assert torch.equal(back["w"].cpu(), tree["w"])
     assert card.manifest.stats.as_dict() == cpu.manifest.stats.as_dict()
+
+
+def test_kernels_suite_on_card_holds_the_committed_counts(dev):
+    """The ``kernels`` suite on the card: every held field of
+    ``BENCH_kernels.json`` (the counts and effective bytes), each
+    data-plane kernel launched."""
+    from repro_torch.bench import run
+    _build.reset_launches()
+    res = run.run_suite("kernels", device="cuda", baseline_dir=run.REPO_ROOT)
+    assert res["comparison"]["missed"] == []
+    assert len(res["comparison"]["held"]) == 16
+    assert all(_build.LAUNCHES[k] for k in ("dual_solve", "merge",
+                                            "point_read"))
+
+
+def test_dryrun_decode_cell_traces_on_a_cuda_mesh(dev, monkeypatch):
+    """The dry run's fake tensors on the card's device type: a full-size
+    decode cell over 256 fake ranks traces with no device memory."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "MESH_DEVICE", "cuda")
+    before = torch.cuda.memory_allocated()
+    rec = dryrun.run_cell("qwen3-14b", "decode_32k", "single", save=False,
+                          verbose=False)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["trace"]["flops_per_dev"] > 0
+    assert torch.cuda.memory_allocated() == before
+    assert not dist.is_initialized()

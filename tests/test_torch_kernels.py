@@ -176,18 +176,23 @@ def test_dual_solve_autograd_uses_the_saved_dc(n, shared_w):
 
 def test_dual_solve_group_sizes_match_the_wrapper():
     """The kernel's thread groups, as its constants and its comment state
-    them, take the cost vectors the wrapper lets through: the large group
-    is ``N_MAX`` threads (one component each), the small one 4."""
+    them, take the cost vectors the wrapper lets through: the small group
+    is 4 threads, the large one 16 (one component each), and the large
+    group with ``kPartsWide`` components a thread reaches ``N_MAX``."""
     import re
     from repro_torch.kernels.dual_solve import ops as dual_ops
     src = (REPO / "src/repro_torch/csrc/dual_solve.cu").read_text()
     small = int(re.search(r"kGroupSmall = (\d+);", src).group(1))
     large = int(re.search(r"kGroupLarge = (\d+);", src).group(1))
-    assert (small, large) == (4, dual_ops.N_MAX)
+    wide = int(re.search(r"kPartsWide = (\d+);", src).group(1))
+    assert (small, large) == (4, 16)
+    assert large * wide == dual_ops.N_MAX
     text = " ".join(" ".join(ln.strip().lstrip("/") for ln in
                              src.splitlines()).split())
     assert f"kGroupSmall = {small} threads for n <= {small}" in text
-    assert f"kGroupLarge = {large} for n <= {dual_ops.N_MAX}" in text
+    assert f"kGroupLarge = {large} for n <= {large}" in text
+    assert f"P = kPartsWide = {wide} components a thread for n <= " \
+        f"{dual_ops.N_MAX}" in text
     assert 32 % large == 0 and large % small == 0
 
 

@@ -608,7 +608,7 @@ def test_trainer_refusals(monkeypatch):
         TT.train_loop("qwen3-14b", True, 1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TT.main(["--arch", "qwen3-14b", "--reduced", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
         TT.train_loop("qwen3-14b", True, 1, mesh_shape=(2, 1),
                       device="cpu")
     out = TT.train_loop("whisper-base", True, 1, device="cpu", seq_len=16)
